@@ -21,7 +21,11 @@ setup(
     description="TPU-native video-to-tensor streaming (jax.Array out)",
     packages=["tensor_stream_tpu", "tensor_stream_tpu.ops",
               "tensor_stream_tpu.models", "tensor_stream_tpu.parallel",
-              "tensor_stream_tpu.utils"],
+              "tensor_stream_tpu.utils",
+              # The PyTorch/CUDA port; its CUDA sources build at first use.
+              "tensor_stream_torch", "tensor_stream_torch.ops",
+              "tensor_stream_torch.utils"],
+    package_data={"tensor_stream_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "flax", "optax"],
     cmdclass={"build_py": BuildWithNative},

@@ -1,0 +1,29 @@
+"""tensor-stream for PyTorch and CUDA: video streams to CUDA tensors.
+
+The port of the JAX package (tensor-stream-tpu) to PyTorch on an NVIDIA
+H100. H.264 files and streams are demuxed and decoded on the host by the
+same native runtime (csrc/, libtsingest.so over ctypes), kept in an NV12 ring, and
+converted on the card (crop -> NV12-domain resize -> colour conversion ->
+normalization -> planar/merged layout) into ``torch.Tensor``s on
+``cuda:N``. Full-frame NV12->RGB runs in a hand-written CUDA kernel
+(csrc/nv12_rgb.cu).
+
+    from tensor_stream_torch import TensorStreamConverter, FourCC, Planes
+
+Entry points take ``device=None``, meaning ``cuda:<index>``; they raise
+when no CUDA device is present unless ``device="cpu"`` is passed.
+This package imports nothing of JAX or of the JAX package.
+"""
+from .data import FrameLoader
+from .enums import (ColorStandard, FourCC, FrameRate, LogsLevel, LogsType,
+                    Planes, ResizeType, StatusLevel, channels_by_fourcc)
+from .ops.vpp import VPPConfig
+from .tensor_stream import FrameParameters, TensorStreamConverter
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "TensorStreamConverter", "FrameParameters", "FrameLoader", "VPPConfig",
+    "StatusLevel", "LogsLevel", "LogsType", "FourCC", "ResizeType", "Planes",
+    "FrameRate", "ColorStandard", "channels_by_fourcc",
+]

@@ -1,0 +1,134 @@
+"""ctypes bindings to libtsingest.so, the native ingest runtime in csrc/.
+
+The port calls the same C ABI as the JAX package (demux, software decode,
+NV12 ring, host resize, host VPP); this module keeps its own signatures so
+that nothing of the JAX package is imported. ctypes releases the GIL for
+every call, so the native producer and a Python drain thread overlap.
+"""
+import ctypes
+import fcntl
+import os
+import subprocess
+import threading
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+# Status codes (csrc/ts_common.h).
+TS_OK = 0
+TS_REPEAT = -1
+TS_UNSUPPORTED = -2
+TS_ERROR = -3
+TS_EOF = -4
+TS_FINISHED = -5
+TS_TIMEOUT = -6
+# Mid-stream geometry switch: re-query dims via ts_pipeline_ack_renegotiate
+# and resize consumer buffers before retrying the read.
+TS_RENEGOTIATE = -8
+
+
+class NativeBuildError(RuntimeError):
+    """`make -C csrc` failed: the machine lacks what libtsingest.so needs
+    (a C++20 compiler and FFmpeg's development libraries)."""
+
+
+def lib_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+
+
+def _build_if_needed(lib_path: str) -> None:
+    srcs = [os.path.join(lib_dir(), f) for f in os.listdir(lib_dir())
+            if f.endswith((".cpp", ".h"))]
+    if os.path.exists(lib_path):
+        lib_mtime = os.path.getmtime(lib_path)
+        if all(os.path.getmtime(s) <= lib_mtime for s in srcs):
+            return
+    # Processes that load the library at once (test workers) build it once.
+    lock_dir = os.path.join(os.path.dirname(lib_dir()), "build")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, "libtsingest.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        proc = subprocess.run(["make", "-C", lib_dir()], capture_output=True,
+                              text=True)
+    if proc.returncode != 0:
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
+        raise NativeBuildError("make -C csrc failed: " + " | ".join(tail))
+
+
+def load():
+    """Loads (building if stale) and configures the native library."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        lib_path = os.path.join(lib_dir(), "libtsingest.so")
+        _build_if_needed(lib_path)
+        lib = ctypes.CDLL(lib_path)
+
+        c_void_p, c_char_p, c_int = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int
+        c_int_p = ctypes.POINTER(ctypes.c_int)
+
+        def sig(name, restype, argtypes):
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+
+        sig("ts_pipeline_create", c_void_p, [])
+        sig("ts_pipeline_init", c_int,
+            [c_void_p, c_char_p, c_int, c_int, c_int, c_int, c_int])
+        sig("ts_pipeline_init_ex2", c_int,
+            [c_void_p, c_char_p, c_int, c_int, c_int, c_int, c_int, c_int,
+             c_int, c_int, c_int, c_int])
+        sig("ts_pipeline_seek_frame", c_int, [c_void_p, ctypes.c_longlong])
+        sig("ts_pipeline_set_format_option", None,
+            [c_void_p, c_char_p, c_char_p])
+        sig("ts_pipeline_start", c_int, [c_void_p])
+        sig("ts_pipeline_step", c_int, [c_void_p])
+        sig("ts_pipeline_get", c_int,
+            [c_void_p, c_char_p, c_int, c_void_p, c_void_p])
+        sig("ts_pipeline_get_batch", c_int,
+            [c_void_p, c_char_p, c_int, c_void_p, c_void_p, c_int_p])
+        sig("ts_pipeline_register_cursor", None, [c_void_p, c_char_p])
+        sig("ts_pipeline_get_batch_resized", c_int,
+            [c_void_p, c_char_p, c_int, c_int, c_int, c_int, c_void_p,
+             c_void_p, c_int_p])
+        sig("ts_pipeline_ack_renegotiate", c_int,
+            [c_void_p, c_char_p, c_int_p, c_int_p])
+        sig("ts_pipeline_consumer_dims", None,
+            [c_void_p, c_char_p, c_int_p, c_int_p])
+        sig("ts_pipeline_detected_standard", c_int, [c_void_p])
+        sig("ts_pipeline_stop", None, [c_void_p])
+        sig("ts_pipeline_destroy", None, [c_void_p])
+        for name in ("width", "height", "fps_num", "fps_den", "frame_index",
+                     "analyze_errors", "reconnect_count"):
+            sig(f"ts_pipeline_{name}", c_int, [c_void_p])
+        sig("ts_pipeline_skip_analyze", None, [c_void_p])
+        sig("ts_pipeline_enable_logs", None, [c_void_p, c_int])
+        sig("ts_pipeline_enable_trace", None, [c_void_p])
+        sig("ts_set_timeout_ms", None, [c_int])
+        sig("ts_get_timeout_ms", c_int, [])
+        # GOP/segment-parallel reader (seekable files; csrc/segment_reader.h)
+        sig("ts_segmented_create", c_void_p,
+            [c_char_p, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+             c_int, c_int])
+        sig("ts_segmented_start", c_int, [c_void_p])
+        sig("ts_segmented_get_batch", c_int,
+            [c_void_p, c_int, c_void_p, c_void_p, c_int_p])
+        for name in ("width", "height", "out_width", "out_height"):
+            sig(f"ts_segmented_{name}", c_int, [c_void_p])
+        sig("ts_segmented_seek_frame", None, [c_void_p, ctypes.c_longlong])
+        sig("ts_segmented_stop", None, [c_void_p])
+        sig("ts_segmented_destroy", None, [c_void_p])
+        # Host VPP (csrc/vpp_convert.cpp): the source-order reference the
+        # tests hold the plain torch colour math to.
+        sig("ts_vpp_convert_host", c_int,
+            [c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_int, c_int,
+             c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_void_p])
+        sig("ts_vpp_output_elements", ctypes.c_longlong, [c_int, c_int, c_int])
+        sig("ts_vpp_is_float", c_int, [c_int, c_int])
+        sig("ts_vpp_output_size", None,
+            [c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+             c_int_p, c_int_p])
+
+        _LIB = lib
+        return _LIB

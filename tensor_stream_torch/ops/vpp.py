@@ -1,0 +1,211 @@
+"""VPP: crop -> NV12-domain resize -> colour conversion -> tensor shaping.
+
+Port of the JAX package's ``ops/vpp.py`` (reference:
+src/VideoProcessor.cpp:94-166 and the tensor shape contract of
+src/Wrappers/WrapperPython.cpp:315-343). PyTorch runs eagerly, so a
+"built" VPP is a plain function over tensors with its index tables made
+once; it runs on the device its input lies on.
+
+Full-frame RGB24/BGR24 (no crop, no resize), planar or merged, goes
+through the hand-written CUDA kernel for CUDA tensors (ops/nv12_rgb.py);
+every other config, and every config on the CPU, runs the plain torch ops.
+"""
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..enums import (ColorStandard, FourCC, Planes, ResizeType,
+                     channels_by_fourcc)
+from . import color as color_ops
+from . import nv12_rgb
+from .crop import crop_nv12
+from .resize import make_resize_fn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class VPPConfig:
+    """Static parameters of one conversion."""
+    src_width: int
+    src_height: int
+    crop: tuple = (0, 0, 0, 0)  # (left, top, right, bottom); zeros = off
+    width: int = 0              # resize target; 0 = native
+    height: int = 0
+    resize_type: ResizeType = ResizeType.NEAREST
+    fourcc: FourCC = FourCC.RGB24
+    planes: Planes = Planes.MERGED
+    normalization: bool = False
+    # YUV->RGB matrix; only RGB24/BGR24/HSV apply it.
+    standard: ColorStandard = ColorStandard.BT601
+    # Output dtype override: "" keeps the reference contract (uint8, or
+    # float32 with normalization); "bfloat16"/"float16"/"float32" cast the
+    # final tensor once, after the exact f32 math.
+    dtype: str = ""
+
+    def __post_init__(self):
+        if self.dtype not in ("", *_DTYPES):
+            raise ValueError(
+                f"unsupported output dtype {self.dtype!r}; expected "
+                "'bfloat16', 'float16', 'float32' or '' (contract default)")
+        # HSV output is always normalized float (VideoProcessor.h:39-52).
+        if self.fourcc == FourCC.HSV:
+            object.__setattr__(self, "normalization", True)
+        # NV12-domain resize interleaves UV at half the target width, so
+        # odd targets would corrupt chroma; fail loudly.
+        if (self.width or self.height) and (self.width % 2 or
+                                            self.height % 2):
+            raise ValueError("resize target must have even width/height "
+                             f"(got {self.width}x{self.height})")
+
+    def output_size(self):
+        """Final (width, height) after crop/resize defaulting
+        (reference: VideoProcessor.cpp:106-135)."""
+        w, h = self.src_width, self.src_height
+        cw = self.crop[2] - self.crop[0]
+        ch = self.crop[3] - self.crop[1]
+        if 0 < cw < self.src_width and 0 < ch < self.src_height:
+            w, h = cw, ch
+        if self.width and self.height:
+            w, h = self.width, self.height
+        return w, h
+
+    def output_shape(self):
+        """Tensor shape contract (WrapperPython.cpp:318-341)."""
+        w, h = self.output_size()
+        c = channels_by_fourcc(self.fourcc)
+        if self.fourcc in (FourCC.RGB24, FourCC.BGR24):
+            return (3, h, w) if self.planes == Planes.PLANAR else (h, w, 3)
+        if self.fourcc in (FourCC.YUV444, FourCC.HSV):
+            return (h, w, 3)
+        return (1, int(h * c), w)
+
+    def output_dtype(self):
+        if self.dtype:
+            return _DTYPES[self.dtype]
+        return torch.float32 if self.normalization else torch.uint8
+
+
+def make_vpp_fn(cfg: VPPConfig):
+    """The NV12 -> tensor conversion for `cfg`: (y [..., H, W],
+    uv [..., H/2, W]) uint8 -> [..., *cfg.output_shape()], on y's device."""
+    cw = cfg.crop[2] - cfg.crop[0]
+    ch = cfg.crop[3] - cfg.crop[1]
+    do_crop = 0 < cw < cfg.src_width and 0 < ch < cfg.src_height
+    cur_w, cur_h = (cw, ch) if do_crop else (cfg.src_width, cfg.src_height)
+    do_resize = bool(cfg.width and cfg.height and
+                     (cfg.width != cur_w or cfg.height != cur_h))
+    out_w, out_h = cfg.output_size()
+    four = cfg.fourcc
+    if four in (FourCC.RGB24, FourCC.BGR24, FourCC.HSV) and \
+            cfg.standard is ColorStandard.AUTO:
+        raise ValueError("ColorStandard.AUTO must be resolved from the "
+                         "stream before the VPP is built")
+    resize = (make_resize_fn(cur_w, cur_h, cfg.width, cfg.height,
+                             cfg.resize_type) if do_resize else None)
+    rgb = four in (FourCC.RGB24, FourCC.BGR24)
+    swap_rb = four == FourCC.BGR24
+    planar = cfg.planes == Planes.PLANAR
+
+    def base_fn(y, uv):
+        if not (do_crop or do_resize) and rgb:
+            # Full frame: the CUDA kernel for CUDA tensors, plain on CPU.
+            return nv12_rgb.nv12_to_rgb(y, uv, swap_rb, planar,
+                                        cfg.normalization,
+                                        cfg.standard.value)
+        if do_crop:
+            y, uv = crop_nv12(y, uv, *cfg.crop)
+        if do_resize:
+            y, uv = resize(y, uv)
+        if rgb:
+            return color_ops.nv12_to_rgb(y, uv, swap_rb=swap_rb,
+                                         planar=planar,
+                                         normalization=cfg.normalization,
+                                         standard=cfg.standard.value)
+        if four == FourCC.Y800:
+            return color_ops.nv12_to_y800(y, cfg.normalization)
+        if four == FourCC.UYVY:
+            out = color_ops.nv12_to_uyvy(y, uv, cfg.normalization)
+            return out.reshape(*out.shape[:-2], 1, out_h * 2, out_w)
+        if four == FourCC.YUV444:
+            uyvy = color_ops.nv12_to_uyvy(y, uv, normalization=False,
+                                          as_float=cfg.normalization)
+            return color_ops.uyvy_to_yuv444(uyvy, out_w, out_h,
+                                            cfg.normalization,
+                                            float_mode=cfg.normalization)
+        if four == FourCC.NV12:
+            return color_ops.nv12_merge(y, uv, cfg.normalization)
+        if four == FourCC.HSV:
+            return color_ops.nv12_to_hsv(y, uv, standard=cfg.standard.value)
+        raise ValueError(f"unsupported FourCC {four}")
+
+    if not cfg.dtype:
+        return base_fn
+    out_dtype = _DTYPES[cfg.dtype]
+    return lambda y, uv: base_fn(y, uv).to(out_dtype)
+
+
+def _on(device, t):
+    return t if t.device == device else t.to(device, non_blocking=True)
+
+
+@lru_cache(maxsize=256)
+def _vpp(cfg: VPPConfig, device: torch.device):
+    fn = make_vpp_fn(cfg)
+    return lambda y, uv: fn(_on(device, y), _on(device, uv))
+
+
+def build_vpp(cfg: VPPConfig, device=None, device_index: int = 0):
+    """Single-frame VPP: (y [H,W] u8, uv [H/2,W] u8) -> tensor on `device`
+    (default ``cuda:<device_index>``)."""
+    return _vpp(cfg, resolve_device(device, device_index))
+
+
+def build_vpp_batched(cfg: VPPConfig, device=None, device_index: int = 0):
+    """Batched VPP: (y [N,H,W], uv [N,H/2,W]) -> [N, ...] on `device`."""
+    return _vpp(cfg, resolve_device(device, device_index))
+
+
+@lru_cache(maxsize=64)
+def _vpp_flat(cfg: VPPConfig, batch: int, device: torch.device, post_fn):
+    fn = make_vpp_fn(cfg)
+    h, w = cfg.src_height, cfg.src_width
+    y_size = batch * h * w
+
+    def flat_fn(flat):
+        flat = _on(device, flat)
+        ys = flat[:y_size].view(batch, h, w)
+        uvs = flat[y_size:].view(batch, h // 2, w)
+        out = fn(ys, uvs)
+        return post_fn(out) if post_fn is not None else out
+
+    return flat_fn
+
+
+def build_vpp_batched_flat(cfg: VPPConfig, batch: int, device=None,
+                           post_fn=None, device_index: int = 0):
+    """Batched VPP over ONE flat NV12 staging buffer.
+
+    Takes a (batch*H*W*3/2,) uint8 tensor laid out as all Y planes then
+    all UV planes and returns [batch, ...] tensors; the planes are views
+    of the buffer, so a batch costs one host-to-device copy. `post_fn`
+    ([batch, ...] in, anything out) runs right after the conversion on
+    the same stream."""
+    return _vpp_flat(cfg, int(batch), resolve_device(device, device_index),
+                     post_fn)
+
+
+def vpp_numpy(cfg: VPPConfig, y: np.ndarray, uv: np.ndarray,
+              device=None) -> np.ndarray:
+    """Runs the VPP on host arrays and returns a NumPy copy (bfloat16
+    results come back as float32, which holds them exactly)."""
+    out = build_vpp(cfg, device)(torch.from_numpy(np.ascontiguousarray(y)),
+                                 torch.from_numpy(np.ascontiguousarray(uv)))
+    out = out.cpu()
+    if out.dtype == torch.bfloat16:
+        out = out.to(torch.float32)
+    return out.numpy()

@@ -1,0 +1,142 @@
+"""The PyTorch port's package boundary: what it imports, its copies of the
+JAX package's enums, device selection, the kernel wrapper's CPU dispatch
+and the build settings of its CUDA sources."""
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tensor_stream_tpu.enums as jax_enums
+from tensor_stream_torch import _build, _device, enums
+from tensor_stream_torch.ops import nv12_rgb
+from tensor_stream_torch.ops.vpp import VPPConfig, build_vpp, vpp_numpy
+from tensor_stream_torch.utils import crc
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tensor_stream_torch")
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "bbb_720x480_RGB24_250.h264")
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    code = ("import sys, tensor_stream_torch, tensor_stream_torch.data, "
+            "tensor_stream_torch.utils.crc; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'tensor_stream_tpu'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_package_file_names_jax_or_the_jax_package():
+    imports = re.compile(r"^\s*(import|from)\s+(jax|tensor_stream_tpu)\b",
+                         re.MULTILINE)
+    seen = 0
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if not name.endswith((".py", ".cu", ".cuh")):
+                continue
+            with open(os.path.join(dirpath, name)) as f:
+                text = f.read()
+            seen += 1
+            assert "tensor_stream_tpu" not in text, name
+            assert not imports.search(text), name
+    assert seen >= 10
+
+
+@pytest.mark.parametrize("name", [
+    "StatusLevel", "LogsLevel", "LogsType", "FourCC", "ResizeType", "Planes",
+    "ColorStandard", "FrameRate"])
+def test_enum_matches_jax_copy(name):
+    ours = [(m.name, m.value) for m in getattr(enums, name)]
+    theirs = [(m.name, m.value) for m in getattr(jax_enums, name)]
+    assert ours == theirs
+
+
+def test_channels_by_fourcc_matches_jax_copy():
+    for f in enums.FourCC:
+        assert (enums.channels_by_fourcc(f) ==
+                jax_enums.channels_by_fourcc(jax_enums.FourCC(f.value)))
+
+
+def test_entry_points_without_device_take_cuda():
+    """device=None means cuda:N: without a CUDA device every entry point
+    raises instead of dropping to the CPU on its own."""
+    from tensor_stream_torch import FrameLoader, TensorStreamConverter
+    cfg = VPPConfig(64, 32)
+    if torch.cuda.is_available():
+        assert _device.resolve_device() == torch.device("cuda", 0)
+        return
+    y = np.zeros((32, 64), np.uint8)
+    uv = np.zeros((16, 64), np.uint8)
+    for call in (lambda: TensorStreamConverter(FIXTURE),
+                 lambda: FrameLoader(FIXTURE, batch=2),
+                 lambda: build_vpp(cfg),
+                 lambda: vpp_numpy(cfg, y, uv),
+                 lambda: _device.resolve_device("cuda:0")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert _device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrapper_runs_plain_on_cpu_and_never_counts():
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.integers(0, 256, (2, 8, 16), np.uint8))
+    uv = torch.from_numpy(rng.integers(0, 256, (2, 4, 16), np.uint8))
+    before = nv12_rgb.launches
+    got = nv12_rgb.nv12_to_rgb(y, uv, False, True, True, 0)
+    vpp_numpy(VPPConfig(16, 8, fourcc=enums.FourCC.BGR24), y[0].numpy(),
+              uv[0].numpy(), device="cpu")
+    assert nv12_rgb.launches == before == 0
+    assert torch.equal(got, nv12_rgb.nv12_to_rgb_plain(y, uv, False, True,
+                                                       True, 0))
+
+
+def test_wrapper_rejects_a_tensor_off_cpu_and_cuda():
+    y = torch.empty((8, 16), dtype=torch.uint8, device="meta")
+    uv = torch.empty((4, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        nv12_rgb.nv12_to_rgb(y, uv, False, True, False, 0)
+
+
+def test_cuda_build_flags_pin_rounding():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert _build.SOURCES == ("nv12_rgb",)
+    for name in _build.SOURCES:
+        assert os.path.exists(os.path.join(_build.SRC_DIR, f"{name}.cu"))
+
+
+def test_crc_matches_jax_copy():
+    from tensor_stream_tpu.utils.crc import av_crc32
+    data = np.random.default_rng(3).integers(0, 256, 4096, np.uint8)
+    assert crc.av_crc32(data) == av_crc32(data)
+    assert crc.av_crc32(data.tobytes()) == av_crc32(data.tobytes())
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_the_card():
+    """Bit-equal to the plain version on CUDA tensors (chip_smoke.py runs
+    the full matrix at the headline shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(1)
+    n, h, w = 3, 36, 130
+    y = torch.from_numpy(rng.integers(0, 256, (n, h, w), np.uint8)).cuda()
+    uv = torch.from_numpy(rng.integers(0, 256, (n, h // 2, w),
+                                       np.uint8)).cuda()
+    for planar in (True, False):
+        for norm in (False, True):
+            for standard in range(4):
+                before = nv12_rgb.launches
+                got = nv12_rgb.nv12_to_rgb(y, uv, True, planar, norm,
+                                           standard)
+                assert nv12_rgb.launches == before + 1
+                want = nv12_rgb.nv12_to_rgb_plain(y, uv, True, planar, norm,
+                                                  standard)
+                assert torch.equal(got, want)
