@@ -4,12 +4,21 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of tensor_stream_torch from the sources in this
-checkout, holds each against its plain torch version on the card, drives
-the port's main path (the headline FrameLoader: 1080p H.264 -> native
-decode -> host resize to 224x224 -> one pinned H2D copy per batch of 128
--> NV12->RGB planar f32 on the card) and times the kernels. Prints one
-JSON object per phase, then the "kernels" line, then the card's name and
-power limit as nvidia-smi gives them, and last
+checkout (one nvcc per source, all at once), holds each against its plain
+torch version on the card, drives the port's two main paths and times the
+kernels:
+
+* the headline FrameLoader: 1080p H.264 -> native decode -> host resize
+  to 224x224 -> one pinned H2D copy per batch of 128 -> NV12->RGB planar
+  f32 on the card (the nv12_rgb kernel);
+* serving: two streams of 224x224 NV12 frames -> MultiStreamLoader ->
+  StreamInferencer, one 16-frame clip a stream a tick, into a VideoViT at
+  ViT-B width (dim 768, depth 12, 12 heads, patch 16, tubelet 2, joint
+  space-time attention over 1568 tokens, bf16) whose every attention runs
+  the flash_fwd kernel.
+
+Prints one JSON object per phase, then the "kernels" line, then the
+card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before the last
 line. Needs one CUDA device; imports nothing of JAX.
 
@@ -28,9 +37,12 @@ import numpy as np
 import torch
 
 from tensor_stream_torch import _build, _native
-from tensor_stream_torch.data import FrameLoader
+from tensor_stream_torch.data import FrameLoader, MultiStreamLoader
 from tensor_stream_torch.enums import FourCC, FrameRate, Planes
+from tensor_stream_torch.models import VideoViT
+from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
+from tensor_stream_torch.serving import StreamInferencer
 from tensor_stream_torch.ops.vpp import build_vpp, build_vpp_batched_flat
 from tensor_stream_torch.tensor_stream import (FrameParameters,
                                                TensorStreamConverter)
@@ -42,12 +54,47 @@ HEADLINE_FRAMES = 200
 READ_FIXTURE = os.path.join(HERE, "tests", "fixtures",
                             "bbb_720x480_RGB24_250.h264")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12   # dense tensor cores, the same sheet
+F32_FLOP_PER_S = 67e12     # outside the tensor cores
 BATCH = 128
 SIDE = 224
 # Kernel-vs-plain shapes: the headline batch, one 1080p frame, and a
 # ragged size whose width is not a multiple of 4.
 CHECK_SHAPES = ((BATCH, SIDE, SIDE), (1, 1080, 1920), (4, 240, 322))
 STEADY_BATCHES = 40
+
+# Serving: ViT-B width with joint space-time attention (bench.py's flash
+# configuration), two streams, one 16-frame clip a stream a tick.
+VIT = dict(num_classes=1000, depth=12, dim=768, num_heads=12, patch=16,
+           tubelet_t=2, hidden_mult=4, attention="joint", use_flash=True,
+           frames=16, size=SIDE)
+STREAMS = 2
+CLIP = 16
+WARMUP_TICKS = 2
+TIMED_TICKS = 8
+FLASH_HEADLINE = (2, 12, 1568, 64)  # B, H, S = 8*196 tokens, d
+# Kernel against plain, as tests/test_flash_attention.py on the CPU: bf16
+# outputs quantize to 8 mantissa bits and the two round P at different
+# points; f32 differs only in reduction order. That rule holds o
+# elementwise; l and m are f32 in both, so they are held at the f32 rule
+# whatever the input dtype.
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# o as a whole: ||got - want|| / ||want||. A bf16 kernel with the right
+# numerics lands near 3e-3 (each output rounds to 8 bits, P rounds at a
+# different point); one that drops a kv tile of 25 or loses a few P
+# columns in P@V lands far above 1e-2 (tests/test_torch_flash.py emulates
+# all three on the CPU at S=1568 under this rule).
+FLASH_O_REL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+# Inputs: q and k of std 2 give logits of std 4, so each row's softmax is
+# peaked and |o| is about 0.4 (v of std 1). At std 0.5 the softmax over
+# 1568 keys is nearly flat, |o| is about 0.01 and the bf16 rule's 2e-2
+# would pass a wrong P@V.
+FLASH_QK_STD, FLASH_V_STD = 2.0, 1.0
+# Serving logits, flash kernel against the plain attention, as a share of
+# the largest plain logit (the reasons are at their use in phase_serving;
+# on an H100 the errors measured were 0.11% and 2.4e-7 of that scale).
+BF16_LOGIT_REL = 1e-2
+F32_LOGIT_REL = 1e-5
 
 
 def emit(obj):
@@ -408,6 +455,317 @@ def phase_times(device, smi, main):
     return rows
 
 
+# ------------------------------------------------------------ flash phases
+
+def _flash_case(b, h, hk, sq, sk, d, dtype, seed, layout="bhsd"):
+    """Seeded q, k, v on the card; layout "bshd" hands the kernel the
+    [B, S, H, d] views the model's projections give it."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def make(heads, s, std):
+        if layout == "bshd":
+            t = torch.randn((b, s, heads, d), generator=gen) * std
+            return t.to("cuda", dtype).transpose(1, 2)
+        return (torch.randn((b, heads, s, d), generator=gen) * std).to(
+            "cuda", dtype)
+    return (make(h, sq, FLASH_QK_STD), make(hk, sk, FLASH_QK_STD),
+            make(hk, sk, FLASH_V_STD))
+
+
+def _within(got, want, tol):
+    """assert_allclose's rule: |got - want| <= tol + tol * |want|."""
+    diff = (got.double() - want.double()).abs()
+    return bool((diff <= tol + tol * want.double().abs()).all())
+
+
+def _rel_norm(got, want):
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+def flash_rule(got, want):
+    """The kernel's (o, l, m) against the plain version's: o elementwise
+    at its dtype's rule and as a relative norm, l and m at the f32 rule.
+    Returns ({check: passed}, {error: value})."""
+    (o, l, m), (wo, wl, wm) = got, want
+    f32_tol = FLASH_TOL[torch.float32]
+    errs = {"o": max_abs_err(o, wo), "o_rel": _rel_norm(o, wo),
+            "o_mean_abs": float(wo.float().abs().mean()),
+            "l": max_abs_err(l, wl), "m": max_abs_err(m, wm)}
+    checks = {"o": _within(o, wo, FLASH_TOL[o.dtype]),
+              "o_rel": errs["o_rel"] <= FLASH_O_REL[o.dtype],
+              "l": _within(l, wl, f32_tol), "m": _within(m, wm, f32_tol)}
+    return checks, errs
+
+
+FLASH_CASES = [
+    # name, (b, h, hk, sq, sk, d), causal, window, layout
+    ("full", (2, 4, 4, 512, 512, 64), False, None, "bhsd"),
+    ("causal", (2, 4, 4, 512, 512, 64), True, None, "bhsd"),
+    ("full_d32", (1, 4, 4, 384, 384, 32), False, None, "bhsd"),
+    ("causal_d128", (1, 4, 4, 384, 384, 128), True, None, "bhsd"),
+    ("window_causal", (1, 4, 4, 1024, 1024, 64), True, 100, "bhsd"),
+    ("window_symmetric", (1, 4, 4, 1024, 1024, 64), False, 100, "bhsd"),
+    # The JAX dispatch picks _band_kernel here (S=1024, W=64, block_q=256:
+    # band 384 <= min(1024, 4608)); on the card it is the band mode.
+    ("band_kernel_causal", (1, 2, 2, 1024, 1024, 64), True, 64, "bhsd"),
+    ("band_kernel_symmetric", (1, 2, 2, 1024, 1024, 64), False, 64, "bhsd"),
+    ("gqa_12_to_4", (2, 12, 4, 640, 640, 64), False, None, "bhsd"),
+    ("mqa_12_to_1", (2, 12, 1, 640, 640, 64), True, None, "bhsd"),
+    ("ragged_100", (2, 3, 3, 100, 100, 64), False, None, "bhsd"),
+    ("ragged_200_causal", (2, 3, 3, 200, 200, 64), True, None, "bhsd"),
+    ("ragged_1568_window", (1, 2, 2, 1568, 1568, 64), False, 77, "bhsd"),
+    ("cross_300_to_777", (2, 4, 2, 300, 777, 64), False, None, "bhsd"),
+    ("model_layout", (2, 12, 12, 1568, 1568, 64), False, None, "bshd"),
+    ("headline", (2, 12, 12, 1568, 1568, 64), False, None, "bhsd"),
+]
+
+
+def phase_flash_vs_plain():
+    """The flash kernel against flash_attention_plain on the same CUDA
+    tensors, o, l and m, in bf16 and f32: o elementwise and as a whole,
+    l and m at the f32 rule. TF32 is off for the plain version's f32
+    products (its stated numerics are full f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for i, (name, shape, causal, window, layout) in enumerate(FLASH_CASES):
+        dtypes = (torch.bfloat16,) if name == "headline" else \
+            (torch.bfloat16, torch.float32)
+        for dtype in dtypes:
+            q, k, v = _flash_case(*shape, dtype, 200 + i, layout)
+            before = fa.launches
+            o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                             window=window)
+            if fa.launches != before + 1:
+                raise AssertionError(f"flash {name}: kernel did not launch")
+            wo, wl, wm = fa.flash_attention_plain(q, k, v, causal, window,
+                                                  residuals=True)
+            torch.cuda.synchronize()
+            checks, errs = flash_rule((o, l, m), (wo, wl, wm))
+            ok = all(checks.values())
+            worst[dtype] = max(worst[dtype], errs["o"])
+            rows.append({"case": name, "shape": list(shape),
+                         "dtype": str(dtype).split(".")[-1],
+                         "causal": causal, "window": window,
+                         "layout": layout, "tol": FLASH_TOL[dtype], **errs,
+                         "ok": ok})
+            if not ok:
+                emit({"phase": "flash_vs_plain", "cases": rows})
+                raise AssertionError(f"flash kernel != plain: {rows[-1]}")
+    emit({"phase": "flash_vs_plain", "allow_tf32": False,
+          "inputs": {"qk_std": FLASH_QK_STD, "v_std": FLASH_V_STD},
+          "tolerance": {"o_bf16": FLASH_TOL[torch.bfloat16],
+                        "o_f32": FLASH_TOL[torch.float32],
+                        "o_rel_norm_bf16": FLASH_O_REL[torch.bfloat16],
+                        "o_rel_norm_f32": FLASH_O_REL[torch.float32],
+                        "l_m": FLASH_TOL[torch.float32]},
+          "cases": rows})
+    return max(worst.values())
+
+
+class SyntheticStreams(MultiStreamLoader):
+    """MultiStreamLoader over SyntheticFrameLoaders: the card's machine
+    has no FFmpeg, so each stream is seeded NV12 frames through the same
+    FrameLoader staging, copy and VPP (merged RGB f32, normalized)."""
+
+    def __init__(self, n_streams, per_stream, frames, device):
+        cfg = FrameParameters(pixel_format=FourCC.RGB24,
+                              planes_pos=Planes.MERGED,
+                              normalization=True).to_config(SIDE, SIDE)
+        self.loaders = [SyntheticFrameLoader(frames, per_stream, 2, cfg,
+                                             device, seed=31 + k)
+                        for k in range(n_streams)]
+
+
+def vit(device, dtype, flash_impl="auto"):
+    """The serving model with weights from seed 0: the bf16 one and the
+    f32 one are the same parameters."""
+    return VideoViT(compute_dtype=dtype, residual_dtype=dtype,
+                    flash_impl=flash_impl, device=device,
+                    generator=torch.Generator().manual_seed(0), **VIT).eval()
+
+
+def logits_check(model, clips, got, rel):
+    """The model's logits with the flash kernel (`got`) against the same
+    model, built with flash_impl="plain" and the same weights, on the
+    same clips: a max abs error within `rel` of the largest plain logit,
+    and the same argmax on every row whose plain top-2 margin exceeds
+    twice that error (a closer pair can swap under the error measured; a
+    random-weight model has such near ties among its 1000 classes)."""
+    plain = vit(model.device, model.compute_dtype, flash_impl="plain")
+    plain.load_state_dict(model.state_dict())
+    before = fa.launches
+    with torch.no_grad():
+        want = plain(clips)
+    if fa.launches != before:
+        raise AssertionError("the plain reference model launched the kernel")
+    del plain
+    err = max_abs_err(got, want)
+    tol = rel * float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    return {"max_abs_err": err, "bound": tol, "rel_bound": rel,
+            "max_abs_logit": float(want.abs().max()),
+            "argmax_flash": got.argmax(-1).tolist(),
+            "argmax_plain": want.argmax(-1).tolist(),
+            "plain_top2_margin": margin.tolist(),
+            "rows_decided": int(decided.sum()),
+            "ok": err <= tol and bool((same | ~decided).all())}
+
+
+def phase_serving(device):
+    """StreamInferencer over two streams into the ViT-B joint model, every
+    attention through the flash kernel: 2 warm-up ticks, then 8 timed."""
+    model = vit(device, torch.bfloat16)
+    first = {}
+
+    def serve(batch):  # [n*16, 224, 224, 3] -> logits [n, 1000]
+        clips = batch.view(-1, CLIP, SIDE, SIDE, 3)
+        if "clips" not in first:
+            first["clips"] = clips.clone()
+        return model(clips)
+
+    ticks = WARMUP_TICKS + TIMED_TICKS
+    loader = SyntheticStreams(STREAMS, CLIP, ticks * CLIP, device)
+    eng = StreamInferencer([f"synthetic:{k}" for k in range(STREAMS)], serve,
+                           per_stream=CLIP, loader=loader)
+    try:
+        nv12_rgb.launches = 0
+        fa.launches = 0
+        warm = list(eng.stream(max_batches=WARMUP_TICKS))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        timed = list(eng.stream(max_batches=TIMED_TICKS))
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {"nv12_rgb": nv12_rgb.launches,
+                    "flash_fwd": fa.launches}
+    finally:
+        loader.close()
+    if launches != {"nv12_rgb": ticks * STREAMS,
+                    "flash_fwd": ticks * VIT["depth"]}:
+        raise AssertionError(f"launches {launches} over {ticks} ticks: "
+                             "the serving path bypassed a kernel")
+    results = warm + timed
+    if ([r.stream for r in results] != list(range(STREAMS)) * ticks
+            or any(tuple(r.outputs.shape) != (1, VIT["num_classes"])
+                   for r in results)):
+        raise AssertionError("serving results: wrong streams or shapes")
+    for k in range(STREAMS):
+        frames = [f for r in results if r.stream == k for f in r.frames]
+        if frames != list(range(1, ticks * CLIP + 1)):
+            raise AssertionError(f"stream {k}: frame clock {frames[:3]}...")
+    got = torch.cat([r.outputs for r in results[:STREAMS]])
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite logits")
+    clips = first["clips"]
+    # bf16: the flash and plain paths round P to bf16 at different points
+    # (unnormalized in the kernel, normalized in the plain version) in each
+    # of 12 layers, and the residual stream is bf16 (8 mantissa bits), so
+    # per-layer differences of about one bf16 step compound through the
+    # depth: 1% of the logit scale allows for a few such steps.
+    bf16 = logits_check(model, clips, got, BF16_LOGIT_REL)
+    lat = np.asarray(eng._lat_ms[WARMUP_TICKS:])
+    # The forward alone on the first tick's clips: with CUDA events around
+    # an eager call (paced by the host when its launches are slower than
+    # the device), the host's time to enqueue it, and the device's own
+    # time from a CUDA-graph replay of it (a measurement only; the port
+    # runs eagerly).
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: model(clips), device, iters=10,
+                             warmup=2)
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(clips)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the default stream
+            model(clips)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            model(clips)
+        graph_ms = time_ms(graph.replay, device, iters=10, warmup=2)
+        del graph
+    del model
+    # f32: the f32 kernel against the plain f32 path, tight: the only
+    # difference is the order of f32 sums.
+    model32 = vit(device, torch.float32)
+    with torch.no_grad():
+        before = fa.launches
+        got32 = model32(clips)
+        if fa.launches != before + VIT["depth"]:
+            raise AssertionError("f32 model bypassed the kernel")
+    f32 = logits_check(model32, clips, got32, F32_LOGIT_REL)
+    del model32
+    frames = TIMED_TICKS * STREAMS * CLIP
+    out = {"phase": "serving", "streams": STREAMS,
+           "clip": [CLIP, SIDE, SIDE, 3],
+           "model": VIT, "compute": "bf16", "residual": "bf16",
+           "warmup_ticks": WARMUP_TICKS, "timed_ticks": TIMED_TICKS,
+           "launches": launches, "seconds": seconds,
+           "frames_per_s": frames / seconds,
+           "ms_per_tick": seconds / TIMED_TICKS * 1e3,
+           "result_wait_ms": {"p50": float(np.percentile(lat, 50)),
+                              "p95": float(np.percentile(lat, 95))},
+           "forward_ms": forward_ms[0], "forward_p10_ms": forward_ms[1],
+           "forward_p90_ms": forward_ms[2],
+           "forward_enqueue_ms": float(np.median(enqueue)),
+           "forward_device_ms": graph_ms[0],
+           "forward_device_p10_ms": graph_ms[1],
+           "forward_device_p90_ms": graph_ms[2],
+           "logits_bf16": bf16, "logits_f32": f32}
+    emit(out)
+    if not (bf16["ok"] and f32["ok"]):
+        raise AssertionError("serving logits disagree with the plain path")
+    return out
+
+
+def flash_flops(b, h, sq, sk, d):
+    return 4.0 * b * h * sq * sk * d
+
+
+def phase_flash_times(device, smi, serving):
+    """Kernel, plain version and scaled_dot_product_attention (a yardstick
+    only: the port never calls it) at the headline shape, bf16."""
+    b, h, s, d = FLASH_HEADLINE
+    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 7)
+    with torch.no_grad():
+        ms, p10, p90 = time_ms(lambda: fa.flash_attention(q, k, v), device)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), device,
+                           iters=30, warmup=5)[0]
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+            device)[0]
+    flops = flash_flops(b, h, s, s, d)
+    nbytes = 4 * b * h * s * d * q.element_size()  # q, k, v in, o out
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    row = {"phase": "flash_times", "card": smi, "shape": list(FLASH_HEADLINE),
+           "dtype": "bf16", "ms": ms, "p10_ms": p10, "p90_ms": p90,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention",
+           "flops": flops, "bytes": nbytes, "flop_bound_ms": flop_ms,
+           "byte_bound_ms": byte_ms, "bound_ms": bound_ms,
+           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+           "share_of_bound": bound_ms / ms,
+           "tflop_per_s": flops / ms / 1e9,
+           "forward_device_ms": serving["forward_device_ms"],
+           "flash_share_of_forward":
+               VIT["depth"] * ms / serving["forward_device_ms"]}
+    emit(row)
+    return row
+
+
 def run(device):
     smi = phase_env()
     worst = phase_kernel_vs_plain(device)
@@ -421,6 +779,9 @@ def run(device):
     else:
         main = phase_main_path_synthetic(device, why)
     rows = phase_times(device, smi, main)
+    flash_worst = phase_flash_vs_plain()
+    serving = phase_serving(device)
+    flash = phase_flash_times(device, smi, serving)
     head = rows[0]
     emit({"kernels": [{
         "name": "nv12_rgb", "route": "cuda",
@@ -428,7 +789,14 @@ def run(device):
         "replaces": "tensor_stream_tpu/ops/pallas_color.py:68",
         "launches": main[3], "max_abs_err": worst, "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]})
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "flash_fwd", "route": "cuda",
+        "source": "tensor_stream_torch/csrc/flash_fwd.cu",
+        "replaces": "tensor_stream_tpu/ops/flash_attention.py:83",
+        "launches": serving["launches"]["flash_fwd"],
+        "max_abs_err": flash_worst, "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}]})
     print(smi, flush=True)
 
 

@@ -6,7 +6,10 @@ same native runtime (csrc/, libtsingest.so over ctypes), kept in an NV12 ring, a
 converted on the card (crop -> NV12-domain resize -> colour conversion ->
 normalization -> planar/merged layout) into ``torch.Tensor``s on
 ``cuda:N``. Full-frame NV12->RGB runs in a hand-written CUDA kernel
-(csrc/nv12_rgb.cu).
+(csrc/nv12_rgb.cu). ``StreamInferencer`` serves many streams through one
+model call a tick; ``models.VideoViT`` is the video transformer it serves,
+whose attention runs a hand-written CUDA flash-attention forward
+(csrc/flash_fwd.cu).
 
     from tensor_stream_torch import TensorStreamConverter, FourCC, Planes
 
@@ -14,16 +17,18 @@ Entry points take ``device=None``, meaning ``cuda:<index>``; they raise
 when no CUDA device is present unless ``device="cpu"`` is passed.
 This package imports nothing of JAX or of the JAX package.
 """
-from .data import FrameLoader
+from .data import FrameLoader, MultiStreamLoader
 from .enums import (ColorStandard, FourCC, FrameRate, LogsLevel, LogsType,
                     Planes, ResizeType, StatusLevel, channels_by_fourcc)
 from .ops.vpp import VPPConfig
+from .serving import StreamInferencer, StreamResult
 from .tensor_stream import FrameParameters, TensorStreamConverter
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "TensorStreamConverter", "FrameParameters", "FrameLoader", "VPPConfig",
+    "TensorStreamConverter", "FrameParameters", "FrameLoader",
+    "MultiStreamLoader", "StreamInferencer", "StreamResult", "VPPConfig",
     "StatusLevel", "LogsLevel", "LogsType", "FourCC", "ResizeType", "Planes",
     "FrameRate", "ColorStandard", "channels_by_fourcc",
 ]

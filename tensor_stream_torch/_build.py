@@ -18,9 +18,12 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tensor_stream_torch")
-SOURCES = ("nv12_rgb",)
+SOURCES = ("nv12_rgb", "flash_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# nv12_rgb must round every multiply and add on its own to stay byte-equal
+# to its plain version; flash_fwd spells out its FMAs where it wants them.
+SOURCE_FLAGS = {"nv12_rgb": ("-fmad=false",)}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -64,7 +67,7 @@ def build_all(names=SOURCES) -> dict:
         procs = {}
         for name in todo:
             tmp = lib_path(name) + f".tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", tmp,
                    os.path.join(SRC_DIR, f"{name}.cu")]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

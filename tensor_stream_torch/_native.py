@@ -36,23 +36,46 @@ def lib_dir() -> str:
     return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 
 
-def _build_if_needed(lib_path: str) -> None:
-    srcs = [os.path.join(lib_dir(), f) for f in os.listdir(lib_dir())
-            if f.endswith((".cpp", ".h"))]
-    if os.path.exists(lib_path):
-        lib_mtime = os.path.getmtime(lib_path)
-        if all(os.path.getmtime(s) <= lib_mtime for s in srcs):
-            return
-    # Processes that load the library at once (test workers) build it once.
+def lib_path() -> str:
+    return os.path.join(lib_dir(), "libtsingest.so")
+
+
+def _fresh(path: str) -> bool:
+    """True when `path` exists and is newer than every source of csrc/
+    (the same test as the JAX package's loader, which then skips make)."""
+    if not os.path.exists(path):
+        return False
+    lib_mtime = os.path.getmtime(path)
+    return all(os.path.getmtime(os.path.join(lib_dir(), f)) <= lib_mtime
+               for f in os.listdir(lib_dir()) if f.endswith((".cpp", ".h")))
+
+
+def build() -> None:
+    """Builds csrc/libtsingest.so if it is missing or stale.
+
+    Processes that load the library at once (test workers) build it once:
+    the build holds a file lock and checks freshness again under it. The
+    library is linked under a temporary name and renamed into place, so a
+    process that has already mapped the old file never sees it rewritten."""
+    path = lib_path()
+    if _fresh(path):
+        return
     lock_dir = os.path.join(os.path.dirname(lib_dir()), "build")
     os.makedirs(lock_dir, exist_ok=True)
     with open(os.path.join(lock_dir, "libtsingest.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        proc = subprocess.run(["make", "-C", lib_dir()], capture_output=True,
-                              text=True)
-    if proc.returncode != 0:
-        tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
-        raise NativeBuildError("make -C csrc failed: " + " | ".join(tail))
+        if _fresh(path):
+            return
+        tmp = f"libtsingest.so.tmp{os.getpid()}"
+        proc = subprocess.run(["make", "-C", lib_dir(), f"TARGET={tmp}"],
+                              capture_output=True, text=True)
+        if proc.returncode == 0:
+            os.replace(os.path.join(lib_dir(), tmp), path)
+            return
+        if os.path.exists(os.path.join(lib_dir(), tmp)):
+            os.remove(os.path.join(lib_dir(), tmp))
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
+    raise NativeBuildError("make -C csrc failed: " + " | ".join(tail))
 
 
 def load():
@@ -61,9 +84,8 @@ def load():
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        lib_path = os.path.join(lib_dir(), "libtsingest.so")
-        _build_if_needed(lib_path)
-        lib = ctypes.CDLL(lib_path)
+        build()
+        lib = ctypes.CDLL(lib_path())
 
         c_void_p, c_char_p, c_int = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int
         c_int_p = ctypes.POINTER(ctypes.c_int)

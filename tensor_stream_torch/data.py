@@ -1,4 +1,5 @@
-"""FrameLoader: a prefetching iterator from a video stream to device batches.
+"""FrameLoader: a prefetching iterator from a video stream to device batches;
+MultiStreamLoader: several FrameLoaders stacked into one batch a tick.
 
 Port of the JAX package's ``data.py:53-420``. Decode runs in the native
 producer thread, the drain (plus the optional native host resize) in a
@@ -23,6 +24,8 @@ import ctypes
 import queue
 import threading
 import time
+
+import torch
 
 from . import _native
 from ._device import (record_event, resolve_device, ship, staging_buffer,
@@ -341,3 +344,52 @@ class FrameLoader:
             return (self._seg_lib.ts_segmented_width(self._segmented),
                     self._seg_lib.ts_segmented_height(self._segmented))
         return self.reader.frame_size
+
+
+class MultiStreamLoader:
+    """Batches frames from several streams into one device batch.
+
+    Port of the JAX package's ``data.py:1399-1451``. Each stream runs its
+    own FrameLoader (native producer + drain); iteration yields
+    ``(tensors [n_streams*per_stream, ...], indices {stream: [...]})``,
+    concatenated on the device. It ends when any stream is exhausted
+    (``loop=True`` never ends).
+
+        loader = MultiStreamLoader(["cam1.mp4", "cam2.mp4"], per_stream=8,
+                                   width=224, height=224, host_resize=True,
+                                   pixel_format=FourCC.RGB24,
+                                   planes_pos=Planes.PLANAR,
+                                   normalization=True, loop=True)
+        for batch, indices in loader:   # [16, 3, 224, 224] on cuda:0
+            logits = model(batch)
+    """
+
+    def __init__(self, stream_urls, per_stream=8, **loader_kwargs):
+        # Each stream's aug_seed is offset, as in the JAX package, so that
+        # streams at the same frame index would draw independent transforms.
+        base_seed = loader_kwargs.pop("aug_seed", None) or 0
+        self.loaders = [FrameLoader(url, batch=per_stream,
+                                    aug_seed=base_seed + k, **loader_kwargs)
+                        for k, url in enumerate(stream_urls)]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        parts, indices = [], {}
+        for k, loader in enumerate(self.loaders):
+            tensors, idx = next(loader)  # StopIteration propagates
+            parts.append(tensors)
+            indices[k] = idx
+        return torch.cat(parts, dim=0), indices
+
+    def close(self):
+        for loader in self.loaders:
+            loader.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -12,7 +12,7 @@ import torch
 
 import tensor_stream_tpu.enums as jax_enums
 from tensor_stream_torch import _build, _device, enums
-from tensor_stream_torch.ops import nv12_rgb
+from tensor_stream_torch.ops import flash_attention, nv12_rgb
 from tensor_stream_torch.ops.vpp import VPPConfig, build_vpp, vpp_numpy
 from tensor_stream_torch.utils import crc
 
@@ -23,7 +23,9 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "bbb_720x480_RGB24_250.h264")
 
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, tensor_stream_torch, tensor_stream_torch.data, "
-            "tensor_stream_torch.utils.crc; "
+            "tensor_stream_torch.utils.crc, tensor_stream_torch.serving, "
+            "tensor_stream_torch.models, "
+            "tensor_stream_torch.ops.flash_attention; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'tensor_stream_tpu'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -72,8 +74,13 @@ def test_entry_points_without_device_take_cuda():
         return
     y = np.zeros((32, 64), np.uint8)
     uv = np.zeros((16, 64), np.uint8)
+    from tensor_stream_torch.models import VideoViT
+    from tensor_stream_torch.serving import StreamInferencer
     for call in (lambda: TensorStreamConverter(FIXTURE),
                  lambda: FrameLoader(FIXTURE, batch=2),
+                 lambda: StreamInferencer([FIXTURE], lambda x: x),
+                 lambda: VideoViT(10, depth=1, dim=32, num_heads=1, patch=8,
+                                  frames=2, size=16),
                  lambda: build_vpp(cfg),
                  lambda: vpp_numpy(cfg, y, uv),
                  lambda: _device.resolve_device("cuda:0")):
@@ -105,9 +112,11 @@ def test_wrapper_rejects_a_tensor_off_cpu_and_cuda():
 def test_cuda_build_flags_pin_rounding():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    assert "-fmad=false" in flags
+    assert "-fmad=false" in _build.SOURCE_FLAGS["nv12_rgb"]
+    for extra in _build.SOURCE_FLAGS.values():
+        flags += " " + " ".join(extra)
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert _build.SOURCES == ("nv12_rgb",)
+    assert _build.SOURCES == ("nv12_rgb", "flash_fwd")
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.SRC_DIR, f"{name}.cu"))
 
@@ -140,3 +149,38 @@ def test_kernel_matches_plain_on_the_card():
                 want = nv12_rgb.nv12_to_rgb_plain(y, uv, True, planar, norm,
                                                   standard)
                 assert torch.equal(got, want)
+
+
+def test_flash_wrapper_rejects_a_tensor_off_cpu_and_cuda():
+    q = torch.empty((1, 2, 8, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_matches_plain_on_the_card():
+    """o within the bf16/f32 tolerances of tests/test_flash_attention.py
+    elementwise and 1e-2/2e-5 as a relative norm, l and m (f32 in both)
+    at 2e-5 (chip_smoke.py runs the full case list). q and k of std 2
+    peak the softmax so |o| is near 1 and the bf16 rule can see a fault."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(2)
+    for dtype, tol, rel in ((torch.bfloat16, 2e-2, 1e-2),
+                            (torch.float32, 2e-5, 2e-5)):
+        for causal, window in ((False, None), (True, None), (True, 33),
+                               (False, 33)):
+            q, k, v = ((torch.randn((2, 4, 200, 64), generator=gen) * std)
+                       .to("cuda", dtype) for std in (2.0, 2.0, 1.0))
+            before = flash_attention.launches
+            o, l, m = flash_attention.flash_attention_fwd(
+                q, k, v, causal=causal, window=window)
+            assert flash_attention.launches == before + 1
+            wo, wl, wm = flash_attention.flash_attention_plain(
+                q, k, v, causal, window, residuals=True)
+            torch.testing.assert_close(o.float(), wo.float(), atol=tol,
+                                       rtol=tol)
+            err = (o.double() - wo.double()).norm() / wo.double().norm()
+            assert float(err) <= rel
+            for g, w in ((l, wl), (m, wm)):
+                torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
