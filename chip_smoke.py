@@ -27,6 +27,7 @@ FFmpeg's development libraries), the main-path phase says so on a line
 of its own and drives the same FrameLoader staging, copy, event rotation
 and batched VPP from seeded NV12 frames of the same shape instead.
 """
+import inspect
 import json
 import os
 import subprocess
@@ -146,7 +147,8 @@ def phase_env():
     ptxas = []
     for name in _build.SOURCES:
         with open(_build.log_path(name)) as f:
-            ptxas += [ln.strip() for ln in f if "registers" in ln]
+            ptxas += [ln.strip() for ln in f
+                      if "registers" in ln or "spill" in ln]
     emit({"phase": "env", "nvidia_smi": smi, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -396,16 +398,26 @@ def phase_main_path_synthetic(device, why):
     return batches, frames, seconds, launches
 
 
-def time_ms(fn, device, iters=100, warmup=20):
+HOLD_CYCLES = 1_000_000  # about 0.5 ms of an H100's SM clock
+
+
+def time_ms(fn, device, iters=100, warmup=20, hold=True):
     """Per-call ms over `iters` calls after `warmup`: (median, p10, p90).
     CUDA events around each call, with L2 (50 MB) flushed before each so
-    the inputs come from HBM as they do after the H2D copy of a batch."""
+    the inputs come from HBM as they do after the H2D copy of a batch.
+    With `hold`, a spin kernel keeps the card busy while the host enqueues
+    the call, so the events bracket the device's time alone and not the
+    host's (Python, ctypes, the tensor-map encoding); without it a call
+    whose host work is slower than the device is timed at the host's
+    pace."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -677,7 +689,7 @@ def phase_serving(device):
     # runs eagerly).
     with torch.no_grad():
         forward_ms = time_ms(lambda: model(clips), device, iters=10,
-                             warmup=2)
+                             warmup=2, hold=False)
         enqueue = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -729,41 +741,104 @@ def phase_serving(device):
     return out
 
 
-def flash_flops(b, h, sq, sk, d):
-    return 4.0 * b * h * sq * sk * d
+def flash_flops(b, h, live_pairs, d):
+    """4·d FLOP per live (row, col) pair a head: Q K^T and P V."""
+    return 4.0 * b * h * live_pairs * d
 
 
-def phase_flash_times(device, smi, serving):
+# flash_times: the headline in both layouts the model can hand the kernel
+# and the band mode where the JAX dispatch picks _band_kernel.
+FLASH_TIMED = [
+    # name, (b, h, s, d), causal, window, layout
+    ("headline", FLASH_HEADLINE, False, None, "bhsd"),
+    ("headline_model_layout", FLASH_HEADLINE, False, None, "bshd"),
+    ("band_causal", (1, 2, 1024, 64), True, 64, "bhsd"),
+    ("band_symmetric", (1, 2, 1024, 64), False, 64, "bhsd"),
+]
+
+
+def time_flash(device, name, shape, causal, window, layout):
     """Kernel, plain version and scaled_dot_product_attention (a yardstick
-    only: the port never calls it) at the headline shape, bf16."""
-    b, h, s, d = FLASH_HEADLINE
-    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 7)
+    only: the port never calls it; it gets the boolean band mask where
+    there is one) on the same bf16 inputs. The bound counts the live
+    (row, col) pairs that band_mask counts, each input read once and o
+    written once."""
+    b, h, s, d = shape
+    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 7, layout)
+    mask = fa.band_mask(s, s, causal, window, q.device)
+    live = s * s if mask is None else int(mask.sum())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
-        ms, p10, p90 = time_ms(lambda: fa.flash_attention(q, k, v), device)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), device,
-                           iters=30, warmup=5)[0]
-        library_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
-            device)[0]
-    flops = flash_flops(b, h, s, s, d)
+        ms, p10, p90 = time_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window), device)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal, window), device, iters=30, warmup=5)[0]
+        library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask), device)[0]
+    flops = flash_flops(b, h, live, d)
     nbytes = 4 * b * h * s * d * q.element_size()  # q, k, v in, o out
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(flop_ms, byte_ms)
-    row = {"phase": "flash_times", "card": smi, "shape": list(FLASH_HEADLINE),
-           "dtype": "bf16", "ms": ms, "p10_ms": p10, "p90_ms": p90,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"case": name, "shape": list(shape), "dtype": "bf16",
+            "causal": causal, "window": window, "layout": layout,
+            "live_pairs_a_head": live, "ms": ms, "p10_ms": p10,
+            "p90_ms": p90, "plain_ms": plain_ms, "library_ms": library_ms,
+            "flops": flops, "bytes": nbytes, "flop_bound_ms": flop_ms,
+            "byte_bound_ms": byte_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "share_of_bound": bound_ms / ms, "library_over_kernel":
+                library_ms / ms, "tflop_per_s": flops / ms / 1e9}
+
+
+def phase_flash_times(device, smi, serving):
+    """The flash kernel's times (FLASH_TIMED); the headline row's numbers
+    also stand at the top level."""
+    rows = [time_flash(device, *case) for case in FLASH_TIMED]
+    head = rows[0]
+    out = {"phase": "flash_times", "card": smi, **head,
            "library": "torch.nn.functional.scaled_dot_product_attention",
-           "flops": flops, "bytes": nbytes, "flop_bound_ms": flop_ms,
-           "byte_bound_ms": byte_ms, "bound_ms": bound_ms,
-           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-           "share_of_bound": bound_ms / ms,
-           "tflop_per_s": flops / ms / 1e9,
+           "cases": rows,
            "forward_device_ms": serving["forward_device_ms"],
            "flash_share_of_forward":
-               VIT["depth"] * ms / serving["forward_device_ms"]}
-    emit(row)
-    return row
+               VIT["depth"] * head["ms"] / serving["forward_device_ms"]}
+    emit(out)
+    return out
+
+
+AB_SNIPPET = """
+import json, numpy as np, torch, chip_smoke as c
+from tensor_stream_torch.ops import flash_attention as fa
+HOLD_CYCLES = {hold}
+{timer}
+q, k, v = c._flash_case(*{shape}, torch.bfloat16, 7, {layout!r})
+print(json.dumps(time_ms(lambda: fa.flash_attention(q, k, v),
+                         torch.device("cuda", 0))))
+"""
+
+
+def flash_ab(other_root, blocks=1):
+    """The headline flash time of the checkout at `other_root` (for
+    example the parent commit, unpacked with git archive) against this
+    one's, on one card in turns: other, this, this, other, `blocks`
+    times. Each turn is its own process, which builds its checkout's
+    kernel and times it with this checkout's time_ms. Prints and returns
+    {"other": [...], "this": [...]} of (median, p10, p90) ms."""
+    b, h, s, d = FLASH_HEADLINE
+    code = AB_SNIPPET.format(hold=HOLD_CYCLES,
+                             timer=inspect.getsource(time_ms),
+                             shape=(b, h, h, s, s, d), layout="bhsd")
+    roots = {"other": os.path.abspath(other_root), "this": HERE}
+    order = ["other", "this", "this", "other"] * blocks
+    got = {"other": [], "this": []}
+    for which in order:
+        out = subprocess.run([sys.executable, "-c", code], cwd=roots[which],
+                             check=True, capture_output=True, text=True,
+                             timeout=600)
+        got[which].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    emit({"phase": "flash_ab", "card": nvidia_smi(),
+          "shape": list(FLASH_HEADLINE), "order": order, **got,
+          "roots": roots})
+    return got
 
 
 def run(device):

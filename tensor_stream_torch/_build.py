@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain
 C interface, ``build/tensor_stream_torch/lib<name>.so`` under the repo
-root, at first use (or when the source is newer than the library). The
+root, at first use (or when the source, or a file of ``csrc/`` that it
+includes, is newer than the library). The
 build runs only where a kernel is launched: importing the package builds
 nothing, so the CPU-only tests import every module without nvcc.
 ``build_all`` starts one nvcc per source at once and waits for them all.
@@ -10,6 +11,7 @@ nothing, so the CPU-only tests import every module without nvcc.
 import ctypes
 import fcntl
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # nv12_rgb must round every multiply and add on its own to stay byte-equal
 # to its plain version; flash_fwd spells out its FMAs where it wants them.
 SOURCE_FLAGS = {"nv12_rgb": ("-fmad=false",)}
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -46,10 +50,28 @@ def log_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.log")
 
 
+def sources_of(name: str) -> list:
+    """csrc/<name>.cu and every file of csrc/ that it includes, directly or
+    through another include (quoted includes; system headers are not
+    followed)."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(SRC_DIR, rel)) as f:
+            todo += [inc for inc in _INCLUDE.findall(f.read())
+                     if os.path.exists(os.path.join(SRC_DIR, inc))]
+    return [os.path.join(SRC_DIR, rel) for rel in seen]
+
+
 def _stale(name: str) -> bool:
-    src = os.path.join(SRC_DIR, f"{name}.cu")
     out = lib_path(name)
-    return not os.path.exists(out) or os.path.getmtime(src) > os.path.getmtime(out)
+    if not os.path.exists(out):
+        return True
+    built = os.path.getmtime(out)
+    return any(os.path.getmtime(src) > built for src in sources_of(name))
 
 
 def build_all(names=SOURCES) -> dict:

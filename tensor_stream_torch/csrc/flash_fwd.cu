@@ -16,34 +16,72 @@
 //     That band-restricted loop is what _band_kernel buys on the TPU (no
 //     per-step cost for dead tiles), so its function is served here by
 //     the band mode of this one kernel.
-//   * The block masks q rows >= Sq and kv columns >= Sk itself (no padding
-//     copies). Masked logits get -0.7 * FLT_MAX, never -inf. GQA maps q
-//     head h to kv head h / (H / Hk). Cross-attention (Sq != Sk) works when
-//     not causal.
-//   * Inputs are [B, H, S, d] with any B/H/S strides and a contiguous last
-//     dimension, so the model's [B, S, H, d] projections go in without a
-//     transpose copy. The output takes its own strides.
+//   * Masked logits get -0.7 * FLT_MAX, never -inf; only tiles that hold
+//     padding or an edge of the causal or band mask are masked. GQA maps
+//     q head h to kv head h / (H / Hk). Cross-attention (Sq != Sk) works
+//     when not causal.
+//   * Inputs are [B, H, S, d] with any 16-byte aligned B/H/S strides and a
+//     contiguous last dimension, so the model's [B, S, H, d] projections
+//     go in without a transpose copy. The output takes its own strides.
 //
-// Numerics, as the JAX _reference states them: logits accumulate in f32
-// and are scaled after the product; m and l are kept online in f32; P is
-// cast to the input dtype before P@V, which accumulates in f32; the output
-// is acc * (l == 0 ? 1 : 1/l), cast to q's dtype; l is the f32 sum of p
-// (the TPU's ones-augmented V column is a TPU workaround and is not here).
-//   * bf16: both products on the tensor cores, mma.sync m16n8k16 with f32
-//     accumulation. 4 warps, 64 q rows (16 a warp), kv tiles of 64.
-//   * f32: plain f32 FMAs, no TF32. 128 threads, 32 q rows (4 threads a
-//     row), kv tiles of 32.
+// Numerics, as the JAX _reference states them: logits accumulate in f32;
+// m and l are kept online in f32; P is cast to the input dtype before
+// P@V, which accumulates in f32; the output is acc * (l == 0 ? 1 : 1/l),
+// cast to q's dtype; l is the f32 sum of p (the TPU's ones-augmented V
+// column is a TPU workaround and is not here).
 //
-// Bound at the headline shape [2, 12, 1568, 64] bf16, non-causal:
-// operations, 4*B*H*Sq*Sk*d = 15.1 GFLOP -> 15.3 us at 989 TFLOP/s bf16,
-// against 19.3 MB of q, k, v and o -> 5.8 us at 3.35 TB/s. This first
-// version is simple and right: tiles load through registers with no
-// copy/compute overlap, and each block keeps one kv tile in shared memory.
-// wgmma and TMA are later work.
+// bf16: bound at the headline shape [2, 12, 1568, 64], non-causal, by
+// operations: 4*B*H*Sq*Sk*d = 15.1 GFLOP -> 15.3 us at 989 TFLOP/s, against
+// 19.3 MB of q, k, v and o -> 5.8 us at 3.35 TB/s. So the tensor cores
+// must be kept busy, and at d = 64 the exponentials cost as much as the
+// products (one MUFU.EX2 a logit at 16 a clock an SM against 4*64 FLOP at
+// about 4096 a clock), so the two have to overlap. The design is Hopper's:
+//   * TMA. q, k and v are 4-D tensor maps over (d, S, H, B) with the
+//     caller's strides, encoded on the host for each launch. One thread
+//     loads a whole tile into shared memory with the 128-byte swizzle
+//     that wgmma reads (64-byte for d = 32; d = 128 is two 64-column
+//     boxes). TMA zero-fills rows >= Sq and >= Sk inside the head.
+//   * A ring of kStages K/V stages with full/empty mbarrier pairs. K and V
+//     of a stage have their own full barrier, so Q K^T starts while V is
+//     still in flight.
+//   * Warp specialisation: warpgroup 0 is the producer (one thread issues
+//     every TMA load and runs up to kStages tiles ahead; setmaxnreg gives
+//     its registers away), the others are consumers of 64 q rows each:
+//     three (a 192-row q tile at 160 registers a thread) for d <= 64, two
+//     (128 rows at 240) for d = 128, whose O takes twice the registers.
+//   * Both products on wgmma with f32 accumulation. S = Q K^T is
+//     m64n128k16 with Q and K read from shared memory through descriptors.
+//     O += P V takes P from registers: the S accumulator fragment, packed
+//     to bf16 pairs, is wgmma's register A fragment, so P never goes to
+//     shared memory; V is read as stored, through the B descriptor's
+//     transpose bit (no transpose of V by hand).
+//   * Overlap. Inside a warpgroup, tile i's Q K^T is issued together with
+//     tile i-1's P V, and tile i's softmax runs while both are in flight.
+//     Across warpgroups, a ring of named barriers makes each issue its
+//     products right after the one before it (FA3's ping-pong), so one's
+//     softmax runs under the others' products.
+//   * Softmax in base 2: p = exp2(s * scale*log2e - m * scale*log2e), one
+//     FMA and one ex2.approx.ftz a logit; m is kept on the raw dot
+//     products and scaled once at the end, so the residual m is the max of
+//     the scaled logits and l = sum exp(s*scale - m), as the plain version
+//     defines them. Each thread keeps partial row sums; the quad adds them
+//     once.
+// At the headline shape this is 216 blocks of 120 KB of shared memory,
+// one 512-thread block an SM, so 1.64 waves on 132 SMs (the second wave
+// is 64% full) and the last q tile holds 32 of its 192 rows. Left for
+// later: a persistent grid or split kv to fill the second wave, K/V
+// multicast across a cluster of two blocks (each K/V tile is read from L2
+// by 9 blocks), and a TMA store of O.
+//
+// f32: plain f32 FMAs, no TF32 (wgmma has no f32 without TF32). 128
+// threads, 32 q rows (4 threads a row), kv tiles of 32.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -105,189 +143,417 @@ __device__ __forceinline__ bool Live(const Params& p, int row, int col) {
 
 // --------------------------------------------------------------- bf16
 
-__device__ __forceinline__ void MmaBf16(float* d, const uint32_t* a,
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t PackBf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t Ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-constexpr int kBqB = 64;   // q rows a block (16 a warp)
-constexpr int kBkB = 64;   // kv columns a tile
-constexpr int kPad = 8;    // bf16 elements of row padding: no bank conflicts
+constexpr int kWgRows = 64;  // q rows a consumer warpgroup
+constexpr int kBk = 128;     // kv columns a tile: the N of S = Q K^T
+constexpr int kStages = 3;   // K/V tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-constexpr int SmemBf16() {
-  return (kBqB * (D + kPad) + kBkB * (D + kPad) + D * (kBkB + kPad)) * 2;
+struct TileCfg {
+  // Consumer warpgroups: three (a 192-row q tile, 160 registers a thread)
+  // where Q and three stages fit in shared memory, else two (128 rows,
+  // 240 registers a thread).
+  static constexpr int kConsumers = D <= 64 ? 3 : 2;
+  static constexpr int kBq = kConsumers * kWgRows;  // q rows a block
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kProducerRegs = kConsumers == 3 ? 32 : 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr int kCols = D < 64 ? D : 64;  // columns of a swizzle row
+  static constexpr int kChunks = D / kCols;      // TMA boxes across d
+  static constexpr int kRowBytes = kCols * 2;    // 64 or 128
+  static constexpr int kQBytes = kBq * D * 2;
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                    65536, "register file");
+  static constexpr int kKvBytes = kBk * D * 2;
+  static constexpr int kBarOff = kQBytes + 2 * kStages * kKvBytes;
+  // 1024 bytes of slack to align the swizzled tiles to 1024.
+  static constexpr int kSmem = 1024 + kBarOff + 8 * (1 + 3 * kStages);
+};
+
+// The mbarriers, after the tiles: Q full, then K full, V full and empty
+// for each stage.
+__device__ __forceinline__ uint32_t KFull(uint32_t bar, int s) {
+  return bar + 8 * (1 + s);
+}
+__device__ __forceinline__ uint32_t VFull(uint32_t bar, int s) {
+  return bar + 8 * (1 + kStages + s);
+}
+__device__ __forceinline__ uint32_t Empty(uint32_t bar, int s) {
+  return bar + 8 * (1 + 2 * kStages + s);
 }
 
-// mma.sync m16n8k16 fragments, g = lane / 4, c = lane % 4:
-//   A (16x16, row-major): a0 (g, 2c..2c+1), a1 (g+8, 2c..), a2 (g, 2c+8..),
-//     a3 (g+8, 2c+8..).
-//   B (16x8, k by n): b0 (k = 2c..2c+1, n = g), b1 (k = 2c+8.., n = g).
-//   C (16x8): c0, c1 (g, 2c..2c+1), c2, c3 (g+8, 2c..2c+1).
-// The C fragments of two neighbouring n-tiles of S are exactly the A
-// fragment of P for one k-step of P@V, so P never leaves registers.
+struct Tiles {
+  uint32_t q, k, v, bar;  // shared addresses: Q, K stage 0, V stage 0
+  int q0, h, b, first, count;
+};
+
+// One thread: Q once, then K and V of every kv tile into the ring.
 template <int D>
-__global__ void __launch_bounds__(128) FlashFwdBf16(Params p) {
-  constexpr int QLD = D + kPad, KLD = D + kPad, VLD = kBkB + kPad;
-  constexpr int NT = kBkB / 8;  // n-tiles of S
-  constexpr int DT = D / 8;     // n-tiles of O
-  constexpr int KS = D / 16;    // k-steps of Q K^T
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kBqB * QLD;
-  __nv_bfloat16* vt = ks + kBkB * KLD;  // V transposed: [D][kv]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, c = lane & 3;
-  const int q0 = blockIdx.x * kBqB, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.H / p.Hk);
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            b * p.qsb + h * p.qsh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            b * p.ksb + hk * p.ksh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            b * p.vsb + hk * p.vsh;
-
-  for (int i = tid; i < kBqB * D / 8; i += 128) {
-    const int r = i / (D / 8), col = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < p.Sq)
-      val = *reinterpret_cast<const uint4*>(qg + (q0 + r) * p.qss + col);
-    *reinterpret_cast<uint4*>(qs + r * QLD + col) = val;
+__device__ __forceinline__ void Produce(const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv,
+                                        const Params& p, const Tiles& t) {
+  using C = TileCfg<D>;
+  const int hk = t.h / (p.H / p.Hk);
+  sm90::MbarExpectTx(t.bar, C::kQBytes);
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c)
+    sm90::TmaLoad4d(t.q + c * C::kBq * C::kRowBytes, tq, t.bar, c * C::kCols,
+                    t.q0, t.h, t.b);
+  for (int i = 0; i < t.count; ++i) {
+    const int s = i % kStages;
+    if (i >= kStages)
+      sm90::MbarWait(Empty(t.bar, s), (i / kStages - 1) & 1);
+    const int k0 = (t.first + i) * kBk;
+    const uint32_t ks = t.k + s * C::kKvBytes, vs = t.v + s * C::kKvBytes;
+    sm90::MbarExpectTx(KFull(t.bar, s), C::kKvBytes);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+      sm90::TmaLoad4d(ks + c * kBk * C::kRowBytes, tk, KFull(t.bar, s),
+                      c * C::kCols, k0, hk, t.b);
+    sm90::MbarExpectTx(VFull(t.bar, s), C::kKvBytes);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+      sm90::TmaLoad4d(vs + c * kBk * C::kRowBytes, tv, VFull(t.bar, s),
+                      c * C::kCols, k0, hk, t.b);
   }
-  __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qf[KS][4];
+}
+
+// Q K^T of one kv tile into the S accumulator, issued, not waited for.
+template <int D>
+__device__ __forceinline__ void IssueQK(float* s, uint32_t q_rows,
+                                        uint32_t ks) {
+  using C = TileCfg<D>;
+  sm90::WgmmaFence();
 #pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    qf[s][0] = Ld32(qs + (wr + g) * QLD + s * 16 + 2 * c);
-    qf[s][1] = Ld32(qs + (wr + g + 8) * QLD + s * 16 + 2 * c);
-    qf[s][2] = Ld32(qs + (wr + g) * QLD + s * 16 + 8 + 2 * c);
-    qf[s][3] = Ld32(qs + (wr + g + 8) * QLD + s * 16 + 8 + 2 * c);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int chunk = kk * 16 / C::kCols;
+    const int off = (kk * 16 % C::kCols) * 2;
+    sm90::WgmmaSS128(
+        s, sm90::Desc(q_rows + chunk * C::kBq * C::kRowBytes + off,
+                      C::kRowBytes),
+        sm90::Desc(ks + chunk * kBk * C::kRowBytes + off, C::kRowBytes),
+        kk > 0);
   }
+  sm90::WgmmaCommit();
+}
 
-  float acc[DT][4];
+// O += P V of one kv tile, P from registers, issued, not waited for.
+template <int D>
+__device__ __forceinline__ void IssuePV(float* o, uint32_t (*pa)[4],
+                                        uint32_t vs) {
+  using C = TileCfg<D>;
+  sm90::WgmmaFence();
 #pragma unroll
-  for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  const int row0 = q0 + wr + g;  // this thread's rows: row0 and row0 + 8
-
-  int lo, hi;
-  KvRange(p, q0, kBqB, &lo, &hi);
-  for (int k0 = (lo / kBkB) * kBkB; k0 < hi; k0 += kBkB) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBkB * D / 8; i += 128) {
-      const int r = i / (D / 8), col = (i % (D / 8)) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + r < p.Sk)
-        val = *reinterpret_cast<const uint4*>(kg + (k0 + r) * p.kss + col);
-      *reinterpret_cast<uint4*>(ks + r * KLD + col) = val;
-    }
-    for (int i = tid; i < kBkB * D / 8; i += 128) {
-      const int j = i % kBkB, col = (i / kBkB) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + j < p.Sk)
-        val = *reinterpret_cast<const uint4*>(vg + (k0 + j) * p.vss + col);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+  for (int kk = 0; kk < kBk / 16; ++kk) {
 #pragma unroll
-      for (int x = 0; x < 8; ++x) vt[(col + x) * VLD + j] = e[x];
-    }
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < KS; ++st) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kr = ks + (n * 8 + g) * KLD + st * 16 + 2 * c;
-        MmaBf16(s[n], qf[st], Ld32(kr), Ld32(kr + 8));
+    for (int ch = 0; ch < C::kChunks; ++ch) {
+      const uint64_t dv = sm90::Desc(
+          vs + ch * kBk * C::kRowBytes + kk * 16 * C::kRowBytes, C::kRowBytes);
+      if constexpr (C::kCols == 64) {
+        sm90::WgmmaRS64(o + ch * 32, pa[kk], dv);
+      } else {
+        sm90::WgmmaRS32(o, pa[kk], dv);
       }
     }
-    const bool masked = TileNeedsMask(p, q0, kBqB, k0, kBkB);
+  }
+  sm90::WgmmaCommit();
+}
+
+// The online softmax of one S tile, in place: masks it where the tile
+// needs it, updates the raw row max m and this thread's share of l, turns
+// s into p and sets alpha to the factor the accumulator is rescaled by.
+__device__ __forceinline__ void Softmax(const Params& p, float* s, int row0,
+                                        int q0w, int k0, int c, float c2,
+                                        float* m_run, float* l_run,
+                                        float* alpha) {
+  constexpr int NJ = kBk / 8;
+  if (TileNeedsMask(p, q0w, kWgRows, k0, kBk)) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * p.scale;
-        if (masked && !Live(p, row0 + (e >> 1) * 8, k0 + n * 8 + 2 * c + (e & 1)))
-          x = kMask;
-        s[n][e] = x;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = kMask;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        s[n][2 * i] = expf(s[n][2 * i] - m_new);
-        s[n][2 * i + 1] = expf(s[n][2 * i + 1] - m_new);
-        sum += s[n][2 * i] + s[n][2 * i + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[i] = l_run[i] * alpha + sum;
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        acc[t][2 * i] *= alpha;
-        acc[t][2 * i + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBkB / 16; ++kk) {
-      const uint32_t a[4] = {PackBf16(s[2 * kk][0], s[2 * kk][1]),
-                             PackBf16(s[2 * kk][2], s[2 * kk][3]),
-                             PackBf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             PackBf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        const __nv_bfloat16* vr = vt + (t * 8 + g) * VLD + kk * 16 + 2 * c;
-        MmaBf16(acc[t], a, Ld32(vr), Ld32(vr + 8));
+        if (!Live(p, row0 + 8 * (e >> 1), k0 + 8 * j + 2 * c + (e & 1)))
+          s[4 * j + e] = kMask;
       }
     }
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kMask;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[r], mx);
+    alpha[r] = sm90::Exp2((m_run[r] - m_new) * c2);
+    m_run[r] = m_new;
+    // A row that has seen only masked logits so far gets p = 0 for them
+    // (s * c2 - m * c2 with both near -FLT_MAX would leave the FMA's
+    // rounding residue in the exponent).
+    const float mc = m_new > kMask ? m_new * c2 : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = sm90::Exp2(fmaf(s[4 * j + 2 * r + e], c2, -mc));
+        s[4 * j + 2 * r + e] = x;
+        sum += x;
+      }
+    }
+    l_run[r] = l_run[r] * alpha[r] + sum;
+  }
+}
 
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh;
+// p, rounded to bf16 pairs: the S accumulator fragment of n-tiles 2kk and
+// 2kk + 1 is the A fragment of P for k-step kk of P V.
+__device__ __forceinline__ void PackP(const float* s, uint32_t (*pa)[4]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
+  for (int kk = 0; kk < kBk / 16; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      pa[kk][x] = PackBf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+  }
+}
+
+// Ping-pong of the consumer warpgroups: each issues its products only
+// after the one before it (in a ring) has issued its own, so one's
+// softmax runs under the others' products. Warpgroup w waits on named
+// barrier 1 + w; the last warpgroup opens the ring.
+__device__ __forceinline__ void TurnWait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+template <int NC>
+__device__ __forceinline__ void TurnPass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % NC) : "memory");
+}
+
+// One consumer warpgroup: 64 q rows against every kv tile of the block.
+// Thread fragment (sm90.cuh): warp w, g = lane / 4, c = lane % 4 own rows
+// row0 = q0w + 16w + g and row0 + 8; s[4j + e] and o[4j + e] are column
+// 8j + 2c + (e % 2) of row row0 + 8 (e / 2).
+// Tile i's Q K^T is issued before tile i-1's P V, so both products run
+// while the warpgroup computes tile i's softmax; the accumulator is
+// rescaled once tile i-1's P V is done.
+template <int D>
+__device__ __forceinline__ void Consume(const Params& p, const Tiles& t,
+                                        int wg, int tw) {
+  using C = TileCfg<D>;
+  constexpr int SN = kBk / 2;  // S accumulator floats a thread
+  constexpr int ON = D / 2;    // O accumulator floats a thread
+  const int warp = tw / 32, lane = tw % 32, g = lane >> 2, c = lane & 3;
+  const int q0w = t.q0 + wg * kWgRows;
+  const int row0 = q0w + warp * 16 + g;
+  const float c2 = p.scale * kLog2e;
+  const uint32_t q_rows = t.q + wg * kWgRows * C::kRowBytes;
+
+  float s[SN], o[ON];
+  uint32_t pa[kBk / 16][4];
+#pragma unroll
+  for (int i = 0; i < SN; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < ON; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // max of the raw dot products
+  float l_run[2] = {0.f, 0.f};              // this thread's share of l
+  float alpha[2];
+
+  sm90::MbarWait(t.bar, 0);
+  sm90::MbarWait(KFull(t.bar, 0), 0);
+  constexpr int NC = C::kConsumers;
+  if (wg == NC - 1) TurnPass<NC>(wg);
+  TurnWait(wg);
+  IssueQK<D>(s, q_rows, t.k);
+  TurnPass<NC>(wg);
+  sm90::WgmmaWait<0>();
+  sm90::FenceRegs<SN>(s);
+  Softmax(p, s, row0, q0w, t.first * kBk, c, c2, m_run, l_run, alpha);
+  PackP(s, pa);
+  for (int i = 1; i < t.count; ++i) {
+    const int st = i % kStages, prev = (i - 1) % kStages;
+    sm90::MbarWait(KFull(t.bar, st), (i / kStages) & 1);
+    sm90::MbarWait(VFull(t.bar, prev), ((i - 1) / kStages) & 1);
+    TurnWait(wg);
+    IssueQK<D>(s, q_rows, t.k + st * C::kKvBytes);
+    IssuePV<D>(o, pa, t.v + prev * C::kKvBytes);
+    TurnPass<NC>(wg);
+    sm90::WgmmaWait<1>();  // Q K^T of tile i
+    sm90::FenceRegs<SN>(s);
+    Softmax(p, s, row0, q0w, (t.first + i) * kBk, c, c2, m_run, l_run,
+            alpha);
+    sm90::WgmmaWait<0>();  // P V of tile i - 1
+    sm90::FenceRegs<ON>(o);
+    sm90::FenceRegs<4 * kBk / 16>(&pa[0][0]);
+    sm90::MbarArrive(Empty(t.bar, prev));
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+    PackP(s, pa);
+  }
+  const int last = (t.count - 1) % kStages;
+  sm90::MbarWait(VFull(t.bar, last), ((t.count - 1) / kStages) & 1);
+  TurnWait(wg);
+  IssuePV<D>(o, pa, t.v + last * C::kKvBytes);
+  if (wg != NC - 1) TurnPass<NC>(wg);
+  sm90::WgmmaWait<0>();
+  sm90::FenceRegs<ON>(o);
+  sm90::MbarArrive(Empty(t.bar, last));
+
+  float l_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[r] = l;
+  }
+  __nv_bfloat16* og =
+      static_cast<__nv_bfloat16*>(p.o) + t.b * p.osb + t.h * p.osh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= p.Sq) continue;
-    const float inv = l_run[i] == 0.f ? 1.f : 1.f / l_run[i];
+    const float inv = l_row[r] == 0.f ? 1.f : 1.f / l_row[r];
 #pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const uint32_t packed = PackBf16(acc[t][2 * i] * inv, acc[t][2 * i + 1] * inv);
-      *reinterpret_cast<uint32_t*>(og + row * p.oss + t * 8 + 2 * c) = packed;
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(og + row * p.oss + 8 * j + 2 * c) =
+          PackBf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
     if (c == 0 && p.l != nullptr) {
-      const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq + row;
-      p.l[at] = l_run[i];
-      p.m[at] = m_run[i];
+      const long long at =
+          (static_cast<long long>(t.b) * p.H + t.h) * p.Sq + row;
+      p.l[at] = l_row[r];
+      p.m[at] = m_run[r] * p.scale;
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TileCfg<D>::kThreads, 1)
+    FlashFwdBf16(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = TileCfg<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tiles t;
+  t.q = (sm90::SmemAddr(smem) + 1023) & ~1023u;
+  t.k = t.q + C::kQBytes;
+  t.v = t.k + kStages * C::kKvBytes;
+  t.bar = t.q + C::kBarOff;
+  t.q0 = blockIdx.x * C::kBq;
+  t.h = blockIdx.y;
+  t.b = blockIdx.z;
+  int lo, hi;
+  KvRange(p, t.q0, C::kBq, &lo, &hi);
+  t.first = lo / kBk;
+  t.count = (hi + kBk - 1) / kBk - t.first;
+
+  if (threadIdx.x == 0) {
+    sm90::MbarInit(t.bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::MbarInit(KFull(t.bar, s), 1);
+      sm90::MbarInit(VFull(t.bar, s), 1);
+      sm90::MbarInit(Empty(t.bar, s), 128 * C::kConsumers);
+    }
+    sm90::FenceBarrierInit();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    sm90::SetMaxRegsDec<C::kProducerRegs>();
+    if (threadIdx.x == 0) Produce<D>(&tq, &tk, &tv, p, t);
+  } else {
+    sm90::SetMaxRegsInc<C::kConsumerRegs>();
+    Consume<D>(p, t, threadIdx.x / 128 - 1, threadIdx.x % 128);
+  }
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime,
+// so the library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled Encoder() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 [B, heads, S, d] tensor with element strides (sb, sh, ss) as the
+// 4-D map (d, S, heads, B), in boxes of `rows` rows by `cols` columns.
+bool EncodeMap(CUtensorMap* map, const void* ptr, int d, int s, int heads,
+               int batch, long long sb, long long sh, long long ss, int rows,
+               int cols) {
+  const EncodeTiled encode = Encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                           static_cast<cuuint64_t>(sh) * 2,
+                           static_cast<cuuint64_t>(sb) * 2};
+  // A dimension of extent 1 is never stepped over: give it a stride the
+  // map accepts whatever the caller's was.
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1)
+      strides[i] = i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i];
+  }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t LaunchBf16(const Params& p, cudaStream_t stream) {
+  using C = TileCfg<D>;
+  CUtensorMap tq, tk, tv;
+  if (!EncodeMap(&tq, p.q, D, p.Sq, p.H, p.B, p.qsb, p.qsh, p.qss, C::kBq,
+                 C::kCols) ||
+      !EncodeMap(&tk, p.k, D, p.Sk, p.Hk, p.B, p.ksb, p.ksh, p.kss, kBk,
+                 C::kCols) ||
+      !EncodeMap(&tv, p.v, D, p.Sk, p.Hk, p.B, p.vsb, p.vsh, p.vss, kBk,
+                 C::kCols))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      FlashFwdBf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + C::kBq - 1) / C::kBq, p.H, p.B);
+  FlashFwdBf16<D><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- f32
@@ -421,7 +687,8 @@ cudaError_t Launch(Kernel kernel, int smem, dim3 grid, const Params& p,
 // dtype: 0 bf16, 1 f32. d: 32, 64 or 128. Strides in elements; the last
 // dimension of every tensor is contiguous. l and m may both be null.
 // Returns a cudaError_t (0 on success, cudaErrorInvalidValue for a head
-// dim or dtype the kernel does not take).
+// dim or dtype the kernel does not take, or for bf16 strides that TMA
+// cannot describe).
 extern "C" int ts_flash_fwd(
     const void* q, const void* k, const void* v, void* o, float* l, float* m,
     int dtype, int B, int H, int Hk, int Sq, int Sk, int d,
@@ -435,11 +702,10 @@ extern "C" int ts_flash_fwd(
            scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const dim3 grid((Sq + kBqB - 1) / kBqB, H, B);
     switch (d) {
-      case 32: return Launch(FlashFwdBf16<32>, SmemBf16<32>(), grid, p, s);
-      case 64: return Launch(FlashFwdBf16<64>, SmemBf16<64>(), grid, p, s);
-      case 128: return Launch(FlashFwdBf16<128>, SmemBf16<128>(), grid, p, s);
+      case 32: return LaunchBf16<32>(p, s);
+      case 64: return LaunchBf16<64>(p, s);
+      case 128: return LaunchBf16<128>(p, s);
     }
   } else if (dtype == 1) {
     const dim3 grid((Sq + kBqF - 1) / kBqF, H, B);

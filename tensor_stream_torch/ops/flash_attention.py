@@ -196,7 +196,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
     ``block_q``/``block_k`` choose the TPU kernel's tiles in the JAX
     package and are accepted for the same signature; the CUDA kernel's
-    tiles are fixed by dtype (64x64 bf16, 32x32 f32)."""
+    tiles are fixed: bf16 192 q rows x 128 kv at d <= 64 and 128 x 128 at
+    d = 128 (TMA and wgmma), f32 32 x 32."""
     sm_scale, window = _check(q, k, v, causal, window, sm_scale)
     return _dispatch(q, k, v, causal, window, sm_scale, impl, False)[0]
 

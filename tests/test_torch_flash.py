@@ -208,54 +208,139 @@ def test_misaligned_input_raises(name, make_t, match):
         fa.check_aligned(q=make_t())
 
 
-def _tiled_fwd(q, k, v, drop_tile=None, lost_cols=()):
-    """The kernel's numerics in torch: 64-wide kv tiles, online m and l in
-    f32, unnormalized P rounded to v's dtype before P@V. `drop_tile`
-    skips one kv tile; `lost_cols` zeroes those columns of each tile's P
-    in P@V only (a fault in the P fragment or V's shared-memory layout)."""
+LOG2E = 1.4426950408889634
+DESIGNS = {
+    # The mma.sync kernel of the first port: 64 q rows x 64 kv columns a
+    # block, softmax in natural units with expf.
+    "mma_sync": {"bq": 64, "bk": 64, "base2": False},
+    # The wgmma kernel at d <= 64: 192 q rows (three consumer warpgroups)
+    # x 128 kv columns, softmax as exp2(s * scale*log2e - m * scale*log2e)
+    # on the raw dot products, m scaled once at the end.
+    "wgmma": {"bq": 192, "bk": 128, "base2": True},
+}
+
+
+def _swizzle_fault(k):
+    """K as a kernel would read it with the 128-byte swizzle left out of
+    its descriptor: in kv row r, 16-byte chunk j holds chunk j ^ (r % 8)."""
+    s, d = k.shape[-2], k.shape[-1]
+    r = torch.arange(s)[:, None]
+    j = torch.arange(d // 8)[None, :]
+    src = ((j ^ (r % 8)) * 8)[..., None] + torch.arange(8)
+    return torch.gather(k, -1, src.reshape(s, d).expand(k.shape))
+
+
+def _tiled_fwd(q, k, v, bq=64, bk=64, base2=False, causal=False,
+               drop_tile=None, lost_cols=(), swizzled_k=False,
+               causal_tiles_short=0):
+    """The kernel's numerics in torch: q tiles of `bq` rows, each looping
+    over kv tiles of `bk` up to the causal bound (KvRange), online m and l
+    in f32, masked logits -0.7 * f32max, unnormalized P rounded to v's
+    dtype before P@V; `base2` takes the wgmma kernel's exp2 form. Faults:
+    `drop_tile` skips one kv tile; `lost_cols` zeroes those columns of each
+    tile's P in P@V only (a fault in the P fragment or V's layout);
+    `swizzled_k` reads K with the swizzle left out (_swizzle_fault);
+    `causal_tiles_short` ends the causal loop that many q tiles early."""
     scale = q.shape[-1] ** -0.5
-    m = torch.full(q.shape[:3], fa.MASK_VALUE)
-    l = torch.zeros(q.shape[:3])
-    acc = torch.zeros(q.shape)
-    for t, start in enumerate(range(0, k.shape[2], 64)):
-        if t == drop_tile:
-            continue
-        s = torch.matmul(q.float(), k[:, :, start:start + 64].float()
-                         .transpose(-1, -2)) * scale
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(-1)
-        pv = p.to(v.dtype).float()
-        pv[..., list(lost_cols)] = 0
-        acc = acc * alpha[..., None] + pv @ v[:, :, start:start + 64].float()
-        m = m_new
-    return (acc / l[..., None]).to(q.dtype), l, m
+    c2 = scale * LOG2E
+    sq, sk = q.shape[2], k.shape[2]
+    kk = _swizzle_fault(k) if swizzled_k else k
+    o = torch.empty(q.shape, dtype=q.dtype)
+    l_out = torch.empty(q.shape[:3])
+    m_out = torch.empty(q.shape[:3])
+    for q0 in range(0, sq, bq):
+        qt = q[:, :, q0:q0 + bq].float()
+        rows = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        hi = sk
+        if causal:
+            hi = min(sk, q0 + bq - causal_tiles_short * bq)
+        m = torch.full(qt.shape[:3], -float("inf"))
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for t, k0 in enumerate(range(0, max(hi, 0), bk)):
+            if t == drop_tile:
+                continue
+            cols = torch.arange(k0, min(k0 + bk, sk))[None, :]
+            s = torch.matmul(qt, kk[:, :, k0:k0 + bk].float()
+                             .transpose(-1, -2))
+            if not base2:
+                s = s * scale
+            if causal:
+                s = torch.where(cols <= rows, s,
+                                torch.tensor(fa.MASK_VALUE))
+            m_new = torch.maximum(m, s.amax(-1))
+            if base2:
+                alpha = torch.exp2((m - m_new) * c2)
+                mc = torch.where(m_new > fa.MASK_VALUE, m_new * c2,
+                                 torch.zeros(()))
+                p = torch.exp2(s * c2 - mc[..., None])
+            else:
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = p.to(v.dtype).float()
+            pv[..., list(lost_cols)] = 0
+            acc = (acc * alpha[..., None]
+                   + pv @ v[:, :, k0:k0 + bk].float())
+            m = m_new
+        inv = torch.where(l == 0, torch.ones(()), 1 / l)
+        o[:, :, q0:q0 + bq] = (acc * inv[..., None]).to(q.dtype)
+        l_out[:, :, q0:q0 + bq] = l
+        m_out[:, :, q0:q0 + bq] = m * scale if base2 else m
+    return o, l_out, m_out
 
 
+ALL_CHECKS = {"o", "o_rel", "l", "m"}
 SMOKE_RULE_CASES = [
-    # name, fault, checks the fault must fail (None: it must pass all)
-    ("kernel_numerics", {}, None),
-    ("dropped_kv_tile", {"drop_tile": 7}, {"o", "o_rel", "l", "m"}),
-    ("lost_p_columns", {"lost_cols": (0, 2, 4, 6)}, {"o", "o_rel"}),
+    # name, design, causal, fault, checks the fault must fail (None: it
+    # must pass all)
+    ("kernel_numerics", "mma_sync", False, {}, None),
+    ("dropped_kv_tile", "mma_sync", False, {"drop_tile": 7}, ALL_CHECKS),
+    ("lost_p_columns", "mma_sync", False, {"lost_cols": (0, 2, 4, 6)},
+     {"o", "o_rel"}),
+    ("wgmma_kernel_numerics", "wgmma", False, {}, None),
+    ("wgmma_causal_numerics", "wgmma", True, {}, None),
+    ("wgmma_dropped_kv_tile", "wgmma", False, {"drop_tile": 5}, ALL_CHECKS),
+    ("wgmma_lost_p_columns", "wgmma", False, {"lost_cols": (0, 2, 4, 6)},
+     {"o", "o_rel"}),
+    ("wgmma_swizzled_k", "wgmma", False, {"swizzled_k": True}, ALL_CHECKS),
+    # One q tile short in the causal bound, at the 128-row tile (d = 128)
+    # and the 192-row tile (d <= 64): each tile loses its diagonal block.
+    ("wgmma_causal_tile_short_bq128", "wgmma", True,
+     {"bq": 128, "causal_tiles_short": 1}, ALL_CHECKS),
+    ("wgmma_causal_tile_short_bq192", "wgmma", True,
+     {"causal_tiles_short": 1}, ALL_CHECKS),
 ]
 
 
-@pytest.mark.parametrize("name,fault,fails", SMOKE_RULE_CASES,
+@pytest.mark.parametrize("name,design,causal,fault,fails", SMOKE_RULE_CASES,
                          ids=[c[0] for c in SMOKE_RULE_CASES])
-def test_smoke_flash_rule_sees_kernel_faults(name, fault, fails):
+def test_smoke_flash_rule_sees_kernel_faults(name, design, causal, fault,
+                                             fails):
     """chip_smoke.py's kernel-vs-plain rule, on its inputs at the headline
-    length (S=1568, bf16), passes the kernel's numerics and fails a
-    kernel that drops a kv tile or loses P columns in P@V. The last shows
-    only in o: l and m never see P@V."""
+    length (S=1568, bf16), passes the numerics of both kernel designs (the
+    mma.sync one and the wgmma one, causal too) and fails each of their
+    faults: a dropped kv tile, P columns lost in P@V (only o sees it: l and
+    m never see P@V), K read without its swizzle, a causal loop one q tile
+    short."""
     gen = torch.Generator().manual_seed(0)
     std = (chip_smoke.FLASH_QK_STD,) * 2 + (chip_smoke.FLASH_V_STD,)
     q, k, v = ((torch.randn((1, 2, 1568, 64), generator=gen) * s)
                .to(torch.bfloat16) for s in std)
-    want = fa.flash_attention_plain(q, k, v, residuals=True)
-    checks, errs = chip_smoke.flash_rule(_tiled_fwd(q, k, v, **fault), want)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, residuals=True)
+    got = _tiled_fwd(q, k, v, causal=causal, **{**DESIGNS[design], **fault})
+    checks, errs = chip_smoke.flash_rule(got, want)
     failed = {c for c, passed in checks.items() if not passed}
     assert failed == (fails or set()), errs
+
+
+def test_swizzle_fault_permutes_chunks_within_rows():
+    k = torch.arange(2 * 16 * 64, dtype=torch.float32).reshape(1, 2, 16, 64)
+    got = _swizzle_fault(k)
+    assert torch.equal(got[..., 0, :], k[..., 0, :])
+    assert torch.equal(got[..., 8, :], k[..., 8, :])
+    assert torch.equal(got[0, 0, 3, 8:16], k[0, 0, 3, 16:24])  # 1 ^ 3 = 2
+    assert torch.equal(got.sort(-1).values, k.sort(-1).values)
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])

@@ -121,6 +121,39 @@ def test_cuda_build_flags_pin_rounding():
         assert os.path.exists(os.path.join(_build.SRC_DIR, f"{name}.cu"))
 
 
+def test_build_staleness_follows_included_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when its .cu or any csrc/ file that it
+    includes, directly or through another header, is newer than it; a
+    system header is not followed."""
+    src, out = tmp_path / "csrc", tmp_path / "build"
+    src.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(_build, "SRC_DIR", str(src))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(out))
+    (src / "k.cu").write_text('#include <cuda.h>\n  # include "a.cuh"\n')
+    (src / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (src / "b.cuh").write_text('#include "a.cuh"\n')  # a cycle ends
+    (src / "other.cuh").write_text("")
+    assert _build._stale("k")  # never built
+    lib = out / "libk.so"
+    lib.write_text("")
+    for f in ("k.cu", "a.cuh", "b.cuh", "other.cuh"):
+        os.utime(src / f, (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert sorted(os.path.basename(f) for f in _build.sources_of("k")) == [
+        "a.cuh", "b.cuh", "k.cu"]
+    assert not _build._stale("k")
+    os.utime(src / "other.cuh", (3000, 3000))
+    assert not _build._stale("k")  # not included
+    os.utime(src / "b.cuh", (3000, 3000))
+    assert _build._stale("k")
+
+
+def test_flash_source_includes_its_hopper_header():
+    assert os.path.join(_build.SRC_DIR, "sm90.cuh") in _build.sources_of(
+        "flash_fwd")
+
+
 def test_crc_matches_jax_copy():
     from tensor_stream_tpu.utils.crc import av_crc32
     data = np.random.default_rng(3).integers(0, 256, 4096, np.uint8)
