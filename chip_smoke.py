@@ -26,6 +26,13 @@ Where the machine cannot build the native decoder (libtsingest.so needs
 FFmpeg's development libraries), the main-path phase says so on a line
 of its own and drives the same FrameLoader staging, copy, event rotation
 and batched VPP from seeded NV12 frames of the same shape instead.
+
+To time another checkout's kernels against this one's on the same card
+(for example the parent commit, unpacked with git archive into dist/),
+in alternating processes:
+
+    python3 -c "import chip_smoke as c; c.nv12_ab('dist/parent')"
+    python3 -c "import chip_smoke as c; c.flash_ab('dist/parent')"
 """
 import inspect
 import json
@@ -59,9 +66,19 @@ BF16_FLOP_PER_S = 989e12   # dense tensor cores, the same sheet
 F32_FLOP_PER_S = 67e12     # outside the tensor cores
 BATCH = 128
 SIDE = 224
-# Kernel-vs-plain shapes: the headline batch, one 1080p frame, and a
-# ragged size whose width is not a multiple of 4.
-CHECK_SHAPES = ((BATCH, SIDE, SIDE), (1, 1080, 1920), (4, 240, 322))
+# Kernel-vs-plain shapes: the headline batch, one 1080p frame and frames
+# of 226 rows, whose last band of 113 row pairs is shorter than the others
+# (the vector variant), a ragged width that is not a multiple of 4, and a
+# batch whose flat staging puts the UV plane off a 16-byte boundary
+# (3*10*326 = 9780 bytes of Y) with W % 16 != 0 (the edge variant, on both
+# counts).
+CHECK_SHAPES = ((BATCH, SIDE, SIDE), (1, 1080, 1920), (2, 226, SIDE),
+                (4, 240, 322), (3, 10, 326))
+# Timed NV12 conversions, (n, h, w, planar, normalization): the headline
+# loader's batch, one 1080p frame merged u8, and one serving stream's
+# clip, merged f32.
+NV12_TIMED = ((BATCH, SIDE, SIDE, True, True), (1, 1080, 1920, False, False),
+              (16, SIDE, SIDE, False, True))
 STEADY_BATCHES = 40
 
 # Serving: ViT-B width with joint space-time attention (bench.py's flash
@@ -160,21 +177,26 @@ def phase_env():
 def phase_kernel_vs_plain(device):
     """Every {RGB24, BGR24} x {planar, merged} x {u8, f32} x standard, at
     each check shape: the kernel must equal the plain version bit for bit
-    on the same CUDA tensors."""
+    on the same CUDA tensors, and both variants must have run."""
     worst = 0.0
     cases = 0
+    variants = []
     for shape_i, (n, h, w) in enumerate(CHECK_SHAPES):
         flat = torch.from_numpy(seeded_nv12(n, h, w, 100 + shape_i)).to(device)
         y, uv = split(flat, n, h, w)
+        ran = set()
         for swap_rb in (False, True):
             for planar in (True, False):
                 for norm in (False, True):
                     for standard in range(4):
-                        before = nv12_rgb.launches
+                        before = dict(nv12_rgb.launches_by_variant)
                         got = nv12_rgb.nv12_to_rgb(y, uv, swap_rb, planar,
                                                    norm, standard)
-                        if nv12_rgb.launches != before + 1:
+                        went = {v: nv12_rgb.launches_by_variant[v] - n0
+                                for v, n0 in before.items()}
+                        if sorted(went.values()) != [0, 1]:
                             raise AssertionError("kernel did not launch")
+                        ran.add(max(went, key=went.get))
                         want = nv12_rgb.nv12_to_rgb_plain(
                             y, uv, swap_rb, planar, norm, standard)
                         torch.cuda.synchronize()
@@ -187,9 +209,13 @@ def phase_kernel_vs_plain(device):
                                 f"norm={norm} standard={standard}: max abs "
                                 f"err {err}")
                         cases += 1
+        variants.append(sorted(ran))
     emit({"phase": "kernel_vs_plain", "kernel": "nv12_rgb", "cases": cases,
-          "shapes": [list(s) for s in CHECK_SHAPES], "tolerance": "bitwise",
-          "max_abs_err": worst})
+          "shapes": [list(s) for s in CHECK_SHAPES], "variants": variants,
+          "tolerance": "bitwise", "max_abs_err": worst})
+    if {v for ran in variants for v in ran} != set(nv12_rgb.VARIANTS):
+        raise AssertionError(f"variants run {variants}: each of "
+                             f"{nv12_rgb.VARIANTS} must run")
     return worst
 
 
@@ -278,9 +304,10 @@ def check_batch(x, got, device):
 
 
 def drive_loader(loader, device):
-    """Iterates `loader` to its end with the kernel's count at 0; returns
-    (first batch on the host, batches, frames, seconds, launches)."""
-    nv12_rgb.launches = 0
+    """Iterates `loader` to its end with the kernel's counts at 0; returns
+    (first batch on the host, batches, frames, seconds, launches), where
+    launches is {"total": n, "vector": n, "edge": n}."""
+    nv12_rgb.reset_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     first = None
@@ -293,9 +320,9 @@ def drive_loader(loader, device):
         frames += len(idx)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = nv12_rgb.launches
+    launches = {"total": nv12_rgb.launches, **nv12_rgb.launches_by_variant}
     loader.close()
-    if launches != batches:
+    if launches["total"] != batches:
         raise AssertionError(f"{launches} kernel launches for {batches} "
                              "batches: the main path bypassed the kernel")
     return first, batches, frames, seconds, launches
@@ -430,21 +457,29 @@ def time_ms(fn, device, iters=100, warmup=20, hold=True):
 
 
 def phase_times(device, smi, main):
+    """The kernel at NV12_TIMED beside its byte bound, its plain version
+    and the write floor: out.zero_() on an output of the same shape and
+    type, the practical floor of the writes alone (not a library call for
+    this function)."""
     rows = []
-    for (n, h, w, planar, norm) in ((BATCH, SIDE, SIDE, True, True),
-                                    (1, 1080, 1920, False, False)):
+    for (n, h, w, planar, norm) in NV12_TIMED:
         flat = torch.from_numpy(seeded_nv12(n, h, w, 5)).to(device)
         y, uv = split(flat, n, h, w)
+        out = nv12_rgb.nv12_to_rgb(y, uv, False, planar, norm, 0)
+        which = nv12_rgb.variant(h, w, y.data_ptr(), uv.data_ptr(),
+                                 out.data_ptr())
         ms, p10, p90 = time_ms(lambda: nv12_rgb.nv12_to_rgb(
             y, uv, False, planar, norm, 0), device)
         plain_ms = time_ms(lambda: nv12_rgb.nv12_to_rgb_plain(
             y, uv, False, planar, norm, 0), device, iters=30, warmup=5)[0]
+        floor_ms = time_ms(out.zero_, device)[0]
         nbytes = kernel_bytes(n, h, w, norm)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({"shape": [n, h, w], "layout": "planar" if planar
                      else "merged", "dtype": "f32" if norm else "u8",
-                     "ms": ms, "p10_ms": p10, "p90_ms": p90,
-                     "plain_ms": plain_ms,
+                     "variant": which, "ms": ms, "p10_ms": p10,
+                     "p90_ms": p90, "plain_ms": plain_ms,
+                     "write_floor_ms": floor_ms,
                      "bytes": nbytes, "bound_ms": bound_ms,
                      "bound_by": "bytes", "share_of_bound": bound_ms / ms})
     batches, frames, seconds, _ = main
@@ -646,7 +681,7 @@ def phase_serving(device):
     eng = StreamInferencer([f"synthetic:{k}" for k in range(STREAMS)], serve,
                            per_stream=CLIP, loader=loader)
     try:
-        nv12_rgb.launches = 0
+        nv12_rgb.reset_counts()
         fa.launches = 0
         warm = list(eng.stream(max_batches=WARMUP_TICKS))
         torch.cuda.synchronize()
@@ -656,6 +691,7 @@ def phase_serving(device):
         seconds = time.monotonic() - t0
         launches = {"nv12_rgb": nv12_rgb.launches,
                     "flash_fwd": fa.launches}
+        nv12_variants = dict(nv12_rgb.launches_by_variant)
     finally:
         loader.close()
     if launches != {"nv12_rgb": ticks * STREAMS,
@@ -723,7 +759,8 @@ def phase_serving(device):
            "clip": [CLIP, SIDE, SIDE, 3],
            "model": VIT, "compute": "bf16", "residual": "bf16",
            "warmup_ticks": WARMUP_TICKS, "timed_ticks": TIMED_TICKS,
-           "launches": launches, "seconds": seconds,
+           "launches": launches, "nv12_rgb_by_variant": nv12_variants,
+           "seconds": seconds,
            "frames_per_s": frames / seconds,
            "ms_per_tick": seconds / TIMED_TICKS * 1e3,
            "result_wait_ms": {"p50": float(np.percentile(lat, 50)),
@@ -805,7 +842,7 @@ def phase_flash_times(device, smi, serving):
     return out
 
 
-AB_SNIPPET = """
+FLASH_AB_SNIPPET = """
 import json, numpy as np, torch, chip_smoke as c
 from tensor_stream_torch.ops import flash_attention as fa
 HOLD_CYCLES = {hold}
@@ -815,18 +852,34 @@ print(json.dumps(time_ms(lambda: fa.flash_attention(q, k, v),
                          torch.device("cuda", 0))))
 """
 
+# Seeds as seeded_nv12 (seed 5, as phase_times) so both checkouts convert
+# the same bytes; needs nothing of the other checkout but its wrapper.
+NV12_AB_SNIPPET = """
+import json, numpy as np, torch
+from tensor_stream_torch.ops import nv12_rgb
+HOLD_CYCLES = {hold}
+{timer}
+dev = torch.device("cuda", 0)
+rows = []
+for n, h, w, planar, norm in {shapes}:
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(rng.integers(0, 256, n * h * w * 3 // 2,
+                                         dtype=np.uint8)).to(dev)
+    y = flat[:n * h * w].view(n, h, w)
+    uv = flat[n * h * w:].view(n, h // 2, w)
+    rows.append(time_ms(lambda: nv12_rgb.nv12_to_rgb(y, uv, False, planar,
+                                                     norm, 0), dev))
+print(json.dumps(rows))
+"""
 
-def flash_ab(other_root, blocks=1):
-    """The headline flash time of the checkout at `other_root` (for
-    example the parent commit, unpacked with git archive) against this
-    one's, on one card in turns: other, this, this, other, `blocks`
-    times. Each turn is its own process, which builds its checkout's
-    kernel and times it with this checkout's time_ms. Prints and returns
-    {"other": [...], "this": [...]} of (median, p10, p90) ms."""
-    b, h, s, d = FLASH_HEADLINE
-    code = AB_SNIPPET.format(hold=HOLD_CYCLES,
-                             timer=inspect.getsource(time_ms),
-                             shape=(b, h, h, s, s, d), layout="bhsd")
+
+def ab_turns(other_root, code, blocks):
+    """Runs `code` in the checkout at `other_root` (for example the parent
+    commit, unpacked with git archive) and in this one, on one card in
+    turns: other, this, this, other, `blocks` times. Each turn is its own
+    process, which builds its checkout's kernels; `code` times them with
+    this checkout's time_ms and prints one JSON value last. Returns
+    ({"other": [...], "this": [...]}, order, roots)."""
     roots = {"other": os.path.abspath(other_root), "this": HERE}
     order = ["other", "this", "this", "other"] * blocks
     got = {"other": [], "this": []}
@@ -835,8 +888,35 @@ def flash_ab(other_root, blocks=1):
                              check=True, capture_output=True, text=True,
                              timeout=600)
         got[which].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    return got, order, roots
+
+
+def flash_ab(other_root, blocks=1):
+    """The headline flash time of the checkout at `other_root` against
+    this one's (ab_turns). Prints and returns {"other": [...], "this":
+    [...]} of (median, p10, p90) ms."""
+    b, h, s, d = FLASH_HEADLINE
+    code = FLASH_AB_SNIPPET.format(hold=HOLD_CYCLES,
+                                   timer=inspect.getsource(time_ms),
+                                   shape=(b, h, h, s, s, d), layout="bhsd")
+    got, order, roots = ab_turns(other_root, code, blocks)
     emit({"phase": "flash_ab", "card": nvidia_smi(),
           "shape": list(FLASH_HEADLINE), "order": order, **got,
+          "roots": roots})
+    return got
+
+
+def nv12_ab(other_root, blocks=1):
+    """The NV12 kernel's time at each NV12_TIMED shape in the checkout at
+    `other_root` against this one's (ab_turns). Prints and returns
+    {"other": [...], "this": [...]}: a list a turn of (median, p10, p90)
+    ms a shape."""
+    code = NV12_AB_SNIPPET.format(hold=HOLD_CYCLES,
+                                  timer=inspect.getsource(time_ms),
+                                  shapes=NV12_TIMED)
+    got, order, roots = ab_turns(other_root, code, blocks)
+    emit({"phase": "nv12_ab", "card": nvidia_smi(),
+          "shapes": [list(s) for s in NV12_TIMED], "order": order, **got,
           "roots": roots})
     return got
 
@@ -862,7 +942,9 @@ def run(device):
         "name": "nv12_rgb", "route": "cuda",
         "source": "tensor_stream_torch/csrc/nv12_rgb.cu",
         "replaces": "tensor_stream_tpu/ops/pallas_color.py:68",
-        "launches": main[3], "max_abs_err": worst, "ms": head["ms"],
+        "launches": main[3]["total"],
+        "launches_by_variant": {v: main[3][v] for v in nv12_rgb.VARIANTS},
+        "max_abs_err": worst, "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
         "name": "flash_fwd", "route": "cuda",

@@ -2,34 +2,71 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // ops/pallas_color.py::_nv12_rgb_kernel (behind its ops/vpp.py full-frame
-// RGB path). Same function as tensor_stream_torch/ops/color.py::
-// nv12_to_rgb, byte for byte: 2x2 chroma upsample, the BT.601/709
-// limited/full matrix with the +0.5 bias, truncating int cast, clamp to
-// [0, 255], and an optionally correctly rounded x/255, written planar
-// [N,3,H,W] or merged [N,H,W,3].
+// RGB path). Same function as
+// tensor_stream_torch/ops/color.py::nv12_to_rgb, byte for byte: 2x2 chroma
+// upsample, the BT.601/709 limited/full matrix with the +0.5 bias,
+// truncating int cast, clamp to [0, 255], and an optionally correctly
+// rounded x/255, written planar [N,3,H,W] or merged [N,H,W,3].
 //
 // Input is the flat staging layout of build_vpp_batched_flat: all N Y
 // planes [N,H,W], then all N UV planes [N,H/2,W] (the wrapper passes the
 // two base pointers, so separate Y/UV tensors work as well).
 //
-// Bound: device-memory bytes. Each pixel reads 1.5 B (Y + its share of
-// UV) and writes 3 B (u8) or 12 B (f32); the arithmetic is ~20 flops a
-// pixel, far below the card's rate. At 3.35 TB/s:
-//   N=128, 224x224, planar f32: 128*50176*(1.5+12) B = 86.7 MB -> 25.9 us
-//   N=1, 1920x1080, merged u8:  2073600*(1.5+3) B     =  9.3 MB ->  2.8 us
-// Design: one thread per 2x2 luma quad, so each U/V pair is loaded once
-// and serves four pixels; the grid is (quads of one frame, N). Any even
-// H and W work (H=1080 included): there is no block tiling to satisfy.
-// This first version is simple and right; coalesced wide stores are
-// later work.
+// Bound: device-memory bytes. A pixel reads 1.5 B (Y and its share of UV)
+// and writes 3 B (u8) or 12 B (f32); the arithmetic, some 20 flops a
+// pixel, is far below the card's rate. At 3.35 TB/s:
+//   N=128, 224x224, planar f32 (the headline loader): 86.70 MB -> 25.88 us
+//   N=1, 1920x1080, merged u8:                          9.33 MB ->  2.79 us
+//   N=16, 224x224, merged f32 (serving, one stream):   10.84 MB ->  3.24 us
+//
+// Two variants; ops/nv12_rgb.py::variant picks one from the shape and the
+// pointers before the launch.
+//
+// ts_nv12_rgb_vec, the vector kernel, takes W % 16 == 0 (W <= 4096) with
+// 16-byte aligned planes and output, which every layout of the main paths
+// has. It rests on one fact: a band of whole rows of one frame is a
+// contiguous span in every layout (Y rows, UV rows, each planar output
+// channel, the merged output). What each part of its design does about
+// what held the first design (the edge kernel below) back:
+// - A block of 256 threads owns a band of row pairs (as many as give each
+//   thread one 4-pixel group) and brings its Y and UV rows into shared
+//   memory with two 1-D cp.async.bulk copies on one mbarrier, where the
+//   first design made six 1-byte loads a thread for 4 pixels.
+// - The grid is (bands, frames), so every index is 32-bit within a frame
+//   and only the frame offset is 64-bit. A thread walks the band's
+//   4-pixel groups by adding and subtracting; there is no division, where
+//   the first design divided a 64-bit index in every thread (a software
+//   routine of dozens of instructions).
+// - x/255 is a lookup in kDiv255, the 256 correctly rounded quotients,
+//   copied into shared memory by each block: the first design ran three
+//   IEEE divisions (__fdiv_rn, a multi-instruction routine) a pixel.
+// - A byte becomes a float through its bit pattern (0x4B0000bb is
+//   2^23 + bb) and one exact subtraction, not a conversion instruction.
+// - Consecutive lanes write consecutive 16-byte (f32) or 4-byte (u8)
+//   pieces of the band's output into shared memory, free of bank
+//   conflicts in every layout, and one thread writes the band out with at
+//   most three cp.async.bulk stores (one a planar channel), which write
+//   whole lines. The first design stored 4-byte or 1-byte values at
+//   strides of 8, 12 or 3 bytes. A thread a strip of 16 columns x 2 rows
+//   storing its 16-byte pieces straight to global memory was tried and
+//   was slower than the first design at the headline: a warp's store then
+//   touches 32 lines (PERF.md).
+//
+// ts_nv12_rgb, the edge kernel, takes every other even H and W: W not a
+// multiple of 16, or a plane that is not 16-byte aligned, such as the UV
+// plane of a flat staging buffer whose N*H*W is not a multiple of 16. It
+// is the first design, unchanged: one thread per 2x2 luma quad with 64-bit
+// indices.
 //
 // Rounding: every multiply and add uses an _rn intrinsic in the source
-// order of ops/color.py, so nvcc cannot contract them into FMAs (the
+// order of ops/color.py (Rgb), so nvcc cannot contract them into FMAs (the
 // library is also built with -fmad=false); the float cast truncates
-// toward zero like astype(int32); x/255 is the IEEE division
-// __fdiv_rn, never a reciprocal multiply.
+// toward zero like astype(int32); x/255 is the IEEE quotient, computed by
+// __fdiv_rn in the edge kernel and read from kDiv255 in the vector one.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -52,6 +89,75 @@ __constant__ Coefs kCoefs[4] = {
     // 3: BT709 full
     {0x1.932618p+0f, 0x1.db089ap+0f, -0x1.df5bf8p-2f, -0x1.7fa3dep-3f,
      0x1p+0f, 0x0p+0f},
+};
+
+// i/255 for i = 0..255, each the IEEE quotient float(i) / 255.0f, as hex
+// float literals (tests/test_torch_nv12.py parses and checks every entry).
+__constant__ float kDiv255[256] = {
+    0x0p+0f, 0x1.010102p-8f, 0x1.010102p-7f, 0x1.818182p-7f,
+    0x1.010102p-6f, 0x1.414142p-6f, 0x1.818182p-6f, 0x1.c1c1c2p-6f,
+    0x1.010102p-5f, 0x1.212122p-5f, 0x1.414142p-5f, 0x1.616162p-5f,
+    0x1.818182p-5f, 0x1.a1a1a2p-5f, 0x1.c1c1c2p-5f, 0x1.e1e1e2p-5f,
+    0x1.010102p-4f, 0x1.111112p-4f, 0x1.212122p-4f, 0x1.313132p-4f,
+    0x1.414142p-4f, 0x1.515152p-4f, 0x1.616162p-4f, 0x1.717172p-4f,
+    0x1.818182p-4f, 0x1.919192p-4f, 0x1.a1a1a2p-4f, 0x1.b1b1b2p-4f,
+    0x1.c1c1c2p-4f, 0x1.d1d1d2p-4f, 0x1.e1e1e2p-4f, 0x1.f1f1f2p-4f,
+    0x1.010102p-3f, 0x1.09090ap-3f, 0x1.111112p-3f, 0x1.19191ap-3f,
+    0x1.212122p-3f, 0x1.29292ap-3f, 0x1.313132p-3f, 0x1.39393ap-3f,
+    0x1.414142p-3f, 0x1.49494ap-3f, 0x1.515152p-3f, 0x1.59595ap-3f,
+    0x1.616162p-3f, 0x1.69696ap-3f, 0x1.717172p-3f, 0x1.79797ap-3f,
+    0x1.818182p-3f, 0x1.89898ap-3f, 0x1.919192p-3f, 0x1.99999ap-3f,
+    0x1.a1a1a2p-3f, 0x1.a9a9aap-3f, 0x1.b1b1b2p-3f, 0x1.b9b9bap-3f,
+    0x1.c1c1c2p-3f, 0x1.c9c9cap-3f, 0x1.d1d1d2p-3f, 0x1.d9d9dap-3f,
+    0x1.e1e1e2p-3f, 0x1.e9e9eap-3f, 0x1.f1f1f2p-3f, 0x1.f9f9fap-3f,
+    0x1.010102p-2f, 0x1.050506p-2f, 0x1.09090ap-2f, 0x1.0d0d0ep-2f,
+    0x1.111112p-2f, 0x1.151516p-2f, 0x1.19191ap-2f, 0x1.1d1d1ep-2f,
+    0x1.212122p-2f, 0x1.252526p-2f, 0x1.29292ap-2f, 0x1.2d2d2ep-2f,
+    0x1.313132p-2f, 0x1.353536p-2f, 0x1.39393ap-2f, 0x1.3d3d3ep-2f,
+    0x1.414142p-2f, 0x1.454546p-2f, 0x1.49494ap-2f, 0x1.4d4d4ep-2f,
+    0x1.515152p-2f, 0x1.555556p-2f, 0x1.59595ap-2f, 0x1.5d5d5ep-2f,
+    0x1.616162p-2f, 0x1.656566p-2f, 0x1.69696ap-2f, 0x1.6d6d6ep-2f,
+    0x1.717172p-2f, 0x1.757576p-2f, 0x1.79797ap-2f, 0x1.7d7d7ep-2f,
+    0x1.818182p-2f, 0x1.858586p-2f, 0x1.89898ap-2f, 0x1.8d8d8ep-2f,
+    0x1.919192p-2f, 0x1.959596p-2f, 0x1.99999ap-2f, 0x1.9d9d9ep-2f,
+    0x1.a1a1a2p-2f, 0x1.a5a5a6p-2f, 0x1.a9a9aap-2f, 0x1.adadaep-2f,
+    0x1.b1b1b2p-2f, 0x1.b5b5b6p-2f, 0x1.b9b9bap-2f, 0x1.bdbdbep-2f,
+    0x1.c1c1c2p-2f, 0x1.c5c5c6p-2f, 0x1.c9c9cap-2f, 0x1.cdcdcep-2f,
+    0x1.d1d1d2p-2f, 0x1.d5d5d6p-2f, 0x1.d9d9dap-2f, 0x1.dddddep-2f,
+    0x1.e1e1e2p-2f, 0x1.e5e5e6p-2f, 0x1.e9e9eap-2f, 0x1.ededeep-2f,
+    0x1.f1f1f2p-2f, 0x1.f5f5f6p-2f, 0x1.f9f9fap-2f, 0x1.fdfdfep-2f,
+    0x1.010102p-1f, 0x1.030304p-1f, 0x1.050506p-1f, 0x1.070708p-1f,
+    0x1.09090ap-1f, 0x1.0b0b0cp-1f, 0x1.0d0d0ep-1f, 0x1.0f0f1p-1f,
+    0x1.111112p-1f, 0x1.131314p-1f, 0x1.151516p-1f, 0x1.171718p-1f,
+    0x1.19191ap-1f, 0x1.1b1b1cp-1f, 0x1.1d1d1ep-1f, 0x1.1f1f2p-1f,
+    0x1.212122p-1f, 0x1.232324p-1f, 0x1.252526p-1f, 0x1.272728p-1f,
+    0x1.29292ap-1f, 0x1.2b2b2cp-1f, 0x1.2d2d2ep-1f, 0x1.2f2f3p-1f,
+    0x1.313132p-1f, 0x1.333334p-1f, 0x1.353536p-1f, 0x1.373738p-1f,
+    0x1.39393ap-1f, 0x1.3b3b3cp-1f, 0x1.3d3d3ep-1f, 0x1.3f3f4p-1f,
+    0x1.414142p-1f, 0x1.434344p-1f, 0x1.454546p-1f, 0x1.474748p-1f,
+    0x1.49494ap-1f, 0x1.4b4b4cp-1f, 0x1.4d4d4ep-1f, 0x1.4f4f5p-1f,
+    0x1.515152p-1f, 0x1.535354p-1f, 0x1.555556p-1f, 0x1.575758p-1f,
+    0x1.59595ap-1f, 0x1.5b5b5cp-1f, 0x1.5d5d5ep-1f, 0x1.5f5f6p-1f,
+    0x1.616162p-1f, 0x1.636364p-1f, 0x1.656566p-1f, 0x1.676768p-1f,
+    0x1.69696ap-1f, 0x1.6b6b6cp-1f, 0x1.6d6d6ep-1f, 0x1.6f6f7p-1f,
+    0x1.717172p-1f, 0x1.737374p-1f, 0x1.757576p-1f, 0x1.777778p-1f,
+    0x1.79797ap-1f, 0x1.7b7b7cp-1f, 0x1.7d7d7ep-1f, 0x1.7f7f8p-1f,
+    0x1.818182p-1f, 0x1.838384p-1f, 0x1.858586p-1f, 0x1.878788p-1f,
+    0x1.89898ap-1f, 0x1.8b8b8cp-1f, 0x1.8d8d8ep-1f, 0x1.8f8f9p-1f,
+    0x1.919192p-1f, 0x1.939394p-1f, 0x1.959596p-1f, 0x1.979798p-1f,
+    0x1.99999ap-1f, 0x1.9b9b9cp-1f, 0x1.9d9d9ep-1f, 0x1.9f9fap-1f,
+    0x1.a1a1a2p-1f, 0x1.a3a3a4p-1f, 0x1.a5a5a6p-1f, 0x1.a7a7a8p-1f,
+    0x1.a9a9aap-1f, 0x1.ababacp-1f, 0x1.adadaep-1f, 0x1.afafbp-1f,
+    0x1.b1b1b2p-1f, 0x1.b3b3b4p-1f, 0x1.b5b5b6p-1f, 0x1.b7b7b8p-1f,
+    0x1.b9b9bap-1f, 0x1.bbbbbcp-1f, 0x1.bdbdbep-1f, 0x1.bfbfcp-1f,
+    0x1.c1c1c2p-1f, 0x1.c3c3c4p-1f, 0x1.c5c5c6p-1f, 0x1.c7c7c8p-1f,
+    0x1.c9c9cap-1f, 0x1.cbcbccp-1f, 0x1.cdcdcep-1f, 0x1.cfcfdp-1f,
+    0x1.d1d1d2p-1f, 0x1.d3d3d4p-1f, 0x1.d5d5d6p-1f, 0x1.d7d7d8p-1f,
+    0x1.d9d9dap-1f, 0x1.dbdbdcp-1f, 0x1.dddddep-1f, 0x1.dfdfep-1f,
+    0x1.e1e1e2p-1f, 0x1.e3e3e4p-1f, 0x1.e5e5e6p-1f, 0x1.e7e7e8p-1f,
+    0x1.e9e9eap-1f, 0x1.ebebecp-1f, 0x1.ededeep-1f, 0x1.efeffp-1f,
+    0x1.f1f1f2p-1f, 0x1.f3f3f4p-1f, 0x1.f5f5f6p-1f, 0x1.f7f7f8p-1f,
+    0x1.f9f9fap-1f, 0x1.fbfbfcp-1f, 0x1.fdfdfep-1f, 0x1p+0f,
 };
 
 __device__ __forceinline__ int Clamp255(int v) { return min(max(v, 0), 255); }
@@ -81,6 +187,8 @@ __device__ __forceinline__ void Rgb(float yv, float ui, float vi,
       yf, __fadd_rn(__fadd_rn(__fmul_rn(vi, k.gv), __fmul_rn(ui, k.gu)),
                     0.5f))));
 }
+
+// ------------------------------------------------------------ edge kernel
 
 template <typename T, bool kPlanar>
 __global__ void Nv12RgbKernel(const uint8_t* __restrict__ y,
@@ -128,26 +236,172 @@ __global__ void Nv12RgbKernel(const uint8_t* __restrict__ y,
   }
 }
 
-template <typename T, bool kPlanar>
-void Launch(const uint8_t* y, const uint8_t* uv, void* out, int n, int h,
-            int w, int swap_rb, int standard, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long quads = static_cast<long long>(h / 2) * (w / 2);
-  const dim3 grid(static_cast<unsigned>((quads + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(n));
-  Nv12RgbKernel<T, kPlanar><<<grid, kThreads, 0, stream>>>(
-      y, uv, static_cast<T*>(out), h, w, swap_rb, standard);
+// ---------------------------------------------------------- vector kernel
+
+constexpr int kBandThreads = 256;
+
+// Byte `sel` of `word` as a float, minus `bias` (0 or 128), bit for bit
+// static_cast<float>(byte - bias): 0x4B0000bb is the float 2^23 + bb, and
+// subtracting 2^23 + bias from it is exact.
+__device__ __forceinline__ float ByteF(uint32_t word, int sel, float bias) {
+  return __fsub_rn(
+      __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440u | sel)),
+      8388608.0f + bias);
 }
 
-}  // namespace
+// Four channel values v (0..255) of a row: as the bytes of one word, first
+// value lowest, or as v/255 read from the block's copy of kDiv255.
+__device__ __forceinline__ void Put4(uint8_t* dst, const int* v,
+                                     const float*) {
+  *reinterpret_cast<uint32_t*>(dst) =
+      __byte_perm(__byte_perm(v[0], v[1], 0x0040),
+                  __byte_perm(v[2], v[3], 0x0040), 0x5410);
+}
 
-// Plain C entry point (bound with ctypes). Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).
-extern "C" int ts_nv12_rgb(const void* y, const void* uv, void* out, int n,
-                           int h, int w, int swap_rb, int planar,
-                           int normalization, int standard, void* stream) {
+__device__ __forceinline__ void Put4(float* dst, const int* v,
+                                     const float* div255) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(div255[v[0]], div255[v[1]], div255[v[2]], div255[v[3]]);
+}
+
+// Block b of frame f converts row pairs [b*band, b*band + np) of the frame.
+// Shared memory: the band's Y rows, its UV rows, then its output in the
+// output's own layout (3 channel spans planar, one span merged).
+template <typename T, bool kPlanar>
+__global__ void __launch_bounds__(kBandThreads)
+    Nv12RgbBandKernel(const uint8_t* __restrict__ y,
+                      const uint8_t* __restrict__ uv, T* __restrict__ out,
+                      int h, int w, int band, int swap_rb, int standard) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float div255[256];
+  __shared__ __align__(8) uint64_t bar;
+  const int p0 = blockIdx.x * band;
+  const int np = min(band, (h >> 1) - p0);
+  const int plane = h * w;
+  const int span = 2 * np * w;  // a channel's pixels in the band
+  const size_t frame = blockIdx.y;
+  uint8_t* const ys = smem;
+  uint8_t* const uvs = smem + 2 * band * w;
+  T* const os = reinterpret_cast<T*>(smem + 3 * band * w);
+  const uint32_t bar_addr = sm90::SmemAddr(&bar);
+  if (threadIdx.x == 0) {
+    sm90::MbarInit(bar_addr, 1);
+    sm90::FenceBarrierInit();
+  }
+  for (int i = threadIdx.x; i < 256; i += kBandThreads) div255[i] = kDiv255[i];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::MbarExpectTx(bar_addr, 3 * np * w);
+    sm90::BulkLoad(sm90::SmemAddr(ys), y + frame * plane + 2 * p0 * w, span,
+                   bar_addr);
+    sm90::BulkLoad(sm90::SmemAddr(uvs), uv + frame * (plane >> 1) + p0 * w,
+                   np * w, bar_addr);
+  }
+  const Coefs k = kCoefs[standard];
+  const int groups = w >> 2;  // 4-pixel groups a row
+  int p = 0, g = threadIdx.x;  // this thread's row pair and group
+  while (g >= groups) g -= groups, ++p;
+  sm90::MbarWait(bar_addr, 0);
+  while (p < np) {
+    const uint32_t c = *reinterpret_cast<const uint32_t*>(uvs + p * w + 4 * g);
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const int at = (2 * p + dy) * w + 4 * g;  // first pixel, in the band
+      const uint32_t yw = *reinterpret_cast<const uint32_t*>(ys + at);
+      int rgb[3][4];
+#pragma unroll
+      for (int px = 0; px < 4; ++px) {
+        // Pixel px takes U/V pair px/2: bytes 2*(px/2) and 2*(px/2) + 1.
+        int r, gr, b;
+        Rgb(ByteF(yw, px, 0.0f), ByteF(c, px & 2, 128.0f),
+            ByteF(c, (px & 2) + 1, 128.0f), k, &r, &gr, &b);
+        if (swap_rb) {
+          const int t = r;
+          r = b;
+          b = t;
+        }
+        rgb[0][px] = r;
+        rgb[1][px] = gr;
+        rgb[2][px] = b;
+      }
+      if (kPlanar) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          Put4(os + ch * span + at, rgb[ch], div255);
+        }
+      } else {
+        int m[12];
+#pragma unroll
+        for (int px = 0; px < 4; ++px) {
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) m[3 * px + ch] = rgb[ch][px];
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          Put4(os + 3 * at + 4 * q, m + 4 * q, div255);
+        }
+      }
+    }
+    g += kBandThreads;
+    while (g >= groups) g -= groups, ++p;
+  }
+  sm90::FenceProxyAsync();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T* const dst = out + frame * 3 * plane + (kPlanar ? 1 : 3) * 2 * p0 * w;
+    if (kPlanar) {
+      for (int ch = 0; ch < 3; ++ch) {
+        sm90::BulkStore(dst + ch * plane, sm90::SmemAddr(os + ch * span),
+                        span * sizeof(T));
+      }
+    } else {
+      sm90::BulkStore(dst, sm90::SmemAddr(os), 3 * span * sizeof(T));
+    }
+    sm90::BulkStoreDrain();
+  }
+}
+
+template <typename T, bool kPlanar>
+void Launch(bool vec, const uint8_t* y, const uint8_t* uv, void* out, int n,
+            int h, int w, int swap_rb, int standard, cudaStream_t stream) {
+  T* const o = static_cast<T*>(out);
+  if (!vec) {
+    constexpr int kThreads = 256;
+    const long long quads = static_cast<long long>(h / 2) * (w / 2);
+    const dim3 grid(static_cast<unsigned>((quads + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(n));
+    Nv12RgbKernel<T, kPlanar><<<grid, kThreads, 0, stream>>>(
+        y, uv, o, h, w, swap_rb, standard);
+    return;
+  }
+  const int pairs = h / 2;
+  const int pair_out = 6 * w * static_cast<int>(sizeof(T));  // output bytes
+  // As many row pairs as give each thread at most one 4-pixel group; one
+  // pair where a row has more groups than the block has threads.
+  int band = 4 * kBandThreads / w;
+  band = band < 1 ? 1 : (band > pairs ? pairs : band);
+  const int smem = band * (3 * w + pair_out);  // at most 110,592 B (W 4096)
+  cudaFuncSetAttribute(Nv12RgbBandKernel<T, kPlanar>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid((pairs + band - 1) / band, n);
+  Nv12RgbBandKernel<T, kPlanar><<<grid, kBandThreads, smem, stream>>>(
+      y, uv, o, h, w, band, swap_rb, standard);
+}
+
+bool Aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+int Convert(bool vec, const void* y, const void* uv, void* out, int n, int h,
+            int w, int swap_rb, int planar, int normalization, int standard,
+            void* stream) {
   if (n <= 0 || n > 65535 || h <= 0 || w <= 0 || (h & 1) || (w & 1) ||
       standard < 0 || standard > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The vector kernel's rule, as ops/nv12_rgb.py::variant states it.
+  if (vec && (w % 16 || w > 4096 || h >= 65536 || !Aligned16(y) ||
+              !Aligned16(uv) || !Aligned16(out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* yp = static_cast<const uint8_t*>(y);
@@ -155,14 +409,36 @@ extern "C" int ts_nv12_rgb(const void* y, const void* uv, void* out, int n,
   const auto s = static_cast<cudaStream_t>(stream);
   if (normalization) {
     if (planar)
-      Launch<float, true>(yp, uvp, out, n, h, w, swap_rb, standard, s);
+      Launch<float, true>(vec, yp, uvp, out, n, h, w, swap_rb, standard, s);
     else
-      Launch<float, false>(yp, uvp, out, n, h, w, swap_rb, standard, s);
+      Launch<float, false>(vec, yp, uvp, out, n, h, w, swap_rb, standard, s);
   } else {
     if (planar)
-      Launch<uint8_t, true>(yp, uvp, out, n, h, w, swap_rb, standard, s);
+      Launch<uint8_t, true>(vec, yp, uvp, out, n, h, w, swap_rb, standard, s);
     else
-      Launch<uint8_t, false>(yp, uvp, out, n, h, w, swap_rb, standard, s);
+      Launch<uint8_t, false>(vec, yp, uvp, out, n, h, w, swap_rb, standard,
+                             s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes), one per variant, with the same
+// arguments. Each launches on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success); the vector one returns
+// cudaErrorInvalidValue for a shape or pointer outside its rule.
+extern "C" int ts_nv12_rgb(const void* y, const void* uv, void* out, int n,
+                           int h, int w, int swap_rb, int planar,
+                           int normalization, int standard, void* stream) {
+  return Convert(false, y, uv, out, n, h, w, swap_rb, planar, normalization,
+                 standard, stream);
+}
+
+extern "C" int ts_nv12_rgb_vec(const void* y, const void* uv, void* out,
+                               int n, int h, int w, int swap_rb, int planar,
+                               int normalization, int standard,
+                               void* stream) {
+  return Convert(true, y, uv, out, n, h, w, swap_rb, planar, normalization,
+                 standard, stream);
 }

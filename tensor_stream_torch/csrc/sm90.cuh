@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and the wgmma shapes the flash
-// kernel issues. Each wrapper is one or a few PTX instructions; the
-// PTX ISA's sections on mbarrier, cp.async.bulk.tensor and
-// wgmma.mma_async define what they do.
+// loads, 1-D bulk copies, wgmma shared-memory descriptors and the wgmma
+// shapes the flash kernel issues. Each wrapper is one or a few PTX
+// instructions; the PTX ISA's sections on mbarrier, cp.async.bulk,
+// cp.async.bulk.tensor and wgmma.mma_async define what they do.
 #pragma once
 
 #include <cuda.h>
@@ -54,6 +54,40 @@ __device__ __forceinline__ void MbarWait(uint32_t bar, uint32_t parity) {
 }
 
 // ------------------------------------------------------------------ TMA
+
+// One contiguous span of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned), global -> shared; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void BulkLoad(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One contiguous span, shared -> global, in the thread's bulk group.
+__device__ __forceinline__ void BulkStore(void* dst, uint32_t src,
+                                          uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+// Commits the thread's bulk stores and waits until they have read shared
+// memory; the writes to global memory then complete on their own.
+__device__ __forceinline__ void BulkStoreDrain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes before later reads by the
+// async proxy (a bulk store); a barrier must follow before the store.
+__device__ __forceinline__ void FenceProxyAsync() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // One box of a 4-D tensor map, global -> shared; completion is counted
 // in bytes on `bar`. Out-of-bounds elements of the box are zero-filled.

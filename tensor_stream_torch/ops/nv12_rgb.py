@@ -4,9 +4,13 @@ the JAX package's Pallas TPU kernel
 ``ops/pallas_color.py::_nv12_rgb_kernel``.
 
 ``nv12_to_rgb`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; there is no fallback between the two. Each
-launch adds one to ``launches``, so a run can show that its main path
-went through the kernel.
+version for CPU tensors; there is no fallback between the two. The
+kernel has two variants, and ``variant`` picks one from the shape and
+the pointers before the launch: "vector" (bands of rows moved by bulk
+copies) for W % 16 == 0 with 16-byte aligned planes, "edge" for every
+other even shape. Each launch adds one to ``launches`` and to its
+variant's entry of ``launches_by_variant``, so a run can show that its
+main path went through the kernel, and which variant served it.
 """
 import ctypes
 
@@ -15,20 +19,51 @@ import torch
 from .. import _build
 from . import color
 
-launches = 0
+VARIANTS = ("vector", "edge")
+_ENTRY = {"vector": "ts_nv12_rgb_vec", "edge": "ts_nv12_rgb"}
 
-_SIG = None
+launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+_FNS = None
+
+
+def reset_counts():
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        launches_by_variant[v] = 0
 
 
 def _lib():
-    global _SIG
-    lib = _build.load("nv12_rgb")
-    if _SIG is None:
+    global _FNS
+    if _FNS is None:
+        lib = _build.load("nv12_rgb")
         v, i = ctypes.c_void_p, ctypes.c_int
-        lib.ts_nv12_rgb.restype = i
-        lib.ts_nv12_rgb.argtypes = [v, v, v, i, i, i, i, i, i, i, v]
-        _SIG = lib.ts_nv12_rgb
-    return _SIG
+        fns = {}
+        for name, entry in _ENTRY.items():
+            fn = getattr(lib, entry)
+            fn.restype = i
+            fn.argtypes = [v, v, v, i, i, i, i, i, i, i, v]
+            fns[name] = fn
+        _FNS = fns
+    return _FNS
+
+
+def variant(h: int, w: int, y_ptr: int, uv_ptr: int, out_ptr: int) -> str:
+    """The kernel variant for an [N,H,W] conversion with these base
+    addresses. The vector kernel moves bands of whole rows with 1-D bulk
+    copies, whose addresses and sizes must be multiples of 16 bytes: it
+    needs W % 16 == 0 and every plane and the output on a 16-byte
+    boundary (then every row is). It holds a band of at least one row
+    pair in shared memory (W <= 4096) and indexes a frame in 32 bits, which
+    H < 65536 keeps within range (3*H*W < 2**31). The edge kernel takes
+    every other even H and W. The C entry point of each variant refuses
+    what this rule does not give it."""
+    aligned = (y_ptr | uv_ptr | out_ptr) % 16 == 0
+    if w % 16 == 0 and w <= 4096 and h < 65536 and aligned:
+        return "vector"
+    return "edge"
 
 
 def nv12_to_rgb_plain(y, uv, swap_rb: bool, planar: bool, normalization: bool,
@@ -76,14 +111,16 @@ def nv12_to_rgb(y, uv, swap_rb: bool, planar: bool, normalization: bool,
                       device=y.device)
     if out.numel() == 0:
         return out
-    fn = _lib()
+    which = variant(h, w, y.data_ptr(), uv.data_ptr(), out.data_ptr())
+    fn = _lib()[which]
     with torch.cuda.device(y.device):
         rc = fn(y.data_ptr(), uv.data_ptr(), out.data_ptr(), n, h, w,
                 int(bool(swap_rb)), int(bool(planar)),
                 int(bool(normalization)), int(standard),
                 torch.cuda.current_stream(y.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ts_nv12_rgb launch failed: cudaError {rc}")
+        raise RuntimeError(f"{_ENTRY[which]} launch failed: cudaError {rc}")
     global launches
     launches += 1
+    launches_by_variant[which] += 1
     return out

@@ -163,25 +163,32 @@ def test_crc_matches_jax_copy():
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_the_card():
-    """Bit-equal to the plain version on CUDA tensors (chip_smoke.py runs
-    the full matrix at the headline shapes)."""
+    """Bit-equal to the plain version on CUDA tensors, planar and merged,
+    u8 and f32, under both variants: W % 16 != 0 (edge), aligned views
+    with W % 16 == 0 (vector), and flat staging whose UV plane is off a
+    16-byte boundary (edge). chip_smoke.py runs the full matrix at the
+    headline shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(1)
-    n, h, w = 3, 36, 130
-    y = torch.from_numpy(rng.integers(0, 256, (n, h, w), np.uint8)).cuda()
-    uv = torch.from_numpy(rng.integers(0, 256, (n, h // 2, w),
-                                       np.uint8)).cuda()
-    for planar in (True, False):
-        for norm in (False, True):
-            for standard in range(4):
-                before = nv12_rgb.launches
-                got = nv12_rgb.nv12_to_rgb(y, uv, True, planar, norm,
-                                           standard)
-                assert nv12_rgb.launches == before + 1
-                want = nv12_rgb.nv12_to_rgb_plain(y, uv, True, planar, norm,
-                                                  standard)
-                assert torch.equal(got, want)
+    for n, h, w, want_variant in ((3, 36, 130, "edge"), (2, 36, 160, "vector"),
+                                  (3, 10, 326, "edge")):
+        flat = torch.from_numpy(rng.integers(0, 256, n * h * w * 3 // 2,
+                                             np.uint8)).cuda()
+        y = flat[:n * h * w].view(n, h, w)
+        uv = flat[n * h * w:].view(n, h // 2, w)
+        for planar in (True, False):
+            for norm in (False, True):
+                for standard in range(4):
+                    before = nv12_rgb.launches_by_variant[want_variant]
+                    got = nv12_rgb.nv12_to_rgb(y, uv, True, planar, norm,
+                                               standard)
+                    assert (nv12_rgb.launches_by_variant[want_variant]
+                            == before + 1)
+                    want = nv12_rgb.nv12_to_rgb_plain(y, uv, True, planar,
+                                                      norm, standard)
+                    assert torch.equal(got.view(torch.uint8),
+                                       want.view(torch.uint8))
 
 
 def test_flash_wrapper_rejects_a_tensor_off_cpu_and_cuda():
