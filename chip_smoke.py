@@ -15,7 +15,13 @@ kernels:
   StreamInferencer, one 16-frame clip a stream a tick, into a VideoViT at
   ViT-B width (dim 768, depth 12, 12 heads, patch 16, tubelet 2, joint
   space-time attention over 1568 tokens, bf16) whose every attention runs
-  the flash_fwd kernel.
+  the flash_fwd kernel;
+* streaming: the same two streams, one tubelet of 2 frames a stream a
+  tick, through StreamInferencer(carry=...) into stream_step, the causal
+  VideoViT of bench.py's stateful serving benchmark (dim 384, depth 4, 6
+  heads, MHA and GQA with 2 kv heads, a ring KV cache of 16 steps), held
+  against its windowed causal batch twin, whose spatial and temporal
+  attention run the flash_fwd kernel in its full and band modes.
 
 Prints one JSON object per phase, then the "kernels" line, then the
 card's name and power limit as nvidia-smi gives them, and last
@@ -43,11 +49,13 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tensor_stream_torch import _build, _native
 from tensor_stream_torch.data import FrameLoader, MultiStreamLoader
 from tensor_stream_torch.enums import FourCC, FrameRate, Planes
-from tensor_stream_torch.models import VideoViT
+from tensor_stream_torch.models import (VideoViT, clone_cache,
+                                        init_stream_cache, stream_step)
 from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
 from tensor_stream_torch.serving import StreamInferencer
@@ -75,10 +83,10 @@ SIDE = 224
 CHECK_SHAPES = ((BATCH, SIDE, SIDE), (1, 1080, 1920), (2, 226, SIDE),
                 (4, 240, 322), (3, 10, 326))
 # Timed NV12 conversions, (n, h, w, planar, normalization): the headline
-# loader's batch, one 1080p frame merged u8, and one serving stream's
-# clip, merged f32.
+# loader's batch, one 1080p frame merged u8, one serving stream's clip and
+# one streaming stream's tubelet, merged f32.
 NV12_TIMED = ((BATCH, SIDE, SIDE, True, True), (1, 1080, 1920, False, False),
-              (16, SIDE, SIDE, False, True))
+              (16, SIDE, SIDE, False, True), (2, SIDE, SIDE, False, True))
 STEADY_BATCHES = 40
 
 # Serving: ViT-B width with joint space-time attention (bench.py's flash
@@ -113,6 +121,28 @@ FLASH_QK_STD, FLASH_V_STD = 2.0, 1.0
 # on an H100 the errors measured were 0.11% and 2.4e-7 of that scale).
 BF16_LOGIT_REL = 1e-2
 F32_LOGIT_REL = 1e-5
+
+# Streaming: bench.py's stateful serving configuration (bench.py:529-548),
+# nothing cut: a causal VideoViT of depth 4, dim 384, 6 heads (MHA, or GQA
+# with 2 kv heads), 400 classes, bf16 compute; a ring of 16 steps, the
+# positional extent of 32 frames; two streams of one tubelet (2 frames of
+# 224²) a tick, inflight 2. 8 warm-up ticks and 48 timed take t to 56, so
+# the ring wraps and the positional clamp bites on the card. Each model is
+# served twice, in the order MHA, GQA, GQA, MHA, so that the order of the
+# runs does not bias their throughput ratio.
+STREAM_VIT = dict(num_classes=400, depth=4, dim=384, num_heads=6, patch=16,
+                  tubelet_t=2, causal=True, frames=32, size=SIDE)
+STREAM_KV = {"mha": None, "gqa": 2}
+STREAM_ORDER = ("mha", "gqa", "gqa", "mha")
+TUBELET = STREAM_VIT["tubelet_t"]
+STREAM_RING = 16
+STREAM_WARMUP_TICKS = 8
+STREAM_TIMED_TICKS = 48
+STREAM_INFLIGHT = 2
+# The twin check: a ring of 8 steps fed 16 steps against VideoViT(...,
+# temporal_window=8, use_flash=True) over the same 32 frames a stream.
+TWIN_RING = 8
+TWIN_STEPS = 16
 
 
 def emit(obj):
@@ -564,6 +594,12 @@ FLASH_CASES = [
     ("ragged_1568_window", (1, 2, 2, 1568, 1568, 64), False, 77, "bhsd"),
     ("cross_300_to_777", (2, 4, 2, 300, 777, 64), False, None, "bhsd"),
     ("model_layout", (2, 12, 12, 1568, 1568, 64), False, None, "bshd"),
+    # The streaming twin's attention (B = 2 clips x 16 steps spatially,
+    # 2 clips x 196 tokens temporally), as the factorized block's views.
+    ("twin_spatial", (32, 6, 6, 196, 196, 64), False, None, "bshd"),
+    ("twin_spatial_gqa", (32, 6, 2, 196, 196, 64), False, None, "bshd"),
+    ("twin_temporal", (392, 6, 6, 16, 16, 64), True, 8, "bshd"),
+    ("twin_temporal_gqa", (392, 6, 2, 16, 16, 64), True, 8, "bshd"),
     ("headline", (2, 12, 12, 1568, 1568, 64), False, None, "bhsd"),
 ]
 
@@ -572,11 +608,12 @@ def phase_flash_vs_plain():
     """The flash kernel against flash_attention_plain on the same CUDA
     tensors, o, l and m, in bf16 and f32: o elementwise and as a whole,
     l and m at the f32 rule. TF32 is off for the plain version's f32
-    products (its stated numerics are full f32)."""
+    products (its stated numerics are full f32). Returns the worst o error
+    of the cases without a window and of those with one (the band mode)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst = {"no_window": 0.0, "window": 0.0}
     for i, (name, shape, causal, window, layout) in enumerate(FLASH_CASES):
         dtypes = (torch.bfloat16,) if name == "headline" else \
             (torch.bfloat16, torch.float32)
@@ -592,7 +629,8 @@ def phase_flash_vs_plain():
             torch.cuda.synchronize()
             checks, errs = flash_rule((o, l, m), (wo, wl, wm))
             ok = all(checks.values())
-            worst[dtype] = max(worst[dtype], errs["o"])
+            mode = "no_window" if window is None else "window"
+            worst[mode] = max(worst[mode], errs["o"])
             rows.append({"case": name, "shape": list(shape),
                          "dtype": str(dtype).split(".")[-1],
                          "causal": causal, "window": window,
@@ -609,7 +647,7 @@ def phase_flash_vs_plain():
                         "o_rel_norm_f32": FLASH_O_REL[torch.float32],
                         "l_m": FLASH_TOL[torch.float32]},
           "cases": rows})
-    return max(worst.values())
+    return worst
 
 
 class SyntheticStreams(MultiStreamLoader):
@@ -618,12 +656,17 @@ class SyntheticStreams(MultiStreamLoader):
     FrameLoader staging, copy and VPP (merged RGB f32, normalized)."""
 
     def __init__(self, n_streams, per_stream, frames, device):
-        cfg = FrameParameters(pixel_format=FourCC.RGB24,
-                              planes_pos=Planes.MERGED,
-                              normalization=True).to_config(SIDE, SIDE)
-        self.loaders = [SyntheticFrameLoader(frames, per_stream, 2, cfg,
-                                             device, seed=31 + k)
+        self.loaders = [SyntheticFrameLoader(frames, per_stream, 2,
+                                             serving_cfg(), device,
+                                             seed=31 + k)
                         for k in range(n_streams)]
+
+
+def serving_cfg():
+    """The serving loaders' VPP: 224² RGB merged f32, normalized."""
+    return FrameParameters(pixel_format=FourCC.RGB24,
+                           planes_pos=Planes.MERGED,
+                           normalization=True).to_config(SIDE, SIDE)
 
 
 def vit(device, dtype, flash_impl="auto"):
@@ -649,6 +692,15 @@ def logits_check(model, clips, got, rel):
     if fa.launches != before:
         raise AssertionError("the plain reference model launched the kernel")
     del plain
+    return logit_rule(got, want, rel)
+
+
+def logit_rule(got, want, rel):
+    """Logits [..., classes] against a reference's: the max abs error within
+    `rel` of the largest reference logit, and the same argmax on every row
+    whose reference top-2 margin exceeds twice that error."""
+    got = got.reshape(-1, got.shape[-1])
+    want = want.reshape(-1, want.shape[-1])
     err = max_abs_err(got, want)
     tol = rel * float(want.abs().max())
     top2 = want.topk(2, dim=-1).values
@@ -682,7 +734,7 @@ def phase_serving(device):
                            per_stream=CLIP, loader=loader)
     try:
         nv12_rgb.reset_counts()
-        fa.launches = 0
+        fa.reset_counts()
         warm = list(eng.stream(max_batches=WARMUP_TICKS))
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -778,45 +830,317 @@ def phase_serving(device):
     return out
 
 
+# ------------------------------------------------------------ streaming
+
+def stream_vit(device, dtype, kv_heads, **kw):
+    """The streaming model with weights from seed 0 (the bf16 and f32
+    models of one kv-head count are the same parameters)."""
+    return VideoViT(compute_dtype=dtype, num_kv_heads=kv_heads, device=device,
+                    generator=torch.Generator().manual_seed(0),
+                    **STREAM_VIT, **kw).eval()
+
+
+def cache_bytes(cache):
+    return sum(x.numel() * x.element_size()
+               for blk in cache["blocks"] for x in blk.values())
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the ATen ops dispatched inside it (views included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def step_times(model, cache, frames, device):
+    """One step on a copy of `cache`: the ATen ops it dispatches, the host's
+    time to enqueue it eagerly (median of 5, card idle before each), and the
+    device's own time from a CUDA-graph replay of it (a measurement only:
+    the engine runs eagerly). The capture also shows that the step never
+    waits for the card."""
+    cache = clone_cache(cache)
+    with torch.no_grad():
+        with OpCount() as count:
+            stream_step(model, cache, frames)
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream_step(model, cache, frames)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the default stream
+            stream_step(model, cache, frames)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            stream_step(model, cache, frames)
+        device_ms = time_ms(graph.replay, device, iters=20, warmup=3)
+        del graph
+    return count.ops, float(np.median(enqueue)), device_ms
+
+
+def serve_stream(device, name):
+    """Two SyntheticStreams through StreamInferencer(carry=...) into
+    stream_step for STREAM_WARMUP_TICKS + STREAM_TIMED_TICKS ticks at
+    inflight 2, with the kernels' counts at 0 just before. Checks launches,
+    streams, frame clocks, shapes, finite logits and the first tick's
+    frames against the plain NV12 version; returns (model, first tick's
+    batch, row, result waits of the timed ticks in ms)."""
+    model = stream_vit(device, torch.bfloat16, STREAM_KV[name])
+    cache = init_stream_cache(model, STREAMS, STREAM_RING)
+    first = {}
+
+    def infer(carry, batch):  # [2, 2, 224, 224, 3] -> logits [2, 400]
+        if not first:
+            first["batch"] = batch.clone()
+        return stream_step(model, carry, batch)
+
+    ticks = STREAM_WARMUP_TICKS + STREAM_TIMED_TICKS
+    loader = SyntheticStreams(STREAMS, TUBELET, ticks * TUBELET, device)
+    eng = StreamInferencer([f"synthetic:{k}" for k in range(STREAMS)], infer,
+                           per_stream=TUBELET, loader=loader, carry=cache)
+    try:
+        nv12_rgb.reset_counts()
+        fa.reset_counts()
+        warm = list(eng.stream(max_batches=STREAM_WARMUP_TICKS,
+                               inflight=STREAM_INFLIGHT))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        timed = list(eng.stream(max_batches=STREAM_TIMED_TICKS,
+                                inflight=STREAM_INFLIGHT))
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {"nv12_rgb": nv12_rgb.launches, "flash_fwd": fa.launches}
+        nv12_variants = dict(nv12_rgb.launches_by_variant)
+        # The plain NV12 version on the CPU, on the staging bytes of the
+        # first tick.
+        for k, ld in enumerate(loader.loaders):
+            staging = torch.from_numpy(ld.staging_bytes(1, TUBELET))
+            want = build_vpp_batched_flat(serving_cfg(), TUBELET, "cpu")(
+                staging)
+            if not bitwise_equal(first["batch"][k].cpu(), want):
+                raise AssertionError(f"streaming {name}: stream {k}'s first "
+                                     "frames differ from the plain version")
+    finally:
+        loader.close()
+    if launches != {"nv12_rgb": ticks * STREAMS, "flash_fwd": 0}:
+        raise AssertionError(f"streaming {name}: launches {launches} over "
+                             f"{ticks} ticks, want 2 NV12 a tick and no flash")
+    results = warm + timed
+    if ([r.stream for r in results] != list(range(STREAMS)) * ticks
+            or any(tuple(r.outputs.shape) != (1, STREAM_VIT["num_classes"])
+                   for r in results)):
+        raise AssertionError(f"streaming {name}: wrong streams or shapes")
+    for k in range(STREAMS):
+        frames = [f for r in results if r.stream == k for f in r.frames]
+        if frames != list(range(1, ticks * TUBELET + 1)):
+            raise AssertionError(f"streaming {name}: stream {k}'s frame "
+                                 f"clock {frames[:4]}...")
+    if not bool(torch.isfinite(torch.cat([r.outputs for r in results])).all()):
+        raise AssertionError(f"streaming {name}: non-finite logits")
+    if int(eng.carry["t"]) != ticks:
+        raise AssertionError(f"streaming {name}: t={int(eng.carry['t'])} "
+                             f"after {ticks} ticks")
+    ops, enqueue_ms, device_ms = step_times(model, eng.carry,
+                                            first["batch"], device)
+    lat = np.asarray(eng._lat_ms[STREAM_WARMUP_TICKS:])
+    row = {"kv_cache_mib": cache_bytes(eng.carry) / 2 ** 20,
+           "launches": launches, "nv12_rgb_by_variant": nv12_variants,
+           "ticks": ticks, "seconds": seconds,
+           **tick_rates(STREAM_TIMED_TICKS, seconds, lat),
+           "step_aten_ops": ops, "step_enqueue_ms": enqueue_ms,
+           "step_device_ms": device_ms[0],
+           "step_device_p10_ms": device_ms[1],
+           "step_device_p90_ms": device_ms[2]}
+    return model, first["batch"], row, lat
+
+
+def tick_rates(ticks, seconds, lat):
+    """bench.py's serving rates over `ticks` timed ticks (one step of each
+    stream a tick) and the result waits `lat` (ms)."""
+    return {"steps_per_s_a_stream": ticks / seconds,
+            "frames_per_s": ticks * STREAMS * TUBELET / seconds,
+            "ms_per_tick": seconds / ticks * 1e3,
+            "result_wait_ms": {"p50": float(np.percentile(lat, 50)),
+                               "p95": float(np.percentile(lat, 95))}}
+
+
+def twin_clips(device, first_batch):
+    """[2, 32, 224, 224, 3]: the first TWIN_STEPS ticks that fresh
+    SyntheticStreams (the served streams' seeds) deliver, through the same
+    staging, copy and VPP; its first tick must equal the served one."""
+    loader = SyntheticStreams(STREAMS, TUBELET, TWIN_STEPS * TUBELET, device)
+    try:
+        ticks = [batch.view(STREAMS, TUBELET, SIDE, SIDE, 3)
+                 for batch, _ in loader]
+    finally:
+        loader.close()
+    if len(ticks) != TWIN_STEPS or not bitwise_equal(ticks[0], first_batch):
+        raise AssertionError("twin clips differ from the served frames")
+    return torch.cat(ticks, dim=1)
+
+
+def twin_check(model, clips, name, dtype):
+    """The ring (max_steps TWIN_RING) fed TWIN_STEPS steps against the
+    windowed causal batch twin on the flash kernel, per step, past the
+    wrap too; the unwindowed twin must track the ring before the wrap and
+    not after it. Returns the row; `ok` is the verdict."""
+    rel = BF16_LOGIT_REL if dtype == torch.bfloat16 else F32_LOGIT_REL
+    cache = init_stream_cache(model, STREAMS, TWIN_RING)
+    depth = STREAM_VIT["depth"]
+    twins = {}
+    for kind, window in (("windowed", TWIN_RING), ("unwindowed", None)):
+        twin = stream_vit(model.device, dtype, STREAM_KV[name],
+                          temporal_window=window, use_flash=True)
+        twin.load_state_dict(model.state_dict())
+        twins[kind] = twin
+    tubelets = [clips[:, s * TUBELET:(s + 1) * TUBELET]
+                for s in range(TWIN_STEPS)]
+    with torch.no_grad():
+        got = torch.stack([stream_step(model, cache, f)[1] for f in tubelets],
+                          dim=1)
+        before = dict(fa.launches_by_mode)
+        want = twins["windowed"](clips)
+        modes = {m: fa.launches_by_mode[m] - before[m] for m in fa.MODES}
+        full = twins["unwindowed"](clips)
+    torch.cuda.synchronize()
+    if modes != {"full": depth, "causal": 0, "band": depth}:
+        raise AssertionError(f"twin {name} {dtype}: flash launches {modes}, "
+                             f"want {depth} full and {depth} band")
+    rule = logit_rule(got, want, rel)
+    steps = (got.double() - want.double()).abs().amax(dim=(0, 2))
+    before_wrap = max_abs_err(got[:, :TWIN_RING], full[:, :TWIN_RING])
+    past_wrap = max_abs_err(got[:, TWIN_RING:], full[:, TWIN_RING:])
+    return {"kv": name, "dtype": str(dtype).split(".")[-1],
+            "flash_launches_by_mode": modes,
+            "max_abs_err": rule["max_abs_err"], "bound": rule["bound"],
+            "rel_bound": rel, "max_abs_logit": rule["max_abs_logit"],
+            "rows_decided": rule["rows_decided"],
+            "max_abs_err_by_step": steps.tolist(),
+            "unwindowed_err_before_wrap": before_wrap,
+            "unwindowed_err_past_wrap": past_wrap,
+            "ok": (rule["ok"] and before_wrap <= rule["bound"]
+                   and past_wrap > rule["bound"])}
+
+
+def phase_streaming(device, smi):
+    """Stateful live-stream serving at bench.py's configuration, MHA and
+    GQA, then the twin check at full width in bf16 and f32 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {name: [] for name in STREAM_KV}
+    lats = {name: [] for name in STREAM_KV}
+    twins = []
+    band_launches = full_launches = 0
+    for name in STREAM_ORDER:
+        model, first_batch, row, lat = serve_stream(device, name)
+        runs[name].append(row)
+        lats[name].append(lat)
+        if len(runs[name]) > 1:
+            continue
+        # The twin check, once a model.
+        clips = twin_clips(device, first_batch)
+        model32 = stream_vit(device, torch.float32, STREAM_KV[name])
+        model32.load_state_dict(model.state_dict())
+        for m, dtype in ((model, torch.bfloat16), (model32, torch.float32)):
+            twins.append(twin_check(m, clips, name, dtype))
+            band_launches += twins[-1]["flash_launches_by_mode"]["band"]
+            full_launches += twins[-1]["flash_launches_by_mode"]["full"]
+        del model32, clips
+    pooled = {}
+    for name, rs in runs.items():
+        seconds = sum(r["seconds"] for r in rs)
+        pooled[name] = {
+            "kv_heads": STREAM_KV[name] or STREAM_VIT["num_heads"],
+            "kv_cache_mib": rs[0]["kv_cache_mib"], "seconds": seconds,
+            **tick_rates(STREAM_TIMED_TICKS * len(rs), seconds,
+                         np.concatenate(lats[name])),
+            "step_enqueue_ms": float(np.mean([r["step_enqueue_ms"]
+                                              for r in rs])),
+            "step_device_ms": float(np.mean([r["step_device_ms"]
+                                             for r in rs])),
+            "runs": rs}
+    mha, gqa = pooled["mha"], pooled["gqa"]
+    out = {"phase": "streaming", "card": smi, "streams": STREAMS,
+           "tubelet": [TUBELET, SIDE, SIDE, 3], "model": STREAM_VIT,
+           "compute": "bf16", "residual": "f32", "max_steps": STREAM_RING,
+           "inflight": STREAM_INFLIGHT, "warmup_ticks": STREAM_WARMUP_TICKS,
+           "timed_ticks": STREAM_TIMED_TICKS, "order": STREAM_ORDER,
+           "mha": mha, "gqa": gqa,
+           "serving_model_steps_per_s": gqa["steps_per_s_a_stream"],
+           "serving_model_fps": gqa["frames_per_s"],
+           "serving_model_kv_mb": gqa["kv_cache_mib"],
+           "serving_model_kv_mb_mha": mha["kv_cache_mib"],
+           "serving_model_kv_ratio": mha["kv_cache_mib"] / gqa["kv_cache_mib"],
+           "serving_model_gqa_vs_mha": gqa["steps_per_s_a_stream"]
+               / mha["steps_per_s_a_stream"],
+           "twin": {"ring": TWIN_RING, "steps": TWIN_STEPS,
+                    "clips": [STREAMS, TWIN_STEPS * TUBELET, SIDE, SIDE, 3],
+                    "cases": twins},
+           "flash_launches": {"full": full_launches, "band": band_launches}}
+    emit(out)
+    bad = [t for t in twins if not t["ok"]]
+    if bad:
+        raise AssertionError(f"twin check failed: {bad}")
+    return out
+
+
 def flash_flops(b, h, live_pairs, d):
     """4·d FLOP per live (row, col) pair a head: Q K^T and P V."""
     return 4.0 * b * h * live_pairs * d
 
 
-# flash_times: the headline in both layouts the model can hand the kernel
-# and the band mode where the JAX dispatch picks _band_kernel.
+# flash_times: the headline in both layouts the model can hand the kernel,
+# the band mode where the JAX dispatch picks _band_kernel, and the streaming
+# twin's spatial (full) and temporal (band) attention as its views.
 FLASH_TIMED = [
-    # name, (b, h, s, d), causal, window, layout
+    # name, (b, h, s, d), causal, window, layout[, kv heads]
     ("headline", FLASH_HEADLINE, False, None, "bhsd"),
     ("headline_model_layout", FLASH_HEADLINE, False, None, "bshd"),
     ("band_causal", (1, 2, 1024, 64), True, 64, "bhsd"),
     ("band_symmetric", (1, 2, 1024, 64), False, 64, "bhsd"),
+    ("twin_spatial", (32, 6, 196, 64), False, None, "bshd"),
+    ("twin_temporal", (392, 6, 16, 64), True, TWIN_RING, "bshd"),
+    ("twin_temporal_gqa", (392, 6, 16, 64), True, TWIN_RING, "bshd", 2),
 ]
 
 
-def time_flash(device, name, shape, causal, window, layout):
+def time_flash(device, name, shape, causal, window, layout, kv_heads=None):
     """Kernel, plain version and scaled_dot_product_attention (a yardstick
     only: the port never calls it; it gets the boolean band mask where
-    there is one) on the same bf16 inputs. The bound counts the live
-    (row, col) pairs that band_mask counts, each input read once and o
-    written once."""
+    there is one, and GQA's kv heads as they are) on the same bf16 inputs.
+    The bound counts the live (row, col) pairs that band_mask counts, each
+    input read once and o written once."""
     b, h, s, d = shape
-    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 7, layout)
+    hk = kv_heads or h
+    q, k, v = _flash_case(b, h, hk, s, s, d, torch.bfloat16, 7, layout)
     mask = fa.band_mask(s, s, causal, window, q.device)
     live = s * s if mask is None else int(mask.sum())
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = {"enable_gqa": True} if hk != h else {}
     with torch.no_grad():
         ms, p10, p90 = time_ms(lambda: fa.flash_attention(
             q, k, v, causal=causal, window=window), device)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal, window), device, iters=30, warmup=5)[0]
-        library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask), device)[0]
+        library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, **gqa),
+                             device)[0]
     flops = flash_flops(b, h, live, d)
-    nbytes = 4 * b * h * s * d * q.element_size()  # q, k, v in, o out
+    # q and o at h heads, k and v at hk, each moved once.
+    nbytes = 2 * b * (h + hk) * s * d * q.element_size()
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(flop_ms, byte_ms)
-    return {"case": name, "shape": list(shape), "dtype": "bf16",
+    return {"case": name, "shape": list(shape), "kv_heads": hk,
+            "dtype": "bf16",
             "causal": causal, "window": window, "layout": layout,
             "live_pairs_a_head": live, "ms": ms, "p10_ms": p10,
             "p90_ms": p90, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -936,24 +1260,45 @@ def run(device):
     rows = phase_times(device, smi, main)
     flash_worst = phase_flash_vs_plain()
     serving = phase_serving(device)
+    streaming = phase_streaming(device, smi)
     flash = phase_flash_times(device, smi, serving)
     head = rows[0]
+    band = next(r for r in flash["cases"] if r["case"] == "twin_temporal")
+    twin = streaming["flash_launches"]
+    source = "tensor_stream_torch/csrc/flash_fwd.cu"
+    # "launches" is each kernel's count on the main path that runs it
+    # (the headline loader, serving, the streaming twin); every path's
+    # count is beside it.
     emit({"kernels": [{
         "name": "nv12_rgb", "route": "cuda",
         "source": "tensor_stream_torch/csrc/nv12_rgb.cu",
         "replaces": "tensor_stream_tpu/ops/pallas_color.py:68",
         "launches": main[3]["total"],
+        "launches_by_path": {
+            "main_path": main[3]["total"],
+            "serving": serving["launches"]["nv12_rgb"],
+            "streaming": sum(run["launches"]["nv12_rgb"] for name in STREAM_KV
+                             for run in streaming[name]["runs"])},
         "launches_by_variant": {v: main[3][v] for v in nv12_rgb.VARIANTS},
         "max_abs_err": worst, "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tensor_stream_torch/csrc/flash_fwd.cu",
+        "name": "flash_fwd", "route": "cuda", "source": source,
         "replaces": "tensor_stream_tpu/ops/flash_attention.py:83",
         "launches": serving["launches"]["flash_fwd"],
-        "max_abs_err": flash_worst, "ms": flash["ms"],
+        "launches_by_path": {"serving": serving["launches"]["flash_fwd"],
+                             "streaming_twin": twin["full"]},
+        "max_abs_err": flash_worst["no_window"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}]})
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}, {
+        "name": "flash_fwd_band", "route": "cuda", "source": source,
+        "replaces": "tensor_stream_tpu/ops/flash_attention.py:230",
+        "launches": twin["band"],
+        "launches_by_path": {"serving": 0, "streaming_twin": twin["band"]},
+        "shape": band["shape"], "window": band["window"],
+        "max_abs_err": flash_worst["window"], "ms": band["ms"],
+        "plain_ms": band["plain_ms"], "bound_ms": band["bound_ms"],
+        "bound_by": band["bound_by"], "library_ms": band["library_ms"]}]})
     print(smi, flush=True)
 
 

@@ -1,5 +1,9 @@
-"""The port's models: VideoViT and its weight converter from flax."""
+"""The port's models: VideoViT, its weight converter from flax, and the
+streaming step with its ring KV cache."""
 from .convert import vit_state_dict_from_flax
+from .streaming import (clone_cache, init_stream_cache, stream_cache_from_jax,
+                        stream_step)
 from .video_vit import VideoViT
 
-__all__ = ["VideoViT", "vit_state_dict_from_flax"]
+__all__ = ["VideoViT", "clone_cache", "init_stream_cache",
+           "stream_cache_from_jax", "stream_step", "vit_state_dict_from_flax"]

@@ -117,17 +117,24 @@ class MHA(nn.Module):
         self.out = Dense(num_heads * dh, dim, compute_dtype, init)
 
     def forward(self, x):
+        return self.attend(x, self.use_flash, self.causal, self.window)
+
+    def attend(self, x, use_flash, causal, window):
+        """The forward with the core and its mask given by the caller
+        (``models/streaming.py`` runs spatial attention on the materialized
+        core with no mask, as the JAX stream does, whatever the block's
+        own settings)."""
         lead, s, dh = x.shape[:-2], x.shape[-2], self.head_dim
         q = self.query(x).reshape(-1, s, self.num_heads, dh)
         k = self.key(x).reshape(-1, s, self.kv_heads, dh)
         v = self.value(x).reshape(-1, s, self.kv_heads, dh)
         scale = dh ** -0.5
-        if self.use_flash:
+        if use_flash:
             # [N, S, H, dh] -> [N, H, S, dh] views: the kernel takes the
             # strides, and its output transposes back without a copy.
             o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=self.causal,
-                                window=self.window, sm_scale=scale,
+                                v.transpose(1, 2), causal=causal,
+                                window=window, sm_scale=scale,
                                 impl=self.flash_impl).transpose(1, 2)
         else:
             if self.kv_heads != self.num_heads:
@@ -136,7 +143,7 @@ class MHA(nn.Module):
                 v = v.repeat_interleave(rep, dim=2)
             logits = torch.matmul(q.transpose(1, 2).float(),
                                   k.permute(0, 2, 3, 1).float()) * scale
-            mask = band_mask(s, s, self.causal, self.window, x.device)
+            mask = band_mask(s, s, causal, window, x.device)
             if mask is not None:
                 logits = logits.masked_fill(~mask, float("-inf"))
             probs = torch.softmax(logits, dim=-1).to(self.compute_dtype)
@@ -205,11 +212,10 @@ class JointBlock(nn.Module):
         return x + self.mlp(self.ln_m(x).to(cd)).to(x.dtype)
 
 
-def tubelet_embed(m, clips):
-    """Tubelet Conv3D (stride = kernel, so patchify + one matmul) plus the
-    factorized positional embeddings: [B, T, H, W, C] -> [B, T', N, D] in
-    ``m.residual_dtype``. Reads ``m.tubelet`` (a Dense over t·p·p·C patch
-    vectors), ``m.pos_spatial``, ``m.pos_temporal``."""
+def tubelet_tokens(m, clips):
+    """Tubelet Conv3D (stride = kernel, so patchify + one matmul):
+    [B, T, H, W, C] -> [B, T', N, D] in ``m.compute_dtype``. Reads
+    ``m.tubelet`` (a Dense over t·p·p·C patch vectors)."""
     b, t, h, w, c = clips.shape
     tt, p = m.tubelet_t, m.patch
     if t % tt or h % p or w % p:
@@ -219,7 +225,13 @@ def tubelet_embed(m, clips):
                                           p, c)
     x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
         b, t // tt, (h // p) * (w // p), tt * p * p * c)
-    x = m.tubelet(x).float()
+    return m.tubelet(x)
+
+
+def tubelet_embed(m, clips):
+    """``tubelet_tokens`` plus the factorized positional embeddings
+    (``m.pos_spatial``, ``m.pos_temporal``), in ``m.residual_dtype``."""
+    x = tubelet_tokens(m, clips).float()
     x = x + m.pos_spatial[None, None] + m.pos_temporal[None, :, None]
     return x.to(m.residual_dtype)
 

@@ -9,7 +9,9 @@ of the same CUDA kernel serves the latter). Layout is the JAX package's,
 ``impl="auto"`` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; ``"plain"`` forces the plain version anywhere;
 ``"cuda"`` forces the kernel and raises on the CPU. Nothing falls back
-from one to the other. Each launch adds one to ``launches``.
+from one to the other. Each launch adds one to ``launches`` and to its
+mode's entry of ``launches_by_mode``: "band" with a window (the mode that
+serves ``_band_kernel``), else "causal" or "full".
 
 Only the forward is ported: inputs that require grad raise
 ``NotImplementedError`` (the flash backward is ROADMAP queue 2 item 4).
@@ -26,9 +28,19 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
+MODES = ("full", "causal", "band")
+
 launches = 0
+launches_by_mode = dict.fromkeys(MODES, 0)
 
 _FN = None
+
+
+def reset_counts():
+    global launches
+    launches = 0
+    for mode in MODES:
+        launches_by_mode[mode] = 0
 
 
 def _kernel():
@@ -169,6 +181,7 @@ def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
         raise RuntimeError(f"ts_flash_fwd launch failed: cudaError {rc}")
     global launches
     launches += 1
+    launches_by_mode["band" if window else "causal" if causal else "full"] += 1
     return o, l, m
 
 

@@ -87,6 +87,15 @@ def test_entry_points_without_device_take_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert _device.resolve_device("cpu") == torch.device("cpu")
+    # The stream cache follows the model's device: a model that names a
+    # card gets its cache there, which raises here.
+    from tensor_stream_torch.models import init_stream_cache
+    m = VideoViT(10, depth=1, dim=32, num_heads=1, patch=8, frames=2,
+                 size=16, causal=True, device="cpu")
+    assert init_stream_cache(m, 1, 2)["t"].device == torch.device("cpu")
+    m.device = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_stream_cache(m, 1, 2)
 
 
 def test_wrapper_runs_plain_on_cpu_and_never_counts():
