@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of tensor_stream_torch from the sources in this
 checkout (one nvcc per source, all at once), holds each against its plain
-torch version on the card, drives the port's two main paths and times the
+torch version on the card, drives the port's main paths and times the
 kernels:
 
 * the headline FrameLoader: 1080p H.264 -> native decode -> host resize
@@ -21,7 +21,11 @@ kernels:
   VideoViT of bench.py's stateful serving benchmark (dim 384, depth 4, 6
   heads, MHA and GQA with 2 kv heads, a ring KV cache of 16 steps), held
   against its windowed causal batch twin, whose spatial and temporal
-  attention run the flash_fwd kernel in its full and band modes.
+  attention run the flash_fwd kernel in its full and band modes;
+* training: bench.py's joint training configurations (ViT-B width, 16
+  frames, B=4 at 224² and B=1 at 448² with remat) through init_vit and
+  make_vit_train_step with SGD, flash and materialized attention, every
+  flash attention's gradient from the flash_bwd kernel.
 
 Prints one JSON object per phase, then the "kernels" line, then the
 card's name and power limit as nvidia-smi gives them, and last
@@ -55,7 +59,8 @@ from tensor_stream_torch import _build, _native
 from tensor_stream_torch.data import FrameLoader, MultiStreamLoader
 from tensor_stream_torch.enums import FourCC, FrameRate, Planes
 from tensor_stream_torch.models import (VideoViT, clone_cache,
-                                        init_stream_cache, stream_step)
+                                        init_stream_cache, init_vit,
+                                        make_vit_train_step, stream_step)
 from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
 from tensor_stream_torch.serving import StreamInferencer
@@ -70,7 +75,7 @@ HEADLINE_FRAMES = 200
 READ_FIXTURE = os.path.join(HERE, "tests", "fixtures",
                             "bbb_720x480_RGB24_250.h264")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12   # dense tensor cores, the same sheet
+BF16_FLOP_PER_S = 989.4e12  # dense tensor cores, the same sheet (SXM5)
 F32_FLOP_PER_S = 67e12     # outside the tensor cores
 BATCH = 128
 SIDE = 224
@@ -601,7 +606,15 @@ FLASH_CASES = [
     ("twin_temporal", (392, 6, 6, 16, 16, 64), True, 8, "bshd"),
     ("twin_temporal_gqa", (392, 6, 2, 16, 16, 64), True, 8, "bshd"),
     ("headline", (2, 12, 12, 1568, 1568, 64), False, None, "bhsd"),
+    # The training paths' forwards with residuals, as the model's views.
+    ("train", (4, 12, 12, 1568, 1568, 64), False, None, "bshd"),
+    ("train_long", (1, 12, 12, 6272, 6272, 64), False, None, "bshd"),
+    # Batch x heads past 65535 (factorized temporal attention over 28 or
+    # more 224² clips): the grid is (tiles, heads, batch).
+    ("grid_bh_over_65535", (5600, 12, 12, 16, 16, 64), True, None, "bshd"),
 ]
+# Cases held in bf16 only (the model's dtype at the training shapes).
+BF16_ONLY = ("headline", "train", "train_long")
 
 
 def phase_flash_vs_plain():
@@ -615,7 +628,7 @@ def phase_flash_vs_plain():
     rows = []
     worst = {"no_window": 0.0, "window": 0.0}
     for i, (name, shape, causal, window, layout) in enumerate(FLASH_CASES):
-        dtypes = (torch.bfloat16,) if name == "headline" else \
+        dtypes = (torch.bfloat16,) if name in BF16_ONLY else \
             (torch.bfloat16, torch.float32)
         for dtype in dtypes:
             q, k, v = _flash_case(*shape, dtype, 200 + i, layout)
@@ -646,6 +659,123 @@ def phase_flash_vs_plain():
                         "o_rel_norm_bf16": FLASH_O_REL[torch.bfloat16],
                         "o_rel_norm_f32": FLASH_O_REL[torch.float32],
                         "l_m": FLASH_TOL[torch.float32]},
+          "cases": rows})
+    return worst
+
+
+# The flash backward against its plain version, as
+# tests/test_flash_attention.py holds gradients (:300-301): the forward's
+# elementwise rule at 10 times its scale, since a gradient accumulates one
+# more chain of products. Beside it each gradient as a whole, ||got - want||
+# / ||want||, at the forward's bound in bf16 (dS and P round to bf16 at the
+# same points in both, so the kernel measured at most 1.8e-4 on an H100)
+# and 1e-4 in f32 (sums in another order, amplified where dP - delta
+# cancels; measured at most 7e-7). A backward that drops delta, or a head
+# of a GQA group, lands at order 1 (tests/test_torch_flash_bwd.py emulates
+# both on the CPU under this rule).
+FLASH_GRAD_SCALE = 10.0
+FLASH_GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+FLASH_BWD_CASES = [
+    # name, (b, h, hk, sq, sk, d), causal, window, layout
+    ("train", (4, 12, 12, 1568, 1568, 64), False, None, "bshd"),
+    ("train_long", (1, 12, 12, 6272, 6272, 64), False, None, "bshd"),
+    ("causal", (2, 4, 4, 512, 512, 64), True, None, "bhsd"),
+    ("window_causal", (1, 4, 4, 1024, 1024, 64), True, 100, "bhsd"),
+    ("window_symmetric", (1, 4, 4, 1024, 1024, 64), False, 100, "bhsd"),
+    ("gqa_12_to_4", (2, 12, 4, 640, 640, 64), False, None, "bshd"),
+    ("ragged_cross_100_to_300", (2, 4, 2, 100, 300, 64), False, None,
+     "bhsd"),
+    ("full_d32", (1, 4, 4, 384, 384, 32), False, None, "bhsd"),
+    ("causal_d128", (1, 4, 4, 384, 384, 128), True, None, "bhsd"),
+    ("grid_bh_over_65535", (5600, 12, 12, 16, 16, 64), True, None, "bshd"),
+]
+
+
+def _grad_out(b, h, sq, d, dtype, seed, layout="bhsd"):
+    """A seeded dL/do of std 1 in the layout of _flash_case's q."""
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "bshd":
+        return torch.randn((b, sq, h, d), generator=gen).to(
+            "cuda", dtype).transpose(1, 2)
+    return torch.randn((b, h, sq, d), generator=gen).to("cuda", dtype)
+
+
+def bwd_rule(got, want):
+    """The kernel's (dq, dk, dv) against the plain version's: each
+    elementwise at the gradient rule and as a relative norm. Returns
+    ({check: passed}, {error: value})."""
+    checks, errs = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = max_abs_err(g, w)
+        errs[name + "_rel"] = _rel_norm(g, w)
+        errs[name + "_mean_abs"] = float(w.float().abs().mean())
+        checks[name] = _within(g, w, FLASH_TOL[w.dtype] * FLASH_GRAD_SCALE)
+        checks[name + "_rel"] = errs[name + "_rel"] <= FLASH_GRAD_REL[w.dtype]
+    return checks, errs
+
+
+def bytes_equal(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def phase_flash_bwd_vs_plain():
+    """The flash backward kernel against flash_attention_bwd_plain on the
+    same CUDA tensors and the same residuals (the forward kernel's o, l,
+    m), in bf16 and f32 (the training shapes in bf16), q and k of std 2;
+    each case launched twice, and the two must be the same bytes. Returns
+    the worst elementwise error."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    worst = 0.0
+    for i, (name, shape, causal, window, layout) in enumerate(
+            FLASH_BWD_CASES):
+        b, h, hk, sq, sk, d = shape
+        dtypes = (torch.bfloat16,) if name in BF16_ONLY else \
+            (torch.bfloat16, torch.float32)
+        for dtype in dtypes:
+            q, k, v = _flash_case(*shape, dtype, 300 + i, layout)
+            do = _grad_out(b, h, sq, d, dtype, 400 + i, layout)
+            o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                             window=window)
+            before = fa.bwd_launches
+            got = fa.flash_attention_bwd(q, k, v, o, l, m, do, causal=causal,
+                                         window=window)
+            again = fa.flash_attention_bwd(q, k, v, o, l, m, do,
+                                           causal=causal, window=window)
+            if fa.bwd_launches != before + 2:
+                raise AssertionError(f"flash bwd {name}: kernel did not "
+                                     "launch")
+            want = fa.flash_attention_bwd_plain(q, k, v, o, l, m, do, causal,
+                                                window)
+            torch.cuda.synchronize()
+            checks, errs = bwd_rule(got, want)
+            checks["deterministic"] = all(bytes_equal(x, y)
+                                          for x, y in zip(got, again))
+            ok = all(checks.values())
+            worst = max(worst, errs["dq"], errs["dk"], errs["dv"])
+            rows.append({"case": name, "shape": list(shape),
+                         "dtype": str(dtype).split(".")[-1],
+                         "causal": causal, "window": window,
+                         "layout": layout,
+                         "tol": FLASH_TOL[dtype] * FLASH_GRAD_SCALE,
+                         "rel_bound": FLASH_GRAD_REL[dtype], **errs,
+                         "failed": [c for c, v in checks.items() if not v],
+                         "ok": ok})
+            del q, k, v, do, o, l, m, got, again, want
+            if not ok:
+                emit({"phase": "flash_bwd_vs_plain", "cases": rows})
+                raise AssertionError(f"flash bwd != plain: {rows[-1]}")
+    emit({"phase": "flash_bwd_vs_plain", "allow_tf32": False,
+          "inputs": {"qk_std": FLASH_QK_STD, "v_std": FLASH_V_STD,
+                     "do_std": 1.0},
+          "tolerance": {"bf16": FLASH_TOL[torch.bfloat16] * FLASH_GRAD_SCALE,
+                        "f32": FLASH_TOL[torch.float32] * FLASH_GRAD_SCALE,
+                        "rel_norm_bf16": FLASH_GRAD_REL[torch.bfloat16],
+                        "rel_norm_f32": FLASH_GRAD_REL[torch.float32]},
+          "deterministic": "two launches a case, compared byte for byte",
           "cases": rows})
     return worst
 
@@ -1166,6 +1296,435 @@ def phase_flash_times(device, smi, serving):
     return out
 
 
+# ------------------------------------------------------------- training
+
+# bench.py's joint training configurations (bench_vit_train_joint,
+# :748-821, and bench_vit_train_joint_long, :822-899), nothing cut:
+# VideoViT at ViT-B width with joint space-time attention, bf16 compute and
+# residual, SGD lr 1e-3 momentum 0.9; clips of 16 frames, B=4 at 224²
+# (attention at [4, 12, 1568, 64]) and B=1 at 448² with remat on both paths
+# (attention at [1, 12, 6272, 64]). Each runs with flash attention and on
+# the materialized path from the same weights (init_vit, seed 0) and the
+# same clips: the ramp batch of the JAX package's
+# test_sharded_bf16_step_descends (brightness ramps over time, so the
+# arrow-of-time task is learnable and the loss must fall), flip mask
+# [T, F, T, F] cut to the batch.
+TRAIN_VIT = dict(num_classes=1000, depth=12, dim=768, num_heads=12,
+                 patch=16, tubelet_t=2, hidden_mult=4, attention="joint",
+                 frames=16)
+TRAIN_CONFIGS = (("joint", 4, 224, False), ("joint_long", 1, 448, True))
+TRAIN_LR, TRAIN_MOMENTUM = 1e-3, 0.9
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+# The loss of the two paths on the first step: the bf16 model rule of
+# tests/test_torch_video_vit.py (2e-2, as assert_allclose's atol and rtol).
+TRAIN_LOSS_TOL = 2e-2
+# The first step's gradients, flash against materialized on the same
+# weights and clips: ||g_flash - g_mat|| / ||g_mat|| for each parameter;
+# (worst, median) of them against these bounds, set from an H100's
+# readings (PERF.md, Findings). In bf16 the worst leaves are the
+# query and key weights: their gradient comes through dS, which the flash
+# contract rounds to bf16 before dQ and dK. That left the plain flash
+# path (the same cast points in torch ops) 0.127 from the f32 model's
+# gradient where the materialized path (f32 dS) stayed within 0.020, so
+# the bound sits at about twice the largest reading (0.158). In f32 both
+# paths compute the same sums in other orders (read: 6.4e-6, 1.3e-7).
+TRAIN_GRAD_BOUNDS = {torch.bfloat16: (0.3, 1e-2), torch.float32: (1e-4, 1e-5)}
+FLASH_BWD_TIMED = (("train_joint", (4, 12, 1568, 64)),
+                   ("train_joint_long", (1, 12, 6272, 64)))
+
+
+def train_flops(batch, size):
+    """bench.py's FLOP count of one step (:800-803): 3x the forward's
+    dense layers, the O(S^2) score products and the tubelet embedding; a
+    recompute (flash's backward, remat) is not counted."""
+    dim, depth, mult = TRAIN_VIT["dim"], TRAIN_VIT["depth"], \
+        TRAIN_VIT["hidden_mult"]
+    patch, tub = TRAIN_VIT["patch"], TRAIN_VIT["tubelet_t"]
+    s_joint = (TRAIN_VIT["frames"] // tub) * (size // patch) ** 2
+    n_tok = batch * s_joint
+    per_block = (8 * dim * dim + 4 * mult * dim * dim) * n_tok \
+        + 4 * n_tok * s_joint * dim
+    embed = 2 * n_tok * (patch * patch * 3 * tub) * dim
+    return 3 * (depth * per_block + embed), n_tok, s_joint
+
+
+def ramp_clips(batch, size, device):
+    """The memorizable batch: uniform noise in [0, 0.25) plus a brightness
+    ramp from 0 to 1 over the 16 frames, and its flip mask."""
+    frames = TRAIN_VIT["frames"]
+    rng = np.random.default_rng(2)
+    ramp = np.linspace(0, 1, frames, dtype=np.float32)
+    clips = (rng.uniform(0, .25, (batch, frames, size, size, 3))
+             .astype(np.float32) + ramp[None, :, None, None, None])
+    mask = np.array([True, False, True, False])[:batch]
+    return (torch.from_numpy(clips).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def step_device_ms(step, clips, mask):
+    """The device's time of one training step: a CUDA graph of the whole
+    step (forward, backward, optimizer), replayed; the replays train the
+    model on. A capture that fails raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        step(clips, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(clips, mask)
+    ms = time_ms(graph.replay, clips.device, iters=5, warmup=1)[0]
+    del graph
+    return ms
+
+
+def kernel_ms(prof):
+    """{kernel name: device ms} of a torch.profiler run: the device's own
+    records (kernels, copies, sets), not the ranges that record_function
+    and the ATen ops mark on the device's timeline (is_user_annotation),
+    which would count their kernels twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == cuda and not e.is_user_annotation
+            and e.self_device_time_total > 0}
+
+
+def first_step_grads(model, opt):
+    """Fills the returned dict with an f32 CPU copy of every parameter's
+    gradient as the optimizer first sees it (the train step's own
+    backward), by name; the hook then removes itself."""
+    params = list(model.named_parameters())
+    grads = {}
+
+    def hook(optimizer, args, kwargs):
+        handle.remove()
+        grads.update({n: p.grad.detach().float().cpu() for n, p in params
+                      if p.grad is not None})
+    handle = opt.register_step_pre_hook(hook)
+    return grads
+
+
+# A key projection's bias adds the same vector to every key of a row's
+# scores, a constant the softmax ignores: its gradient is 0 in exact
+# arithmetic, so a relative norm there measures rounding alone.
+ZERO_GRAD_SUFFIX = ".key.bias"
+
+
+def grad_rule(got, want):
+    """Each parameter's ||got - want|| / ||want|| (f64) over the names of
+    `want` but the key biases (ZERO_GRAD_SUFFIX); a name missing from
+    `got` counts as infinitely far. Returns (worst, its name, {name:
+    relative norm})."""
+    rel = {}
+    for name, w in want.items():
+        if name.endswith(ZERO_GRAD_SUFFIX):
+            continue
+        g = got.get(name)
+        if g is None or g.shape != w.shape:
+            rel[name] = float("inf")
+            continue
+        w = w.double()
+        rel[name] = float((g.double() - w).norm() / w.norm().clamp_min(
+            torch.finfo(torch.float64).tiny))
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst, rel
+
+
+def grad_summary(got, want, dtype, top=5):
+    """grad_rule's worst and median leaf against TRAIN_GRAD_BOUNDS[dtype],
+    and the `top` leaves furthest apart."""
+    worst, leaf, rel = grad_rule(got, want)
+    median = float(np.median(list(rel.values())))
+    bound_worst, bound_median = TRAIN_GRAD_BOUNDS[dtype]
+    return {"leaves": len(rel), "worst_rel_norm": worst, "worst_leaf": leaf,
+            "median_rel_norm": median,
+            "top": dict(sorted(rel.items(), key=lambda kv: -kv[1])[:top]),
+            "bound_worst": bound_worst, "bound_median": bound_median,
+            "ok": worst <= bound_worst and median <= bound_median}
+
+
+def first_grads(device, size, remat, clips, mask, dtype, use_flash,
+                flash_impl="auto"):
+    """The first step's gradients of make_vit_train_step from train_run's
+    weights and clips, in `dtype` (compute and residual); flash_impl
+    "plain" runs the flash path's plain versions (the kernels' cast
+    points, in torch ops, no launch)."""
+    model = VideoViT(compute_dtype=dtype, residual_dtype=dtype,
+                     use_flash=use_flash, flash_impl=flash_impl,
+                     remat=remat, size=size, device=device, **TRAIN_VIT)
+    init_vit(torch.Generator().manual_seed(0), model, tuple(clips.shape))
+    opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR,
+                          momentum=TRAIN_MOMENTUM)
+    grads = first_step_grads(model, opt)
+    make_vit_train_step(model, opt)(clips, mask)
+    del model, opt
+    torch.cuda.empty_cache()
+    return grads
+
+
+def train_run(device, name, batch, size, remat, use_flash, clips, mask):
+    """TRAIN_WARMUP + TRAIN_STEPS steps of make_vit_train_step with the
+    kernels' counts at 0 just before; returns the run's row (an "outcome"
+    of "OOM" where the card's memory ran out) and the first step's
+    gradients (first_step_grads; None after an OOM)."""
+    flops, n_tok, s_joint = train_flops(batch, size)
+    row = {"config": name, "use_flash": use_flash, "remat": remat,
+           "batch": batch, "size": size, "tokens": s_joint}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model = VideoViT(compute_dtype=torch.bfloat16,
+                         residual_dtype=torch.bfloat16, use_flash=use_flash,
+                         remat=remat, size=size, device=device, **TRAIN_VIT)
+        init_vit(torch.Generator().manual_seed(0), model, tuple(clips.shape))
+        opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR,
+                              momentum=TRAIN_MOMENTUM)
+        step = make_vit_train_step(model, opt)
+        grads = first_step_grads(model, opt)
+        fa.reset_counts()
+        out = [step(clips, mask) for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out += [step(clips, mask) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {"flash_fwd": fa.launches,
+                    "flash_fwd_recompute": fa.recompute_launches,
+                    "flash_bwd": fa.bwd_launches,
+                    "dout_copies": fa.dout_copies}
+        peak = torch.cuda.max_memory_allocated()
+        enqueue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(clips, mask)
+            enqueue.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        device_ms = step_device_ms(step, clips, mask)
+    except torch.cuda.OutOfMemoryError as e:
+        row.update(outcome="OOM", error=str(e)[:200])
+        return row, None
+    finally:
+        model = opt = step = None
+        torch.cuda.empty_cache()
+    step_ms = seconds / TRAIN_STEPS * 1e3
+    row.update(
+        outcome="ran", steps=len(out), warmup=TRAIN_WARMUP,
+        timed_steps=TRAIN_STEPS,
+        loss=[float(l) for l, _ in out], acc=[float(a) for _, a in out],
+        step_ms=step_ms, tokens_per_s=n_tok / (step_ms / 1e3),
+        flops_a_step=flops,
+        mfu=flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
+        peak_memory_gib=peak / 2 ** 30, launches=launches,
+        step_enqueue_ms=float(np.median(enqueue)), step_device_ms=device_ms,
+        device_time_source="cuda_graph_replay",
+        idle_share=1 - device_ms / step_ms)
+    return row, grads
+
+
+def phase_training(device, smi):
+    """bench.py's joint training configurations through init_vit and
+    make_vit_train_step, flash and materialized, each for 2 + 8 steps:
+    launches (12 flash forwards and 12 backwards a step, 24 forwards with
+    remat, none on the materialized path), step ms, tokens/s, MFU against
+    the bf16 peak, peak memory, device ms and idle share; gates: a finite
+    loss at every step, the two paths' first losses within the bf16 model
+    rule, their first-step gradients leaf by leaf within
+    TRAIN_GRAD_BOUNDS of each other, in bf16 and again with the model in
+    f32, the flash path's loss falling over its first 8 steps. Printed
+    beside them, to tell the kernels' part from the flash contract's: the
+    bf16 first step of the flash path's plain versions against the
+    kernels', and each bf16 path against the model in f32 on the
+    materialized path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    depth = TRAIN_VIT["depth"]
+    runs, failures = [], []
+    for name, batch, size, remat in TRAIN_CONFIGS:
+        clips, mask = ramp_clips(batch, size, device)
+        rows, grads = {}, {}
+        for use_flash in (True, False):
+            row, grads[use_flash] = train_run(device, name, batch, size,
+                                              remat, use_flash, clips, mask)
+            rows[use_flash] = row
+            runs.append(row)
+            if row["outcome"] != "ran":
+                if use_flash:
+                    failures.append(f"{name} flash: {row['outcome']}")
+                continue
+            n = row["steps"]
+            fwd = depth * n * (2 if remat else 1) if use_flash else 0
+            want = {"flash_fwd": fwd,
+                    "flash_fwd_recompute": depth * n if use_flash and remat
+                    else 0,
+                    "flash_bwd": depth * n if use_flash else 0}
+            got = {k: row["launches"][k] for k in want}
+            if got != want:
+                failures.append(f"{name} flash={use_flash}: launches {got}, "
+                                f"want {want}")
+            if not np.isfinite(row["loss"]).all():
+                failures.append(f"{name} flash={use_flash}: loss "
+                                f"{row['loss']}")
+        flash, plain = rows[True], rows[False]
+        if flash["outcome"] == "ran":
+            losses = flash["loss"]
+            flash["descends_over_8"] = losses[7] < losses[0]
+            if not flash["descends_over_8"]:
+                failures.append(f"{name}: loss did not fall over 8 steps "
+                                f"{losses[:8]}")
+        if flash["outcome"] == "ran" and plain["outcome"] == "ran":
+            a, b = flash["loss"][0], plain["loss"][0]
+            flash["first_loss_vs_materialized"] = {
+                "flash": a, "materialized": b, "abs_err": abs(a - b),
+                "bound": TRAIN_LOSS_TOL + TRAIN_LOSS_TOL * abs(b)}
+            if abs(a - b) > TRAIN_LOSS_TOL + TRAIN_LOSS_TOL * abs(b):
+                failures.append(f"{name}: first loss {a} (flash) against "
+                                f"{b} (materialized)")
+            flash["speedup_over_materialized"] = (plain["step_ms"]
+                                                  / flash["step_ms"])
+            grads["plain"] = first_grads(device, size, remat, clips, mask,
+                                         torch.bfloat16, True, "plain")
+            for use_flash in (True, False):
+                grads["f32", use_flash] = first_grads(
+                    device, size, remat, clips, mask, torch.float32,
+                    use_flash)
+            f32 = grads["f32", False]
+            for key, got, want, dtype, gate in (
+                    ("first_grads_vs_materialized", grads[True],
+                     grads[False], torch.bfloat16, True),
+                    ("f32_first_grads_vs_materialized", grads["f32", True],
+                     f32, torch.float32, True),
+                    ("first_grads_vs_plain_flash", grads[True],
+                     grads["plain"], torch.bfloat16, False),
+                    ("flash_vs_f32_materialized", grads[True], f32,
+                     torch.bfloat16, False),
+                    ("plain_flash_vs_f32_materialized", grads["plain"], f32,
+                     torch.bfloat16, False),
+                    ("materialized_vs_f32_materialized", grads[False], f32,
+                     torch.bfloat16, False)):
+                flash[key] = grad_summary(got, want, dtype)
+                if gate and not flash[key]["ok"]:
+                    failures.append(f"{name}: {key}: {flash[key]}")
+        del clips, mask, grads
+    out = {"phase": "training", "card": smi,
+           "model": TRAIN_VIT, "compute": "bf16", "residual": "bf16",
+           "optimizer": {"sgd_lr": TRAIN_LR, "momentum": TRAIN_MOMENTUM},
+           "peak_flop_per_s": BF16_FLOP_PER_S,
+           "peak_source": "NVIDIA H100 SXM5 data sheet, dense bf16",
+           "flops": "bench.py:800-803 (no recompute counted)",
+           "runs": runs, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"training phase failed: {failures}")
+    return out
+
+
+def time_flash_bwd(device, name, shape):
+    """The backward kernel at a training shape (bf16, the model's [B, S,
+    H, d] views, residuals from the forward kernel) beside its plain
+    version and the backward of scaled_dot_product_attention (a yardstick
+    only: the port never calls it). The bound counts the five products,
+    10 * B*H*S*S*d FLOP, and each input (q, k, v, o, dO, l, m) read and
+    each gradient written once."""
+    b, h, s, d = shape
+    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 8, "bshd")
+    do = _grad_out(b, h, s, d, torch.bfloat16, 9, "bshd")
+    o, l, m = fa.flash_attention_fwd(q, k, v)
+    ms, p10, p90 = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, l, m,
+                                                          do), device)
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, l, m, do), device, iters=10, warmup=2)[0]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), device)[0]
+    del out, leaves
+    flops = 10.0 * b * h * s * s * d
+    nbytes = 8 * b * h * s * d * q.element_size() + 2 * b * h * s * 4
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    return {"case": name, "shape": list(shape), "dtype": "bf16",
+            "layout": "bshd", "ms": ms, "p10_ms": p10, "p90_ms": p90,
+            "plain_ms": plain_ms, "library_ms": library_ms, "flops": flops,
+            "bytes": nbytes, "flop_bound_ms": flop_ms,
+            "byte_bound_ms": byte_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "share_of_bound": bound_ms / ms,
+            "library_over_kernel": library_ms / ms,
+            "tflop_per_s": flops / ms / 1e9}
+
+
+def train_profile(device, name, use_flash, replay_ms, top=8):
+    """Where a training step's device time goes: one eager step of a
+    TRAIN_CONFIGS run after 3 warm-up steps, under torch.profiler; the
+    device's records (kernel_ms) summed by group (the flash kernels,
+    cuBLAS GEMMs, the rest) and the `top` kernels, in ms, beside
+    `replay_ms`, the phase training's graph replay of the same step."""
+    _, batch, size, remat = next(c for c in TRAIN_CONFIGS if c[0] == name)
+    clips, mask = ramp_clips(batch, size, device)
+    model = VideoViT(compute_dtype=torch.bfloat16,
+                     residual_dtype=torch.bfloat16, use_flash=use_flash,
+                     remat=remat, size=size, device=device, **TRAIN_VIT)
+    step = make_vit_train_step(model, torch.optim.SGD(
+        model.parameters(), lr=TRAIN_LR, momentum=TRAIN_MOMENTUM))
+    for _ in range(3):
+        step(clips, mask)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(clips, mask)
+        torch.cuda.synchronize()
+    kernels = kernel_ms(prof)
+    del model, step, clips, mask, prof
+    torch.cuda.empty_cache()
+
+    def group(key):
+        if "DkvBf16" in key or "DqBf16" in key or "Delta<" in key:
+            return "flash_bwd"
+        if "FlashFwd" in key:
+            return "flash_fwd"
+        if any(w in key.lower() for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                           "sm90")):
+            return "gemm"
+        return "other"
+    groups = {}
+    for key, ms in kernels.items():
+        groups[group(key)] = groups.get(group(key), 0.0) + ms
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    device_ms = sum(kernels.values())
+    return {"config": name, "use_flash": use_flash, "device_ms": device_ms,
+            "graph_replay_ms": replay_ms,
+            "device_over_replay": device_ms / replay_ms,
+            "groups_ms": groups, "kernels": len(kernels),
+            "top_ms": dict(ranked)}
+
+
+def phase_train_profile(device, training):
+    """train_profile of each training run that ran; the sum of a step's
+    device records should come within a few % of its graph replay (the
+    replay adds the gaps between kernels)."""
+    rows = [train_profile(device, r["config"], r["use_flash"],
+                          r["step_device_ms"])
+            for r in training["runs"] if r["outcome"] == "ran"]
+    out = {"phase": "train_profile", "source": "torch.profiler, "
+           "device records without user annotations", "runs": rows}
+    emit(out)
+    return out
+
+
+def phase_flash_bwd_times(device, smi):
+    rows = [time_flash_bwd(device, *case) for case in FLASH_BWD_TIMED]
+    out = {"phase": "flash_bwd_times", "card": smi, **rows[0],
+           "library": "backward of "
+                      "torch.nn.functional.scaled_dot_product_attention",
+           "cases": rows}
+    emit(out)
+    return out
+
+
 FLASH_AB_SNIPPET = """
 import json, numpy as np, torch, chip_smoke as c
 from tensor_stream_torch.ops import flash_attention as fa
@@ -1262,13 +1821,22 @@ def run(device):
     serving = phase_serving(device)
     streaming = phase_streaming(device, smi)
     flash = phase_flash_times(device, smi, serving)
+    bwd_worst = phase_flash_bwd_vs_plain()
+    training = phase_training(device, smi)
+    phase_train_profile(device, training)
+    bwd = phase_flash_bwd_times(device, smi)
     head = rows[0]
     band = next(r for r in flash["cases"] if r["case"] == "twin_temporal")
     twin = streaming["flash_launches"]
+    train = {f"train_{r['config']}": r["launches"] for r in training["runs"]
+             if r["use_flash"]}
     source = "tensor_stream_torch/csrc/flash_fwd.cu"
-    # "launches" is each kernel's count on the main path that runs it
-    # (the headline loader, serving, the streaming twin); every path's
-    # count is beside it.
+    # "launches" is each kernel's count summed over the main paths that
+    # run it (the headline loader; serving; the two training runs), each
+    # path's count taken from 0 just before it and read just after; every
+    # path's count is beside it, the streaming twin's check among them.
+    fwd_paths = {"serving": serving["launches"]["flash_fwd"],
+                 **{k: v["flash_fwd"] for k, v in train.items()}}
     emit({"kernels": [{
         "name": "nv12_rgb", "route": "cuda",
         "source": "tensor_stream_torch/csrc/nv12_rgb.cu",
@@ -1285,9 +1853,10 @@ def run(device):
         "bound_by": "bytes", "library_ms": None}, {
         "name": "flash_fwd", "route": "cuda", "source": source,
         "replaces": "tensor_stream_tpu/ops/flash_attention.py:83",
-        "launches": serving["launches"]["flash_fwd"],
-        "launches_by_path": {"serving": serving["launches"]["flash_fwd"],
-                             "streaming_twin": twin["full"]},
+        "launches": sum(fwd_paths.values()),
+        "launches_by_path": {**fwd_paths, "streaming_twin": twin["full"]},
+        "recompute_launches": {k: v["flash_fwd_recompute"]
+                               for k, v in train.items()},
         "max_abs_err": flash_worst["no_window"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}, {
@@ -1298,7 +1867,17 @@ def run(device):
         "shape": band["shape"], "window": band["window"],
         "max_abs_err": flash_worst["window"], "ms": band["ms"],
         "plain_ms": band["plain_ms"], "bound_ms": band["bound_ms"],
-        "bound_by": band["bound_by"], "library_ms": band["library_ms"]}]})
+        "bound_by": band["bound_by"], "library_ms": band["library_ms"]}, {
+        "name": "flash_bwd", "route": "cuda",
+        "source": "tensor_stream_torch/csrc/flash_bwd.cu",
+        "replaces": "tensor_stream_tpu/ops/flash_attention.py:532",
+        "replaces_note": "_flash_bwd, the lax.scan VJP of _flash (not a "
+                         "Pallas kernel)",
+        "launches": sum(v["flash_bwd"] for v in train.values()),
+        "launches_by_path": {k: v["flash_bwd"] for k, v in train.items()},
+        "shape": bwd["shape"], "max_abs_err": bwd_worst, "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]})
     print(smi, flush=True)
 
 

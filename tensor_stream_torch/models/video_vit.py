@@ -20,19 +20,26 @@ The cast points are flax's, written out by hand (no autocast):
 
 Parameters are f32. ``device=None`` means ``cuda:0`` and raises without a
 card; random init draws from an explicit ``torch.Generator`` (weights for
-parity come from the JAX package through ``models/convert.py``). Left out
-here: ring attention (``ring_axis``/``mesh``), ``act_sharding``, ``remat``,
-``vit_param_specs``, ``make_act_sharding`` and ``make_vit_train_step``
-(ROADMAP.md, the parallel and training slices).
+parity come from the JAX package through ``models/convert.py``).
+
+Training: ``remat=True`` runs each block under ``torch.utils.checkpoint``
+(non-reentrant) when grad is enabled, as the flax module wraps its blocks
+in ``nn.remat``; ``init_vit`` re-draws a model's parameters from a
+generator; ``make_vit_train_step`` is the JAX step without its mesh (the
+arrow-of-time task, its loss and accuracy, then the optimizer). Left out
+here: ring attention (``ring_axis``/``mesh``), ``act_sharding``,
+``vit_param_specs``, ``make_act_sharding`` and the mesh of
+``make_vit_train_step`` (ROADMAP.md, the parallel slice).
 """
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.flash_attention import band_mask, flash_attention
+from ..ops.flash_attention import band_mask, flash_attention, recomputing
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -249,7 +256,8 @@ class VideoViT(nn.Module):
                  num_kv_heads=None, temporal_window=None,
                  spatial_window=None, residual_dtype=torch.float32,
                  attention="factorized", frames=16, size=224, channels=3,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 remat=False, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if attention not in ("factorized", "joint"):
             raise ValueError(f"attention must be 'factorized' or 'joint': "
@@ -269,7 +277,9 @@ class VideoViT(nn.Module):
         self.device = resolve_device(device)
         init = _Init(self.device, generator if generator is not None
                      else torch.Generator().manual_seed(0))
-        self.joint, self.causal = joint, causal
+        self.joint, self.causal, self.remat = joint, causal, remat
+        self.frames, self.channels = frames, channels
+        self.size = (height, width)
         self.patch, self.tubelet_t = patch, tubelet_t
         self.compute_dtype, self.residual_dtype = compute_dtype, residual_dtype
         fan_in = tubelet_t * patch * patch * channels
@@ -297,8 +307,12 @@ class VideoViT(nn.Module):
         if self.joint:
             b, tt, n, d = x.shape
             x = x.reshape(b, tt * n, d)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            if remat:
+                x = checkpoint(_Remat(block), x, use_reentrant=False)
+            else:
+                x = block(x)
         x = self.ln_f(x)
         if self.causal:
             x = x.mean(dim=2)           # per-step pool (tokens only)
@@ -307,3 +321,89 @@ class VideoViT(nn.Module):
         else:
             x = x.mean(dim=(1, 2))      # global token pool
         return self.head(x)
+
+
+class _Remat:
+    """One block under ``checkpoint``: its first call is the forward, a
+    later one the recompute in the backward, whose flash launches
+    ``ops.flash_attention`` counts apart (``recompute_launches``)."""
+
+    def __init__(self, block):
+        self.block = block
+        self.calls = 0
+
+    def __call__(self, x):
+        self.calls += 1
+        if self.calls == 1:
+            return self.block(x)
+        with recomputing():
+            return self.block(x)
+
+
+def init_vit(generator: torch.Generator, model: VideoViT,
+             clip_shape: Tuple[int, ...]) -> dict:
+    """Re-draws every parameter of `model` from `generator`, as the
+    constructor draws them (in registration order, on the CPU: Dense
+    kernels normal with std fan_in**-0.5, positional embeddings 0.02,
+    biases 0, LayerNorm scales 1), and returns the state dict: a model
+    built with the same generator gets the same values. `clip_shape`
+    [B, T, H, W, C] must be what the model was sized for (the JAX
+    ``init_vit`` sizes the model from it)."""
+    if (len(clip_shape) != 5 or clip_shape[1] != model.frames
+            or tuple(clip_shape[2:4]) != model.size
+            or clip_shape[4] != model.channels):
+        raise ValueError(f"clips {tuple(clip_shape)} do not fit a model of "
+                         f"{model.frames} frames of {model.size} with "
+                         f"{model.channels} channels")
+    init = _Init(model.device, generator)
+    owners = {id(p): mod for mod in model.modules()
+              for p in mod.parameters(recurse=False)}
+    params = dict(model.named_parameters())
+    # The constructor draws the tubelet before the positional embeddings,
+    # which named_parameters lists first (a module's own come first).
+    first = ["tubelet.weight", "tubelet.bias", "pos_spatial", "pos_temporal"]
+    order = first + [n for n in params if n not in first]
+    with torch.no_grad():
+        for name in order:
+            param = params[name]
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("pos_"):
+                new = init.normal(param.shape, 0.02)
+            elif leaf == "bias":
+                new = init.const(param.shape, 0.0)
+            elif isinstance(owners[id(param)], LayerNorm):
+                new = init.const(param.shape, 1.0)
+            else:                           # a Dense kernel [out, in]
+                new = init.normal(param.shape, param.shape[1] ** -0.5)
+            param.copy_(new)
+    return model.state_dict()
+
+
+def vit_loss(model: VideoViT, clips: torch.Tensor, flip_mask: torch.Tensor):
+    """The JAX step's task and ``loss_fn``: clips [B, T, H, W, C] whose
+    `flip_mask` [B] (bool) is set are time-reversed on the device, the mask
+    is the label; returns (loss, acc) as 0-d device tensors, loss =
+    -mean(log_softmax(logits)[label]), acc = mean(argmax == label)."""
+    x = torch.where(flip_mask[:, None, None, None, None], clips.flip(1),
+                    clips)
+    labels = flip_mask.long()
+    logits = model(x)
+    loss = -torch.take_along_dim(torch.log_softmax(logits, dim=-1),
+                                 labels[:, None], dim=1).mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, acc
+
+
+def make_vit_train_step(model: VideoViT, optimizer: torch.optim.Optimizer):
+    """The JAX ``make_vit_train_step`` on one device, without its mesh:
+    returns step(clips, flip_mask) -> (loss, acc), which takes the
+    gradients of ``vit_loss``, applies `optimizer` and clears the
+    gradients, updating `model` and `optimizer` in place. Nothing in it
+    waits for the device: loss and acc come back as 0-d device tensors."""
+    def step(clips, flip_mask):
+        loss, acc = vit_loss(model, clips, flip_mask)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss.detach(), acc
+    return step

@@ -1,21 +1,30 @@
-"""Flash attention forward: the wrapper of the CUDA kernel
-``csrc/flash_fwd.cu`` and its plain torch version.
+"""Flash attention, forward and backward: the wrappers of the CUDA kernels
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` and their plain torch
+versions.
 
-The kernel replaces the JAX package's two Pallas TPU kernels,
+The forward kernel replaces the JAX package's two Pallas TPU kernels,
 ``ops/flash_attention.py::_kernel`` and ``::_band_kernel`` (the band mode
-of the same CUDA kernel serves the latter). Layout is the JAX package's,
-``[batch, heads, seq, head_dim]``, with k/v allowed fewer heads (GQA).
+of the same CUDA kernel serves the latter); the backward kernel replaces
+its tile-recomputing VJP ``_flash_bwd`` (a ``lax.scan``, not Pallas).
+Layout is the JAX package's, ``[batch, heads, seq, head_dim]``, with k/v
+allowed fewer heads (GQA).
 
-``impl="auto"`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; ``"plain"`` forces the plain version anywhere;
-``"cuda"`` forces the kernel and raises on the CPU. Nothing falls back
-from one to the other. Each launch adds one to ``launches`` and to its
-mode's entry of ``launches_by_mode``: "band" with a window (the mode that
-serves ``_band_kernel``), else "causal" or "full".
+``impl="auto"`` launches the kernels for CUDA tensors and runs the plain
+versions for CPU tensors; ``"plain"`` forces the plain versions anywhere;
+``"cuda"`` forces the kernels and raises on the CPU. Nothing falls back
+from one to the other. Each forward launch adds one to ``launches`` and to
+its mode's entry of ``launches_by_mode``: "band" with a window (the mode
+that serves ``_band_kernel``), else "causal" or "full"; a forward launched
+while a checkpointed block is recomputed (``recomputing()``) also adds one
+to ``recompute_launches``. Each backward launch adds one to
+``bwd_launches``.
 
-Only the forward is ported: inputs that require grad raise
-``NotImplementedError`` (the flash backward is ROADMAP queue 2 item 4).
+``flash_attention`` is differentiable: with grad enabled and an input that
+requires grad it runs through ``_FlashAttention``, whose forward keeps the
+residuals (o, l, m) and whose backward is ``flash_attention_bwd``. Under
+``torch.no_grad()`` it calls the residual-free forward alone.
 """
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -32,15 +41,35 @@ MODES = ("full", "causal", "band")
 
 launches = 0
 launches_by_mode = dict.fromkeys(MODES, 0)
+recompute_launches = 0
+bwd_launches = 0
+# dO copies the backward made because autograd handed it a layout the
+# kernel cannot read (a non-contiguous last dim or unaligned strides).
+dout_copies = 0
 
 _FN = None
+_BWD_FN = None
+_RECOMPUTING = False
 
 
 def reset_counts():
-    global launches
-    launches = 0
+    global launches, recompute_launches, bwd_launches, dout_copies
+    launches = recompute_launches = bwd_launches = dout_copies = 0
     for mode in MODES:
         launches_by_mode[mode] = 0
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the forward launches inside it as a checkpoint's recompute
+    (``models/video_vit.py`` enters it when a remat block runs again in the
+    backward)."""
+    global _RECOMPUTING
+    outer, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING = outer
 
 
 def _kernel():
@@ -54,6 +83,18 @@ def _kernel():
                        + [ctypes.c_float, i, i, v])
         _FN = fn
     return _FN
+
+
+def _bwd_kernel():
+    global _BWD_FN
+    if _BWD_FN is None:
+        lib = _build.load("flash_bwd")
+        v, i = ctypes.c_void_p, ctypes.c_int
+        fn = lib.ts_flash_bwd
+        fn.restype = i
+        fn.argtypes = [v] * 12 + [i] * 7 + [v, ctypes.c_float, i, i, v]
+        _BWD_FN = fn
+    return _BWD_FN
 
 
 def _check(q, k, v, causal, window, sm_scale):
@@ -75,11 +116,6 @@ def _check(q, k, v, causal, window, sm_scale):
         if q.shape[2] != k.shape[2]:
             raise ValueError("window requires equal q/kv lengths")
         window = int(window)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only: the flash backward is not "
-            "ported yet (ROADMAP.md queue 2 item 4); run under "
-            "torch.no_grad() or use the materialized attention path")
     return float(sm_scale), window
 
 
@@ -137,7 +173,8 @@ def check_aligned(**tensors):
                 f"16-byte aligned (multiples of {step} elements)")
 
 
-def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
+def _cuda_shapes(q, k, v):
+    """The kernels' argument checks; returns (b, h, hk, sq, sk, d)."""
     if not (q.device.type == "cuda" and k.device == q.device
             and v.device == q.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
@@ -153,14 +190,24 @@ def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
     if sk == 0:
         raise ValueError("the kernel needs at least one kv position")
     if h > 65535 or b > 65535:
-        raise ValueError(f"heads {h} and batch {b} must fit the kernel's "
-                         "grid (65535)")
+        raise ValueError(f"heads {h} and batch {b} must fit the kernels' "
+                         "grids (65535)")
     check_aligned(q=q, k=k, v=v)
-    # Same stride order as q, so [B, S, H, d] projections give an output
-    # whose transpose back to [B, S, H*d] is a free view.
-    o = torch.empty_like(q, memory_format=torch.preserve_format)
-    if o.stride(-1) != 1:
-        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    return b, h, hk, sq, sk, d
+
+
+def _empty_like(t):
+    """An output in t's stride order, so that [B, S, H, d] projections get
+    gradients and outputs whose transpose back is a free view."""
+    out = torch.empty_like(t, memory_format=torch.preserve_format)
+    if out.stride(-1) != 1:
+        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return out
+
+
+def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
+    b, h, hk, sq, sk, d = _cuda_shapes(q, k, v)
+    o = _empty_like(q)
     if residuals:
         l = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -179,10 +226,88 @@ def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
                 window or 0, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ts_flash_fwd launch failed: cudaError {rc}")
-    global launches
+    global launches, recompute_launches
     launches += 1
     launches_by_mode["band" if window else "causal" if causal else "full"] += 1
+    if _RECOMPUTING:
+        recompute_launches += 1
     return o, l, m
+
+
+def flash_attention_bwd_plain(q, k, v, o, l, m, do, causal=False,
+                              window=None, sm_scale=None):
+    """The torch twin of the JAX ``_flash_bwd`` with P materialized:
+    delta = rowsum(f32(dO) * f32(o)); P = exp(S - m) * l_inv in f32 (S the
+    scaled logits, masked with -0.7 * f32max; l_inv 1 where l == 0);
+    dV = P cast to the input dtype, transposed, times dO; dP = dO V^T;
+    dS = (P * (dP - delta)) * scale cast to the input dtype; dQ = dS K,
+    dK = dS^T Q. Products of input-dtype operands sum in f32; under GQA
+    dK and dV sum over each group of q heads in f32; each output is cast
+    to the input dtype at the end. Returns (dq, dk, dv)."""
+    if sm_scale is None:
+        sm_scale = float(q.shape[-1]) ** -0.5
+    dt = q.dtype
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    dof = do.to(dt).float()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
+    mask = band_mask(sq, sk, causal, window, q.device)
+    if mask is not None:
+        s = torch.where(mask, s, torch.tensor(MASK_VALUE, dtype=torch.float32,
+                                              device=s.device))
+    l_inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    p = torch.exp(s - m[..., None]) * l_inv[..., None]
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) * sm_scale).to(dt).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk = dk.view(b, hk, g, sk, d).sum(dim=2)
+    dv = dv.view(b, hk, g, sk, d).sum(dim=2)
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
+    b, h, hk, sq, sk, d = _cuda_shapes(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"o and dO must be {q.dtype}, got {o.dtype} and "
+                        f"{do.dtype}")
+    for name, t in (("l", l), ("m", m)):
+        if (t.shape != (b, h, sq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be a contiguous f32 [B, H, Sq] "
+                             f"tensor on {q.device}")
+    for t in (o, do):
+        if t.device != q.device:
+            raise ValueError(f"o and dO must be on {q.device}")
+    check_aligned(o=o, do=do)
+    dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
+    if sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta, linv = torch.empty((2, b, h, sq), dtype=torch.float32,
+                              device=q.device)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*[st for t in tensors
+                                         for st in t.stride()[:3]])
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        rc = fn(*[t.data_ptr() for t in (q, k, v, o, do, l, m, delta, linv,
+                                         dq, dk, dv)],
+                _DTYPES[q.dtype], b, h, hk, sq, sk, d, strides, sm_scale,
+                int(bool(causal)), window or 0,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ts_flash_bwd launch failed: cudaError {rc}")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
@@ -193,6 +318,53 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     backward (there at the padded length)."""
     sm_scale, window = _check(q, k, v, causal, window, sm_scale)
     return _dispatch(q, k, v, causal, window, sm_scale, impl, True)
+
+
+def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = False,
+                        window: Optional[int] = None,
+                        sm_scale: Optional[float] = None, impl: str = "auto"):
+    """(dq, dk, dv) of ``flash_attention`` from the forward's residuals:
+    o as it returned it, and l and m of ``flash_attention_fwd``; ``do``
+    is dL/do in o's dtype. ``impl`` as for the forward."""
+    sm_scale, window = _check(q, k, v, causal, window, sm_scale)
+    if _use_kernel(impl, (q, k, v, o, do)):
+        return _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window,
+                               sm_scale)
+    return flash_attention_bwd_plain(q, k, v, o, l, m, do, causal, window,
+                                     sm_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The differentiable flash attention: the forward keeps (q, k, v, o,
+    l, m), the backward runs ``flash_attention_bwd`` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale, impl):
+        o, l, m = _dispatch(q, k, v, causal, window, sm_scale, impl, True)
+        ctx.save_for_backward(q, k, v, o, l, m)
+        ctx.args = (causal, window, sm_scale, impl)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, l, m = ctx.saved_tensors
+        causal, window, sm_scale, impl = ctx.args
+        if _use_kernel(impl, (q, k, v)) and not _aligned(do):
+            global dout_copies
+            do = do.contiguous()
+            dout_copies += 1
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, l, m, do, causal=causal,
+                                         window=window, sm_scale=sm_scale,
+                                         impl=impl)
+        return dq, dk, dv, None, None, None, None
+
+
+def _aligned(t):
+    try:
+        check_aligned(t=t)
+    except ValueError:
+        return False
+    return True
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -206,28 +378,35 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (cross-attention) unless causal or windowed; k/v may carry fewer heads
     (GQA). ``window=W`` is the sliding window: with causal each row sees
     its last W positions, without it the symmetric band |row-col| < W.
+    Differentiable: with grad enabled and an input that requires grad, the
+    backward is ``flash_attention_bwd``.
 
     ``block_q``/``block_k`` choose the TPU kernel's tiles in the JAX
-    package and are accepted for the same signature; the CUDA kernel's
-    tiles are fixed: bf16 192 q rows x 128 kv at d <= 64 and 128 x 128 at
-    d = 128 (TMA and wgmma), f32 32 x 32."""
+    package and are accepted for the same signature; the CUDA kernels'
+    tiles are fixed: forward bf16 192 q rows x 128 kv at d <= 64 and
+    128 x 128 at d = 128 (TMA and wgmma), f32 32 x 32; backward bf16 64 x
+    64 (mma.sync), f32 32 x 32."""
     sm_scale, window = _check(q, k, v, causal, window, sm_scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, sm_scale, impl)
     return _dispatch(q, k, v, causal, window, sm_scale, impl, False)[0]
 
 
-def _dispatch(q, k, v, causal, window, sm_scale, impl, residuals):
+def _use_kernel(impl, tensors):
+    """True for the kernels, False for the plain versions (``impl`` as in
+    ``flash_attention``)."""
     if impl == "plain":
-        return _plain(q, k, v, causal, window, sm_scale, residuals)
+        return False
     if impl == "cuda":
-        return _flash_cuda(q, k, v, causal, window, sm_scale, residuals)
+        return True
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r} (auto, plain or cuda)")
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return _plain(q, k, v, causal, window, sm_scale, residuals)
-    return _flash_cuda(q, k, v, causal, window, sm_scale, residuals)
+    return not all(t.device.type == "cpu" for t in tensors)
 
 
-def _plain(q, k, v, causal, window, sm_scale, residuals):
+def _dispatch(q, k, v, causal, window, sm_scale, impl, residuals):
+    if _use_kernel(impl, (q, k, v)):
+        return _flash_cuda(q, k, v, causal, window, sm_scale, residuals)
     if residuals:
         return flash_attention_plain(q, k, v, causal, window, sm_scale, True)
     return flash_attention_plain(q, k, v, causal, window, sm_scale), None, None

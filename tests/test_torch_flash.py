@@ -344,13 +344,20 @@ def test_swizzle_fault_permutes_chunks_within_rows():
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])
-def test_requires_grad_is_refused(which):
-    """The flash backward is not ported: no input that requires grad goes
-    through, on any impl, and nothing routes it to the plain version."""
-    qkv = [torch.zeros(1, 2, 8, 32) for _ in range(3)]
-    qkv[which].requires_grad_(True)
+def test_requires_grad_flows_through(which):
+    """The op is differentiable on every impl: the one input that requires
+    grad gets autograd's gradient of flash_attention_plain (f32, so the
+    same math up to reduction order: 2e-5 at the gradient scale of 10),
+    and no_grad still runs the forward alone."""
+    qkv = [torch.from_numpy(a) for a in make(1, 2, 2, 24, 24, 32, seed=which)]
+    do = torch.from_numpy(make(1, 2, 2, 24, 24, 32, seed=9)[0])
+    x = qkv[which].clone().requires_grad_(True)
+    args = [x if i == which else t for i, t in enumerate(qkv)]
+    fa.flash_attention_plain(*args, causal=True).backward(do)
+    want = x.grad
     for impl in ("auto", "plain"):
-        with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-            fa.flash_attention(*qkv, impl=impl)
+        x.grad = None
+        fa.flash_attention(*args, causal=True, impl=impl).backward(do)
+        torch.testing.assert_close(x.grad, want, atol=2e-4, rtol=2e-4)
     with torch.no_grad():
-        assert fa.flash_attention(*qkv).shape == (1, 2, 8, 32)
+        assert fa.flash_attention(*args).shape == (1, 2, 24, 32)

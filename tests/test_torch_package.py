@@ -125,7 +125,7 @@ def test_cuda_build_flags_pin_rounding():
     for extra in _build.SOURCE_FLAGS.values():
         flags += " " + " ".join(extra)
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert _build.SOURCES == ("nv12_rgb", "flash_fwd")
+    assert _build.SOURCES == ("nv12_rgb", "flash_fwd", "flash_bwd")
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.SRC_DIR, f"{name}.cu"))
 

@@ -149,9 +149,20 @@ def test_seeded_init_is_reproducible():
         assert ka == kb and torch.equal(va, vb)
 
 
-def test_flash_forward_refuses_grad():
-    """The flash core is forward-only: with grad enabled and trainable
-    weights the model raises instead of running the plain version."""
+def test_flash_forward_trains():
+    """With grad enabled and trainable weights the flash core is
+    differentiable: every parameter gets the gradient of the same model on
+    the materialized path (f32 compute: the same math up to reduction
+    order, so within 1e-4 of the model's largest gradient; the key biases'
+    gradients are 0 up to rounding, so no per-parameter scale)."""
     _, _, tm, clips = pair(use_flash=True)
-    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-        tm(torch.from_numpy(clips))
+    twin = VideoViT(compute_dtype=torch.float32, frames=4, size=16,
+                    device="cpu", **BASE)
+    twin.load_state_dict(tm.state_dict())
+    for model in (tm, twin):
+        model(torch.from_numpy(clips)).square().sum().backward()
+    scale = max(float(q.grad.abs().max()) for q in twin.parameters())
+    for (name, p), q in zip(tm.named_parameters(), twin.parameters()):
+        assert p.grad is not None, name
+        torch.testing.assert_close(p.grad, q.grad, atol=1e-4 * scale,
+                                   rtol=1e-4, msg=name)
