@@ -43,6 +43,7 @@ in alternating processes:
 
     python3 -c "import chip_smoke as c; c.nv12_ab('dist/parent')"
     python3 -c "import chip_smoke as c; c.flash_ab('dist/parent')"
+    python3 -c "import chip_smoke as c; c.flash_bwd_ab('dist/parent')"
 """
 import inspect
 import json
@@ -200,7 +201,8 @@ def phase_env():
     for name in _build.SOURCES:
         with open(_build.log_path(name)) as f:
             ptxas += [ln.strip() for ln in f
-                      if "registers" in ln or "spill" in ln]
+                      if any(w in ln for w in ("registers", "spill",
+                                               "Performance"))]
     emit({"phase": "env", "nvidia_smi": smi, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -675,6 +677,16 @@ def phase_flash_vs_plain():
 # both on the CPU under this rule).
 FLASH_GRAD_SCALE = 10.0
 FLASH_GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# The contract rounds dS to bf16 before dK = dS^T Q (and dQ = dS K). The
+# kernel rounds it where the plain version does, and sums each dK row in
+# f32 over one block's steps, so in bf16 their dK agree far inside
+# FLASH_GRAD_REL (measured at most 2.2e-4 on an H100, PERF.md). A kernel
+# that left dS in f32 lands 2.6e-3 away, under FLASH_GRAD_REL
+# (tests/test_torch_flash_bwd.py emulates it on the CPU), so bf16 dK is
+# also held to this bound. dQ is not: a tiled sum that rounds dQ twice
+# lands as far (2.8e-3) and is still a valid reading of the contract's
+# rounding.
+FLASH_DK_CAST_REL = 1e-3
 
 FLASH_BWD_CASES = [
     # name, (b, h, hk, sq, sk, d), causal, window, layout
@@ -703,8 +715,10 @@ def _grad_out(b, h, sq, d, dtype, seed, layout="bhsd"):
 
 def bwd_rule(got, want):
     """The kernel's (dq, dk, dv) against the plain version's: each
-    elementwise at the gradient rule and as a relative norm. Returns
-    ({check: passed}, {error: value})."""
+    elementwise at the gradient rule and as a relative norm, and bf16 dK
+    as a relative norm within FLASH_DK_CAST_REL ("dk_cast": dS rounded
+    to bf16 where the contract rounds it). Returns ({check: passed},
+    {error: value})."""
     checks, errs = {}, {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         errs[name] = max_abs_err(g, w)
@@ -712,6 +726,8 @@ def bwd_rule(got, want):
         errs[name + "_mean_abs"] = float(w.float().abs().mean())
         checks[name] = _within(g, w, FLASH_TOL[w.dtype] * FLASH_GRAD_SCALE)
         checks[name + "_rel"] = errs[name + "_rel"] <= FLASH_GRAD_REL[w.dtype]
+    if want[1].dtype == torch.bfloat16:
+        checks["dk_cast"] = errs["dk_rel"] <= FLASH_DK_CAST_REL
     return checks, errs
 
 
@@ -720,16 +736,32 @@ def bytes_equal(a, b):
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
+# Which flash backward design serves which inputs (csrc/flash_bwd.cu).
+BWD_DESIGN_NOTES = {
+    "wgmma": "bf16 at d = 64: TMA ring, warp-specialised wgmma",
+    "mma_sync": "bf16 at d = 32 and 128: mma.sync, cp.async stages",
+    "f32": "f32: FMAs (no TF32)"}
+
+
+def bwd_design(dtype, d):
+    """The backward design that must serve (dtype, head dim): "wgmma" for
+    bf16 at d = 64, "mma_sync" for bf16 at d = 32 and 128, "f32"."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if d == 64 else "mma_sync"
+
+
 def phase_flash_bwd_vs_plain():
     """The flash backward kernel against flash_attention_bwd_plain on the
     same CUDA tensors and the same residuals (the forward kernel's o, l,
     m), in bf16 and f32 (the training shapes in bf16), q and k of std 2;
-    each case launched twice, and the two must be the same bytes. Returns
-    the worst elementwise error."""
+    each case launched twice, and the two must be the same bytes and go
+    through the design bwd_design names. Returns the worst elementwise
+    error of each design."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    worst = 0.0
+    worst = dict.fromkeys(fa.BWD_DESIGNS, 0.0)
     for i, (name, shape, causal, window, layout) in enumerate(
             FLASH_BWD_CASES):
         b, h, hk, sq, sk, d = shape
@@ -740,14 +772,15 @@ def phase_flash_bwd_vs_plain():
             do = _grad_out(b, h, sq, d, dtype, 400 + i, layout)
             o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
                                              window=window)
-            before = fa.bwd_launches
+            design = bwd_design(dtype, d)
+            before = fa.bwd_launches_by_design[design]
             got = fa.flash_attention_bwd(q, k, v, o, l, m, do, causal=causal,
                                          window=window)
             again = fa.flash_attention_bwd(q, k, v, o, l, m, do,
                                            causal=causal, window=window)
-            if fa.bwd_launches != before + 2:
-                raise AssertionError(f"flash bwd {name}: kernel did not "
-                                     "launch")
+            if fa.bwd_launches_by_design[design] != before + 2:
+                raise AssertionError(f"flash bwd {name}: the {design} "
+                                     "kernels did not launch")
             want = fa.flash_attention_bwd_plain(q, k, v, o, l, m, do, causal,
                                                 window)
             torch.cuda.synchronize()
@@ -755,9 +788,11 @@ def phase_flash_bwd_vs_plain():
             checks["deterministic"] = all(bytes_equal(x, y)
                                           for x, y in zip(got, again))
             ok = all(checks.values())
-            worst = max(worst, errs["dq"], errs["dk"], errs["dv"])
+            worst[design] = max(worst[design], errs["dq"], errs["dk"],
+                                errs["dv"])
             rows.append({"case": name, "shape": list(shape),
                          "dtype": str(dtype).split(".")[-1],
+                         "design": design,
                          "causal": causal, "window": window,
                          "layout": layout,
                          "tol": FLASH_TOL[dtype] * FLASH_GRAD_SCALE,
@@ -769,12 +804,14 @@ def phase_flash_bwd_vs_plain():
                 emit({"phase": "flash_bwd_vs_plain", "cases": rows})
                 raise AssertionError(f"flash bwd != plain: {rows[-1]}")
     emit({"phase": "flash_bwd_vs_plain", "allow_tf32": False,
+          "worst_by_design": worst,
           "inputs": {"qk_std": FLASH_QK_STD, "v_std": FLASH_V_STD,
                      "do_std": 1.0},
           "tolerance": {"bf16": FLASH_TOL[torch.bfloat16] * FLASH_GRAD_SCALE,
                         "f32": FLASH_TOL[torch.float32] * FLASH_GRAD_SCALE,
                         "rel_norm_bf16": FLASH_GRAD_REL[torch.bfloat16],
-                        "rel_norm_f32": FLASH_GRAD_REL[torch.float32]},
+                        "rel_norm_f32": FLASH_GRAD_REL[torch.float32],
+                        "dk_rel_norm_bf16_cast": FLASH_DK_CAST_REL},
           "deterministic": "two launches a case, compared byte for byte",
           "cases": rows})
     return worst
@@ -1492,6 +1529,7 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask):
         launches = {"flash_fwd": fa.launches,
                     "flash_fwd_recompute": fa.recompute_launches,
                     "flash_bwd": fa.bwd_launches,
+                    "flash_bwd_by_design": dict(fa.bwd_launches_by_design),
                     "dout_copies": fa.dout_copies}
         peak = torch.cuda.max_memory_allocated()
         enqueue = []
@@ -1526,8 +1564,9 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask):
 def phase_training(device, smi):
     """bench.py's joint training configurations through init_vit and
     make_vit_train_step, flash and materialized, each for 2 + 8 steps:
-    launches (12 flash forwards and 12 backwards a step, 24 forwards with
-    remat, none on the materialized path), step ms, tokens/s, MFU against
+    launches (12 flash forwards and 12 backwards a step, every backward
+    through the wgmma design, 24 forwards with remat, none on the
+    materialized path), step ms, tokens/s, MFU against
     the bf16 peak, peak memory, device ms and idle share; gates: a finite
     loss at every step, the two paths' first losses within the bf16 model
     rule, their first-step gradients leaf by leaf within
@@ -1559,6 +1598,10 @@ def phase_training(device, smi):
                     "flash_fwd_recompute": depth * n if use_flash and remat
                     else 0,
                     "flash_bwd": depth * n if use_flash else 0}
+            # bf16 at d = 64: every backward goes through the wgmma design.
+            want["flash_bwd_by_design"] = {
+                d: want["flash_bwd"] if d == "wgmma" else 0
+                for d in fa.BWD_DESIGNS}
             got = {k: row["launches"][k] for k in want}
             if got != want:
                 failures.append(f"{name} flash={use_flash}: launches {got}, "
@@ -1620,19 +1663,47 @@ def phase_training(device, smi):
     return out
 
 
+BWD_SPLIT_CALLS = 20
+
+
+def bwd_split(call):
+    """{kernel: device ms a call} of the backward's kernels (Delta, Dkv,
+    Dq) over BWD_SPLIT_CALLS calls under torch.profiler."""
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(BWD_SPLIT_CALLS):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for key, ms in kernel_ms(prof).items():
+        name = bwd_kernel(key)
+        if name is not None:
+            split[name] = split.get(name, 0.0) + ms / BWD_SPLIT_CALLS
+    return split
+
+
 def time_flash_bwd(device, name, shape):
     """The backward kernel at a training shape (bf16, the model's [B, S,
     H, d] views, residuals from the forward kernel) beside its plain
     version and the backward of scaled_dot_product_attention (a yardstick
-    only: the port never calls it). The bound counts the five products,
-    10 * B*H*S*S*d FLOP, and each input (q, k, v, o, dO, l, m) read and
-    each gradient written once."""
+    only: the port never calls it), and its kernels apart (bwd_split).
+    The bound counts the five products, 10 * B*H*S*S*d FLOP, and each
+    input (q, k, v, o, dO, l, m) read and each gradient written once; the
+    seven products the two kernels run (S and dP in both) are beside
+    it."""
     b, h, s, d = shape
     q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 8, "bshd")
     do = _grad_out(b, h, s, d, torch.bfloat16, 9, "bshd")
     o, l, m = fa.flash_attention_fwd(q, k, v)
+    before = dict(fa.bwd_launches_by_design)
     ms, p10, p90 = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, l, m,
                                                           do), device)
+    designs = [x for x in fa.BWD_DESIGNS
+               if fa.bwd_launches_by_design[x] != before[x]]
+    split = bwd_split(lambda: fa.flash_attention_bwd(q, k, v, o, l, m, do))
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, l, m, do), device, iters=10, warmup=2)[0]
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -1645,15 +1716,45 @@ def time_flash_bwd(device, name, shape):
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(flop_ms, byte_ms)
+    run_flops = 14.0 * b * h * s * s * d
     return {"case": name, "shape": list(shape), "dtype": "bf16",
-            "layout": "bshd", "ms": ms, "p10_ms": p10, "p90_ms": p90,
+            "layout": "bshd", "designs": designs, "split_ms": split,
+            "ms": ms, "p10_ms": p10, "p90_ms": p90,
             "plain_ms": plain_ms, "library_ms": library_ms, "flops": flops,
             "bytes": nbytes, "flop_bound_ms": flop_ms,
             "byte_bound_ms": byte_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "share_of_bound": bound_ms / ms,
             "library_over_kernel": library_ms / ms,
-            "tflop_per_s": flops / ms / 1e9}
+            "tflop_per_s": flops / ms / 1e9,
+            "seven_product_flops": run_flops,
+            "seven_product_bound_ms": run_flops / BF16_FLOP_PER_S * 1e3,
+            "seven_product_tflop_per_s": run_flops / ms / 1e9}
+
+
+# The flash backward's kernels (csrc/flash_bwd.cu), each name before any
+# that it contains.
+BWD_KERNELS = ("DeltaTiles", "Delta", "DkvWgmma", "DqWgmma", "DkvBf16",
+               "DqBf16", "DkvF32", "DqF32")
+
+
+def bwd_kernel(key):
+    """The flash backward kernel a device record's name holds, or None."""
+    return next((w for w in BWD_KERNELS if w in key), None)
+
+
+def kernel_group(key):
+    """The group a device record of train_profile counts under: the flash
+    backward (its three kernels of any design), the flash forward, cuBLAS
+    GEMMs or the rest."""
+    if bwd_kernel(key) is not None:
+        return "flash_bwd"
+    if "FlashFwd" in key:
+        return "flash_fwd"
+    if any(w in key.lower() for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                       "sm90")):
+        return "gemm"
+    return "other"
 
 
 def train_profile(device, name, use_flash, replay_ms, top=8):
@@ -1681,18 +1782,9 @@ def train_profile(device, name, use_flash, replay_ms, top=8):
     del model, step, clips, mask, prof
     torch.cuda.empty_cache()
 
-    def group(key):
-        if "DkvBf16" in key or "DqBf16" in key or "Delta<" in key:
-            return "flash_bwd"
-        if "FlashFwd" in key:
-            return "flash_fwd"
-        if any(w in key.lower() for w in ("gemm", "xmma", "cutlass", "nvjet",
-                                           "sm90")):
-            return "gemm"
-        return "other"
     groups = {}
     for key, ms in kernels.items():
-        groups[group(key)] = groups.get(group(key), 0.0) + ms
+        groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + ms
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     device_ms = sum(kernels.values())
     return {"config": name, "use_flash": use_flash, "device_ms": device_ms,
@@ -1724,6 +1816,28 @@ def phase_flash_bwd_times(device, smi):
     emit(out)
     return out
 
+
+# The training shapes as the model hands them over ([B, S, H, d] views),
+# seeded as time_flash_bwd seeds them; needs nothing of the other
+# checkout but its wrapper.
+FLASH_BWD_AB_SNIPPET = """
+import json, numpy as np, torch
+from tensor_stream_torch.ops import flash_attention as fa
+HOLD_CYCLES = {hold}
+{timer}
+dev = torch.device("cuda", 0)
+rows = []
+for b, h, s, d in {shapes}:
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = [(torch.randn((b, s, h, d), generator=gen) * std).to(
+        dev, torch.bfloat16).transpose(1, 2) for std in {stds}]
+    do = torch.randn((b, s, h, d), generator=gen).to(
+        dev, torch.bfloat16).transpose(1, 2)
+    o, l, m = fa.flash_attention_fwd(q, k, v)
+    rows.append(time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, l, m, do),
+                        dev))
+print(json.dumps(rows))
+"""
 
 FLASH_AB_SNIPPET = """
 import json, numpy as np, torch, chip_smoke as c
@@ -1785,6 +1899,22 @@ def flash_ab(other_root, blocks=1):
     got, order, roots = ab_turns(other_root, code, blocks)
     emit({"phase": "flash_ab", "card": nvidia_smi(),
           "shape": list(FLASH_HEADLINE), "order": order, **got,
+          "roots": roots})
+    return got
+
+
+def flash_bwd_ab(other_root, blocks=1):
+    """The flash backward's time at each training shape (FLASH_BWD_TIMED)
+    in the checkout at `other_root` against this one's (ab_turns). Prints
+    and returns {"other": [...], "this": [...]}: a list a turn of (median,
+    p10, p90) ms a shape."""
+    shapes = [shape for _, shape in FLASH_BWD_TIMED]
+    code = FLASH_BWD_AB_SNIPPET.format(
+        hold=HOLD_CYCLES, timer=inspect.getsource(time_ms), shapes=shapes,
+        stds=(FLASH_QK_STD, FLASH_QK_STD, FLASH_V_STD))
+    got, order, roots = ab_turns(other_root, code, blocks)
+    emit({"phase": "flash_bwd_ab", "card": nvidia_smi(),
+          "shapes": [list(s) for s in shapes], "order": order, **got,
           "roots": roots})
     return got
 
@@ -1873,9 +2003,15 @@ def run(device):
         "replaces": "tensor_stream_tpu/ops/flash_attention.py:532",
         "replaces_note": "_flash_bwd, the lax.scan VJP of _flash (not a "
                          "Pallas kernel)",
+        "design": "wgmma",
+        "designs": BWD_DESIGN_NOTES,
         "launches": sum(v["flash_bwd"] for v in train.values()),
         "launches_by_path": {k: v["flash_bwd"] for k, v in train.items()},
-        "shape": bwd["shape"], "max_abs_err": bwd_worst, "ms": bwd["ms"],
+        "launches_by_design": {k: v["flash_bwd_by_design"]
+                               for k, v in train.items()},
+        "shape": bwd["shape"], "max_abs_err": bwd_worst["wgmma"],
+        "max_abs_err_by_design": bwd_worst, "ms": bwd["ms"],
+        "split_ms": bwd["split_ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]})
     print(smi, flush=True)

@@ -21,7 +21,8 @@
 // exp(-0.7 * FLT_MAX - m) does in the reference.
 //
 // Three kernels, one launch each, on the caller's stream:
-//   * Delta: one warp a row; it also writes l_inv.
+//   * Delta: each row's statistics, delta and l_inv (DeltaTiles: b and
+//     delta * scale, in the wgmma design).
 //   * Dkv: one block per (kv tile, batch * kv head). It loops over the g =
 //     H / Hk q heads of its group and over the q tiles of its kv tile's
 //     live row band (causal starts at the tile's first column; a window
@@ -29,23 +30,65 @@
 //     before its first), so a window costs O(S * W) like _flash_bwd's
 //     banded_bwd. dK and dV of the group sum in registers.
 //   * Dq: one block per (q tile, batch * head), looping over the live kv
-//     tiles as the forward does.
+//     tiles as the forward does; dQ sums in f32 registers across them (the
+//     scan's carry).
 // No block writes what another writes and nothing uses atomics: two
 // launches on the same inputs give the same bytes. The price is that S
 // and dP are computed in both Dkv and Dq: seven products a tile pair
 // where one pass with atomic dQ sums would need five.
 //
 // Bound: at the training shape [4, 12, 1568, 64] bf16 the five products
-// are 10 * B*H*Sq*Sk*d = 75.5 GFLOP, 76 us at 989 TFLOP/s, against ~77 MB
-// of q, k, v, o, dO, l, m and the three outputs (23 us at 3.35 TB/s): the
-// tensor cores bound it. This first design is simple: bf16 products on
-// mma.sync m16n8k16 with operands read from shared memory by ldmatrix,
-// 64-row tiles (16 rows a warp), the next tile loading by cp.async into a
-// second stage while this one is computed; f32 on plain FMAs (no TF32). A
-// TMA ring with wgmma, as csrc/flash_fwd.cu, is later work.
+// are 10 * B*H*Sq*Sk*d = 75.5 GFLOP, 76.3 us at 989 TFLOP/s (the seven
+// run here are 105.7 GFLOP, 107 us), against ~77 MB of q, k, v, o, dO, l,
+// m and the three outputs (23 us at 3.35 TB/s): the tensor cores bound it.
+//
+// Three designs, chosen by dtype and head dim (Design(), which the wrapper
+// reads to count launches by design):
+//   * "wgmma", bf16 at d = 64 (the model's head dim): TMA and warp-
+//     specialised wgmma, after csrc/flash_fwd.cu and FA3's backward. The
+//     mma.sync design below is bound by shared-memory reads: every operand
+//     comes through ldmatrix from padded tiles and each ldmatrix feeds two
+//     MMAs. Here wgmma reads its B operand (and A of the SS products)
+//     straight from the 128-byte-swizzled tiles TMA wrote, and the A
+//     operand of dV, dK and dQ is the previous product's accumulator,
+//     packed to bf16 in registers: no thread loads an operand.
+//     A block is one producer warpgroup (one thread issues every TMA load
+//     and bulk copy; setmaxnreg gives its registers away) and two consumer
+//     warpgroups of 64 rows each (128-row tiles). The producer streams
+//     64-row tiles of the other side through a ring of kRing stages
+//     (full/empty mbarrier pairs); Dkv's stages also carry the tile's row
+//     statistics, which DeltaTiles lays out in 64-row blocks so that one
+//     bulk copy moves them.
+//     Dkv: S^T = K Q^T and dP^T = V dO^T are SS m64n64k16 with K-major
+//     operands; P^T and dS^T stay in registers as the A fragments of dV +=
+//     P^T dO and dK += dS^T Q, RS products whose B (dO, Q) is read
+//     MN-major through the descriptor's transpose bit. Dq: S = Q K^T and
+//     dP = dO V^T (SS), dQ += dS K (RS, K MN-major). At d = 64 a row is
+//     one 128-byte swizzle atom, so Desc's offsets hold for both majors.
+//     What bounds it is the elementwise work between the products (an
+//     exponential a logit in each kernel), which sits on each consumer's
+//     path from one product to the next. The design shortens and hides
+//     it: a consumer issues step i's SS products before step i-1's RS
+//     products and computes step i's P and dS while those run; the two
+//     consumers take turns issuing (ping-pong), so one's elementwise work
+//     runs under the other's products; P = exp2(S scale log2(e) - b) and
+//     dS = P (dP scale - delta scale) take two instructions each, with b
+//     = m log2(e) - log2(l_inv) and delta scale a row from DeltaTiles; and
+//     only tiles that a causal or band edge crosses select P = 0 (padding
+//     needs no mask, see EdgeCrosses).
+//   * "mma_sync", bf16 at d = 32 and 128: bf16 products on mma.sync
+//     m16n8k16 with operands read from shared memory by ldmatrix, 64-row
+//     tiles (16 rows a warp), the next tile loading by cp.async into a
+//     second stage while this one is computed.
+//   * "f32": plain FMAs (wgmma has no f32 without TF32, which the contract
+//     forbids).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -62,10 +105,12 @@ struct Params {
   const float* m;   // [B, H, Sq] contiguous
   float* delta;     // [B, H, Sq] contiguous, written by Delta
   float* linv;      // [B, H, Sq] contiguous, l == 0 ? 1 : 1 / l, by Delta
+  float* stats;     // "wgmma": [B * H, tiles, 2, 64], by DeltaTiles
   void* dq;
   void* dk;
   void* dv;
   int B, H, Hk, Sq, Sk;
+  int tiles;  // 64-row q tiles: ceil(Sq / 64)
   long long st[kTensors][3];
   float scale;
   int causal;
@@ -157,7 +202,7 @@ __global__ void __launch_bounds__(128) Delta(Params p) {
   }
 }
 
-// ------------------------------------------------------------------ bf16
+// --------------------------------------------------- bf16 d=32, 128: mma_sync
 
 __device__ __forceinline__ uint32_t SmemAddr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -795,6 +840,674 @@ cudaError_t Launch(Kernel kernel, int smem, dim3 grid, const Params& p,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ bf16 d=64: wgmma
+
+constexpr int kD = 64;            // the head dim of this design
+constexpr int kRowBytes = kD * 2;  // a tile row: one 128-byte swizzle atom
+constexpr int kWgRows = 64;       // rows a consumer warpgroup owns
+constexpr int kBlockRows = 2 * kWgRows;  // two consumer warpgroups
+constexpr int kStep = 64;         // rows a ring stage streams
+constexpr int kRing = 4;          // ring stages
+constexpr int kTileBytes = kStep * kRowBytes;  // 8 KB
+constexpr int kStatBytes = 2 * kStep * 4;     // b and delta of a tile
+constexpr int kThreadsW = 3 * 128;            // producer + two consumers
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536,
+              "register file");
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, from a 1024-aligned base: the block's two fixed 128-row
+// tiles (Dkv: K, V; Dq: Q, dO), the ring's two tiles a stage (Dkv: Q, dO;
+// Dq: K, V), Dkv's statistics a stage, then the mbarriers: fixed-full,
+// full[kRing], empty[kRing].
+constexpr int kFixedA = 0;
+constexpr int kFixedB = kFixedA + 2 * kTileBytes;
+constexpr int kRingA = kFixedB + 2 * kTileBytes;
+constexpr int kRingB = kRingA + kRing * kTileBytes;
+constexpr int kStats = kRingB + kRing * kTileBytes;
+constexpr int kBars = kStats + kRing * kStatBytes;
+constexpr int kSmemW = 1024 + kBars + 8 * (1 + 2 * kRing);
+
+__device__ __forceinline__ uint32_t Full(uint32_t bar, int s) {
+  return bar + 8 * (1 + s);
+}
+__device__ __forceinline__ uint32_t Empty(uint32_t bar, int s) {
+  return bar + 8 * (1 + kRing + s);
+}
+
+// The statistics of 64-row q tile `tile` of (b, h): b and delta, 64
+// floats each.
+__device__ __forceinline__ const float* TileStats(const Params& p, int b,
+                                                  int h, int tile) {
+  return p.stats +
+         ((static_cast<long long>(b) * p.H + h) * p.tiles + tile) * 2 * kStep;
+}
+
+// Delta's work for the wgmma design, in its layout: stats[b, h, tile] =
+// (b, delta * scale) of the tile's 64 rows, b = m log2(e) - log2(l_inv),
+// so that P = exp(S - m) l_inv = exp2(S log2(e) - b) is one FMA and one
+// ex2 a logit, and dS = P (dP - delta) scale = P (dP scale - delta scale)
+// one FMA and one multiply. Past Sq b is +inf and delta 0, so P and dS
+// are 0 there (Q and dO read as zeros, so S and dP are 0, not garbage).
+// Eight lanes a row, each reading 16 bytes of o and of dO: 16 rows a
+// block of 128 threads.
+__global__ void __launch_bounds__(128) DeltaTiles(Params p) {
+  constexpr int kLanes = kD / 8;  // 8 bf16 a lane
+  const long long row = blockIdx.x * (128LL / kLanes) + threadIdx.x / kLanes;
+  const int part = threadIdx.x % kLanes;
+  const long long padded = static_cast<long long>(p.tiles) * kStep;
+  if (row >= static_cast<long long>(p.B) * p.H * padded) return;
+  const int s = static_cast<int>(row % padded);
+  const long long bh = row / padded;
+  float sum = 0.f;
+  if (s < p.Sq) {
+    const int h = static_cast<int>(bh % p.H), b = static_cast<int>(bh / p.H);
+    const uint4 o = *reinterpret_cast<const uint4*>(
+        Base<__nv_bfloat16>(p, p.o, kO, b, h) + s * p.st[kO][2] + 8 * part);
+    const uint4 dout = *reinterpret_cast<const uint4*>(
+        Base<__nv_bfloat16>(p, p.dout, kDo, b, h) + s * p.st[kDo][2] +
+        8 * part);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dout);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float2 of = __bfloat1622float2(o2[x]);
+      const float2 df = __bfloat1622float2(d2[x]);
+      sum = fmaf(df.x, of.x, sum);
+      sum = fmaf(df.y, of.y, sum);
+    }
+  }
+  // The row's eight lanes are neighbours of one warp.
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (part == 0) {
+    float bias = INFINITY;
+    if (s < p.Sq) {
+      const float l = p.l[bh * p.Sq + s];
+      bias = p.m[bh * p.Sq + s] * kLog2e + (l == 0.f ? 0.f : log2f(l));
+    }
+    float* out = p.stats + (bh * p.tiles + s / kStep) * 2 * kStep + s % kStep;
+    out[0] = bias;
+    out[kStep] = sum * p.scale;
+  }
+}
+
+// Whether an edge of the causal or band mask crosses the tile pair (q
+// rows [q0, q0 + bq), kv cols [k0, k0 + bk)). Padding needs no mask in
+// the wgmma design: past Sq, b = +inf makes P 0; a kv row past Sk in Dkv
+// and a q row past Sq in Dq are never stored and feed no other row. Dq
+// masks its kv columns past Sk as well, since those would reach dQ.
+__device__ __forceinline__ bool EdgeCrosses(const Params& p, int q0, int bq,
+                                            int k0, int bk) {
+  bool need = false;
+  if (p.causal) need |= k0 + bk - 1 > q0;
+  if (p.window > 0) {
+    need |= k0 <= q0 + bq - 1 - p.window;
+    if (!p.causal) need |= k0 + bk - 1 >= q0 + p.window;
+  }
+  return need;
+}
+
+// Ping-pong of the two consumer warpgroups (FA3's, as csrc/flash_fwd.cu
+// does it): each issues a step's products only after the other has issued
+// its own, so one's elementwise work runs under the other's products
+// instead of both idling the tensor cores at once. Warpgroup w waits on
+// named barrier 1 + w; warpgroup 1 opens the ring and skips its last pass.
+__device__ __forceinline__ void TurnWait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void TurnPass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % 2) : "memory");
+}
+
+// The causal and band mask of Live() without branches: the wgmma design
+// selects P = 0 with it, so its 32 exponentials a thread stay one
+// straight run of code.
+__device__ __forceinline__ bool BandLive(const Params& p, int row, int col) {
+  bool live = !p.causal | (col <= row);
+  const bool band = p.causal ? col > row - p.window
+                             : abs(col - row) < p.window;
+  live &= (p.window <= 0) | band;
+  return live;
+}
+
+// acc = A B^T over d for a 64-row A tile and a 64-row B tile, both
+// K-major (rows of d = 64), issued, not committed.
+__device__ __forceinline__ void IssueSS(float* acc, uint32_t a, uint32_t b) {
+  sm90::WgmmaFence();
+  sm90::WgmmaSS64Init(acc, sm90::Desc(a, kRowBytes),
+                      sm90::Desc(b, kRowBytes));
+#pragma unroll
+  for (int kk = 1; kk < kD / 16; ++kk)
+    sm90::WgmmaSS64(acc, sm90::Desc(a + kk * 32, kRowBytes),
+                    sm90::Desc(b + kk * 32, kRowBytes));
+}
+
+// acc += A B for A of 64 x 64 in registers (bf16 A fragments) and B a
+// 64-row tile read MN-major (its rows are the k dimension), issued, not
+// committed.
+__device__ __forceinline__ void IssueRS(float* acc, uint32_t (*a)[4],
+                                        uint32_t b) {
+  sm90::WgmmaFence();
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk)
+    sm90::WgmmaRS64(acc, a[kk],
+                    sm90::Desc(b + kk * 16 * kRowBytes, kRowBytes));
+}
+
+// A 64 x 64 accumulator rounded to bf16 pairs: n-tiles 2kk and 2kk + 1
+// are the A fragment of k-step kk (as the forward packs P).
+__device__ __forceinline__ void PackAcc(const float* acc, uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      a[kk][x] = PackBf16(acc[8 * kk + 2 * x], acc[8 * kk + 2 * x + 1]);
+}
+
+__device__ __forceinline__ float Pick(float2 v, int odd) {
+  return odd ? v.y : v.x;
+}
+
+struct Step {
+  int first, per_head, count;  // Dkv: q tiles a head; Dq: per_head = count
+};
+
+// One thread of Dkv's producer: K and V once, then Q, dO and the
+// statistics of every step, each q head of the group over the band.
+__device__ __forceinline__ void ProduceDkv(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const Params& p, uint32_t base, int k0, int hk,
+    int b, const Step& st) {
+  const uint32_t bar = base + kBars;
+  const int halves = k0 + kStep < p.Sk ? 2 : 1;  // a box wholly past Sk
+  sm90::MbarExpectTx(bar, 2 * halves * kTileBytes);
+  for (int x = 0; x < halves; ++x) {
+    sm90::TmaLoad4d(base + kFixedA + x * kTileBytes, tk, bar, 0,
+                    k0 + x * kStep, hk, b);
+    sm90::TmaLoad4d(base + kFixedB + x * kTileBytes, tv, bar, 0,
+                    k0 + x * kStep, hk, b);
+  }
+  const int group = p.H / p.Hk;
+  for (int i = 0; i < st.count; ++i) {
+    const int s = i % kRing;
+    if (i >= kRing) sm90::MbarWait(Empty(bar, s), (i / kRing - 1) & 1);
+    const int h = hk * group + i / st.per_head;
+    const int q0 = st.first + (i % st.per_head) * kStep;
+    sm90::MbarExpectTx(Full(bar, s), 2 * kTileBytes + kStatBytes);
+    sm90::TmaLoad4d(base + kRingA + s * kTileBytes, tq, Full(bar, s), 0, q0,
+                    h, b);
+    sm90::TmaLoad4d(base + kRingB + s * kTileBytes, tdo, Full(bar, s), 0, q0,
+                    h, b);
+    sm90::BulkLoad(base + kStats + s * kStatBytes,
+                   TileStats(p, b, h, q0 / kStep), kStatBytes, Full(bar, s));
+  }
+}
+
+// One thread of Dq's producer: Q and dO once, then K and V of every live
+// kv tile.
+__device__ __forceinline__ void ProduceDq(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const Params& p, uint32_t base, int q0, int h,
+    int b, const Step& st) {
+  const uint32_t bar = base + kBars;
+  const int halves = q0 + kStep < p.Sq ? 2 : 1;  // a box wholly past Sq
+  sm90::MbarExpectTx(bar, 2 * halves * kTileBytes);
+  for (int x = 0; x < halves; ++x) {
+    sm90::TmaLoad4d(base + kFixedA + x * kTileBytes, tq, bar, 0,
+                    q0 + x * kStep, h, b);
+    sm90::TmaLoad4d(base + kFixedB + x * kTileBytes, tdo, bar, 0,
+                    q0 + x * kStep, h, b);
+  }
+  const int hk = h / (p.H / p.Hk);
+  for (int i = 0; i < st.count; ++i) {
+    const int s = i % kRing;
+    if (i >= kRing) sm90::MbarWait(Empty(bar, s), (i / kRing - 1) & 1);
+    const int k0 = st.first + i * kStep;
+    sm90::MbarExpectTx(Full(bar, s), 2 * kTileBytes);
+    sm90::TmaLoad4d(base + kRingA + s * kTileBytes, tk, Full(bar, s), 0, k0,
+                    hk, b);
+    sm90::TmaLoad4d(base + kRingB + s * kTileBytes, tv, Full(bar, s), 0, k0,
+                    hk, b);
+  }
+}
+
+// Dkv's elementwise work on one step, in place: S^T becomes P^T (f32)
+// once its product is done, then dP^T becomes dS^T (f32, before its
+// bf16 rounding). `stats` is the stage's b and delta * scale of q
+// columns [q0, q0 + 64); the thread's kv rows are row0 and row0 + 8; c2
+// = scale log2(e).
+struct DkvStep {
+  const Params& p;
+  const float* stats;
+  float c2;
+  int q0, row0, c;
+  bool masked;
+
+  template <bool kMasked>
+  __device__ __forceinline__ void ProbsAs(float* sT) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bias =
+          *reinterpret_cast<const float2*>(stats + 8 * j + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe =
+            sm90::Exp2(fmaf(sT[4 * j + e], c2, -Pick(bias, e & 1)));
+        sT[4 * j + e] =
+            !kMasked || BandLive(p, q0 + 8 * j + 2 * c + (e & 1),
+                                 row0 + 8 * (e >> 1))
+                ? pe
+                : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void Probs(float* sT) const {
+    if (masked) {
+      ProbsAs<true>(sT);
+    } else {
+      ProbsAs<false>(sT);
+    }
+  }
+
+  __device__ __forceinline__ void Grads(const float* pT, float* dpT) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(stats + kStep + 8 * j + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpT[4 * j + e] =
+            pT[4 * j + e] * fmaf(dpT[4 * j + e], p.scale, -Pick(dl, e & 1));
+    }
+  }
+};
+
+// One consumer warpgroup of Dkv: dK and dV of kv rows [k0w, k0w + 64).
+// Thread fragment (sm90.cuh), warp w, g = lane / 4, c = lane % 4: acc[4j +
+// e] is kv row k0w + 16w + g + 8(e / 2), q column q0 + 8j + 2c + (e % 2);
+// a row of S^T is a kv row, so the row statistics index the columns.
+// Step i's S^T and dP^T are issued before step i-1's dV and dK, and the
+// first step is peeled off the loop, so every wait in the loop leaves the
+// same products in flight (ptxas keeps the wgmmas asynchronous only then).
+// A half-tile wholly past Sk (left unloaded) gives rows that are never
+// stored and feed no other row.
+__device__ __forceinline__ void ConsumeDkv(const Params& p,
+                                           unsigned char* smem,
+                                           uint32_t base, int wg, int tw,
+                                           int k0, int hk, int b,
+                                           const Step& st) {
+  const int warp = tw / 32, lane = tw % 32, g = lane >> 2, c = lane & 3;
+  const int k0w = k0 + wg * kWgRows;
+  const int row0 = k0w + warp * 16 + g;
+  const uint32_t bar = base + kBars;
+  const uint32_t kw = base + kFixedA + wg * kTileBytes;
+  const uint32_t vw = base + kFixedB + wg * kTileBytes;
+  auto step = [&](int i) {
+    const int s = i % kRing, q0 = st.first + (i % st.per_head) * kStep;
+    return DkvStep{p,
+                   reinterpret_cast<const float*>(smem + kStats +
+                                                  s * kStatBytes),
+                   p.scale * kLog2e,
+                   q0,
+                   row0,
+                   c,
+                   EdgeCrosses(p, q0, kStep, k0w, kWgRows)};
+  };
+  float dk[32], dv[32], sT[32], dpT[32];
+  uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dk[x] = dv[x] = 0.f;
+
+  sm90::MbarWait(bar, 0);
+  if (st.count > 0) {
+    sm90::MbarWait(Full(bar, 0), 0);
+    if (wg == 1) TurnPass(wg);
+    TurnWait(wg);
+    IssueSS(sT, kw, base + kRingA);   // S^T = K Q^T
+    sm90::WgmmaCommit();
+    IssueSS(dpT, vw, base + kRingB);  // dP^T = V dO^T
+    sm90::WgmmaCommit();
+    TurnPass(wg);
+    const DkvStep first = step(0);
+    sm90::WgmmaWait<1>();
+    sm90::FenceRegs<32>(sT);
+    first.Probs(sT);
+    sm90::WgmmaWait<0>();
+    sm90::FenceRegs<32>(dpT);
+    first.Grads(sT, dpT);
+    PackAcc(sT, pa);
+    PackAcc(dpT, sa);
+  }
+  for (int i = 1; i < st.count; ++i) {
+    const int s = i % kRing, prev = (i - 1) % kRing;
+    sm90::MbarWait(Full(bar, s), (i / kRing) & 1);
+    TurnWait(wg);
+    IssueSS(sT, kw, base + kRingA + s * kTileBytes);
+    sm90::WgmmaCommit();
+    IssueSS(dpT, vw, base + kRingB + s * kTileBytes);
+    sm90::WgmmaCommit();
+    IssueRS(dv, pa, base + kRingB + prev * kTileBytes);  // dV += P^T dO
+    IssueRS(dk, sa, base + kRingA + prev * kTileBytes);  // dK += dS^T Q
+    sm90::WgmmaCommit();
+    TurnPass(wg);
+    const DkvStep cur = step(i);
+    sm90::WgmmaWait<2>();
+    sm90::FenceRegs<32>(sT);
+    cur.Probs(sT);
+    sm90::WgmmaWait<1>();
+    sm90::FenceRegs<32>(dpT);
+    cur.Grads(sT, dpT);
+    sm90::WgmmaWait<0>();
+    sm90::FenceRegs<32>(dv);
+    sm90::FenceRegs<32>(dk);
+    sm90::FenceRegs<16>(&pa[0][0]);
+    sm90::FenceRegs<16>(&sa[0][0]);
+    sm90::MbarArrive(Empty(bar, prev));
+    PackAcc(sT, pa);
+    PackAcc(dpT, sa);
+  }
+  if (st.count > 0) {
+    const int last = (st.count - 1) % kRing;
+    TurnWait(wg);
+    IssueRS(dv, pa, base + kRingB + last * kTileBytes);
+    IssueRS(dk, sa, base + kRingA + last * kTileBytes);
+    sm90::WgmmaCommit();
+    if (wg != 1) TurnPass(wg);
+    sm90::WgmmaWait<0>();
+    sm90::FenceRegs<32>(dv);
+    sm90::FenceRegs<32>(dk);
+    sm90::MbarArrive(Empty(bar, last));
+  }
+
+  __nv_bfloat16* dkg = OutBase<__nv_bfloat16>(p, p.dk, kDk, b, hk);
+  __nv_bfloat16* dvg = OutBase<__nv_bfloat16>(p, p.dv, kDv, b, hk);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      *reinterpret_cast<uint32_t*>(dkg + row * p.st[kDk][2] + col) =
+          PackBf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dvg + row * p.st[kDv][2] + col) =
+          PackBf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Dq's elementwise work on one step, in place: S becomes P (f32), then
+// dP becomes dS (f32). The thread's q rows are row0 and row0 + 8, with
+// their b and delta * scale; kv columns [k0, k0 + 64); c2 = scale
+// log2(e).
+struct DqStep {
+  const Params& p;
+  float br[2], dlr[2];
+  float c2;
+  int k0, row0, c;
+  bool masked;
+
+  template <bool kMasked>
+  __device__ __forceinline__ void ProbsAs(float* sc) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pe = sm90::Exp2(fmaf(sc[4 * j + e], c2, -br[r]));
+        const int col = k0 + 8 * j + 2 * c + (e & 1);
+        sc[4 * j + e] =
+            !kMasked || ((col < p.Sk) & BandLive(p, row0 + 8 * r, col))
+                ? pe
+                : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void Probs(float* sc) const {
+    if (masked) {
+      ProbsAs<true>(sc);
+    } else {
+      ProbsAs<false>(sc);
+    }
+  }
+
+  __device__ __forceinline__ void Grads(const float* pr, float* dp) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] =
+            pr[4 * j + e] * fmaf(dp[4 * j + e], p.scale, -dlr[e >> 1]);
+  }
+};
+
+// One consumer warpgroup of Dq: dQ of q rows [q0w, q0w + 64). acc[4j + e]
+// is q row q0w + 16w + g + 8(e / 2), kv column k0 + 8j + 2c + (e % 2).
+// The loop is ConsumeDkv's: step i's S and dP before step i-1's dQ, the
+// first step peeled off. A half-tile wholly past Sq (left unloaded) gives
+// rows that are never stored and feed no other row.
+__device__ __forceinline__ void ConsumeDq(const Params& p, uint32_t base,
+                                          int wg, int tw, int q0, int h,
+                                          int b, const Step& st) {
+  const int warp = tw / 32, lane = tw % 32, g = lane >> 2, c = lane & 3;
+  const int q0w = q0 + wg * kWgRows;
+  const int row0 = q0w + warp * 16 + g;
+  const uint32_t bar = base + kBars;
+  const uint32_t qw = base + kFixedA + wg * kTileBytes;
+  const uint32_t dow = base + kFixedB + wg * kTileBytes;
+
+  float br[2], dlr[2];  // this thread's rows, row0 and row0 + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const bool in = row < p.Sq;
+    const float* t = TileStats(p, b, h, in ? row / kStep : 0) + row % kStep;
+    br[r] = in ? t[0] : INFINITY;
+    dlr[r] = in ? t[kStep] : 0.f;
+  }
+  auto step = [&](int i) {
+    const int k0 = st.first + i * kStep;
+    return DqStep{p,
+                  {br[0], br[1]},
+                  {dlr[0], dlr[1]},
+                  p.scale * kLog2e,
+                  k0,
+                  row0,
+                  c,
+                  k0 + kStep > p.Sk ||
+                      EdgeCrosses(p, q0w, kWgRows, k0, kStep)};
+  };
+  float dq[32], sc[32], dp[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dq[x] = 0.f;
+
+  sm90::MbarWait(bar, 0);
+  if (st.count > 0) {
+    sm90::MbarWait(Full(bar, 0), 0);
+    if (wg == 1) TurnPass(wg);
+    TurnWait(wg);
+    IssueSS(sc, qw, base + kRingA);   // S = Q K^T
+    sm90::WgmmaCommit();
+    IssueSS(dp, dow, base + kRingB);  // dP = dO V^T
+    sm90::WgmmaCommit();
+    TurnPass(wg);
+    const DqStep first = step(0);
+    sm90::WgmmaWait<1>();
+    sm90::FenceRegs<32>(sc);
+    first.Probs(sc);
+    sm90::WgmmaWait<0>();
+    sm90::FenceRegs<32>(dp);
+    first.Grads(sc, dp);
+    PackAcc(dp, da);
+  }
+  for (int i = 1; i < st.count; ++i) {
+    const int s = i % kRing, prev = (i - 1) % kRing;
+    sm90::MbarWait(Full(bar, s), (i / kRing) & 1);
+    TurnWait(wg);
+    IssueSS(sc, qw, base + kRingA + s * kTileBytes);
+    sm90::WgmmaCommit();
+    IssueSS(dp, dow, base + kRingB + s * kTileBytes);
+    sm90::WgmmaCommit();
+    IssueRS(dq, da, base + kRingA + prev * kTileBytes);  // dQ += dS K
+    sm90::WgmmaCommit();
+    TurnPass(wg);
+    const DqStep cur = step(i);
+    sm90::WgmmaWait<2>();
+    sm90::FenceRegs<32>(sc);
+    cur.Probs(sc);
+    sm90::WgmmaWait<1>();
+    sm90::FenceRegs<32>(dp);
+    cur.Grads(sc, dp);
+    sm90::WgmmaWait<0>();
+    sm90::FenceRegs<32>(dq);
+    sm90::FenceRegs<16>(&da[0][0]);
+    sm90::MbarArrive(Empty(bar, prev));
+    PackAcc(dp, da);
+  }
+  if (st.count > 0) {
+    const int last = (st.count - 1) % kRing;
+    TurnWait(wg);
+    IssueRS(dq, da, base + kRingA + last * kTileBytes);
+    sm90::WgmmaCommit();
+    if (wg != 1) TurnPass(wg);
+    sm90::WgmmaWait<0>();
+    sm90::FenceRegs<32>(dq);
+    sm90::MbarArrive(Empty(bar, last));
+  }
+
+  __nv_bfloat16* dqg = OutBase<__nv_bfloat16>(p, p.dq, kDq, b, h);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(dqg + row * p.st[kDq][2] + 8 * j + 2 * c) =
+          PackBf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+  }
+}
+
+// The barriers of a block: fixed-full and full[] take one arrival (the
+// producer's, with its bytes), empty[] one from each consumer thread.
+__device__ __forceinline__ void InitBars(uint32_t bar) {
+  sm90::MbarInit(bar, 1);
+  for (int s = 0; s < kRing; ++s) {
+    sm90::MbarInit(Full(bar, s), 1);
+    sm90::MbarInit(Empty(bar, s), 256);
+  }
+  sm90::FenceBarrierInit();
+}
+
+// dK and dV of 128 kv rows of one (batch, kv head).
+__global__ void __launch_bounds__(kThreadsW, 1)
+    DkvWgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo, const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = sm90::SmemAddr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const int k0 = blockIdx.x * kBlockRows, hk = blockIdx.y, b = blockIdx.z;
+  int lo, hi;
+  QRange(p, k0, kBlockRows, &lo, &hi);
+  Step st;
+  st.first = (lo / kStep) * kStep;
+  st.per_head = hi > st.first ? (hi - st.first + kStep - 1) / kStep : 0;
+  st.count = st.per_head * (p.H / p.Hk);
+  if (threadIdx.x == 0) InitBars(base + kBars);
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    sm90::SetMaxRegsDec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      ProduceDkv(&tq, &tk, &tv, &tdo, p, base, k0, hk, b, st);
+  } else {
+    sm90::SetMaxRegsInc<kConsumerRegs>();
+    ConsumeDkv(p, smem, base, threadIdx.x / 128 - 1, threadIdx.x % 128, k0,
+               hk, b, st);
+  }
+}
+
+// dQ of 128 q rows of one (batch, head).
+__global__ void __launch_bounds__(kThreadsW, 1)
+    DqWgmma(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo, const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (sm90::SmemAddr(smem_raw) + 1023) & ~1023u;
+  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  int lo, hi;
+  KvRange(p, q0, kBlockRows, &lo, &hi);
+  Step st;
+  st.first = (lo / kStep) * kStep;
+  st.count = hi > st.first ? (hi - st.first + kStep - 1) / kStep : 0;
+  st.per_head = st.count;
+  if (threadIdx.x == 0) InitBars(base + kBars);
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    sm90::SetMaxRegsDec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      ProduceDq(&tq, &tk, &tv, &tdo, p, base, q0, h, b, st);
+  } else {
+    sm90::SetMaxRegsInc<kConsumerRegs>();
+    ConsumeDq(p, base, threadIdx.x / 128 - 1, threadIdx.x % 128, q0, h, b,
+              st);
+  }
+}
+
+template <typename Kernel>
+cudaError_t LaunchWgmmaKernel(Kernel kernel, dim3 grid,
+                              const CUtensorMap* maps, const Params& p,
+                              cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemW);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreadsW, kSmemW, stream>>>(maps[0], maps[1], maps[2],
+                                               maps[3], p);
+  return cudaGetLastError();
+}
+
+// DeltaTiles, Dkv and Dq of the wgmma design (bf16, d = 64).
+cudaError_t LaunchWgmma(const Params& p, cudaStream_t s) {
+  CUtensorMap maps[4];  // q, k, v, dO in 64-row boxes
+  if (!sm90::EncodeMap(&maps[0], p.q, kD, p.Sq, p.H, p.B, p.st[kQ][0],
+                       p.st[kQ][1], p.st[kQ][2], kStep, kD) ||
+      !sm90::EncodeMap(&maps[1], p.k, kD, p.Sk, p.Hk, p.B, p.st[kK][0],
+                       p.st[kK][1], p.st[kK][2], kStep, kD) ||
+      !sm90::EncodeMap(&maps[2], p.v, kD, p.Sk, p.Hk, p.B, p.st[kV][0],
+                       p.st[kV][1], p.st[kV][2], kStep, kD) ||
+      !sm90::EncodeMap(&maps[3], p.dout, kD, p.Sq, p.H, p.B, p.st[kDo][0],
+                       p.st[kDo][1], p.st[kDo][2], kStep, kD))
+    return cudaErrorInvalidValue;
+  const long long rows = static_cast<long long>(p.B) * p.H * p.tiles * kStep;
+  cudaError_t err = Launch(DeltaTiles, 0,
+                           dim3(static_cast<unsigned>((rows + 15) / 16)), p, s);
+  if (err != cudaSuccess) return err;
+  // (tiles, heads, batch), as the forward's grid.
+  const dim3 dkv((p.Sk + kBlockRows - 1) / kBlockRows, p.Hk, p.B);
+  const dim3 dq((p.Sq + kBlockRows - 1) / kBlockRows, p.H, p.B);
+  err = LaunchWgmmaKernel(DkvWgmma, dkv, maps, p, s);
+  if (err != cudaSuccess) return err;
+  return LaunchWgmmaKernel(DqWgmma, dq, maps, p, s);
+}
+
+// --------------------------------------------------------------- dispatch
+
+// The design that serves (dtype, d): 0 "wgmma", 1 "mma_sync", 2 "f32",
+// or -1 for a pair no kernel takes.
+int Design(int dtype, int d) {
+  if (d != 32 && d != 64 && d != 128) return -1;
+  if (dtype == 0) return d == kD ? 0 : 1;
+  return dtype == 1 ? 2 : -1;
+}
+
+// Delta, Dkv and Dq of the mma.sync (bf16) or FMA (f32) design.
 template <typename T, int D>
 cudaError_t LaunchAll(const Params& p, cudaStream_t s) {
   const long long rows = static_cast<long long>(p.B) * p.H * p.Sq;
@@ -830,31 +1543,44 @@ cudaError_t ByHeadDim(int d, const Params& p, cudaStream_t s) {
 
 // dtype: 0 bf16, 1 f32. d: 32, 64 or 128. `strides` holds 24 values in
 // elements: the (batch, head, seq) strides of q, k, v, o, dout, dq, dk and
-// dv in that order; the last dimension of each is contiguous. l, m and
-// delta and linv are [B, H, Sq] f32, contiguous; delta and linv are scratch
-// the call fills.
+// dv in that order; the last dimension of each is contiguous. l and m are
+// [B, H, Sq] f32, contiguous. `scratch` holds 2 * B * H * ceil(Sq / 64) *
+// 64 floats, which the call fills (delta and l_inv, or the wgmma design's
+// tiled statistics).
 // Every output element is written. Returns a cudaError_t (0 on success,
-// cudaErrorInvalidValue for a head dim or dtype the kernels do not take).
+// cudaErrorInvalidValue for a head dim or dtype the kernels do not take,
+// or for bf16 strides that TMA cannot describe).
 extern "C" int ts_flash_bwd(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const float* l,
-                            const float* m, float* delta, float* linv,
-                            void* dq, void* dk, void* dv, int dtype, int B,
-                            int H, int Hk, int Sq, int Sk, int d,
-                            const long long* strides,
-                            float scale, int causal, int window,
-                            void* stream) {
+                            const float* m, float* scratch, void* dq,
+                            void* dk, void* dv, int dtype, int B, int H,
+                            int Hk, int Sq, int Sk, int d,
+                            const long long* strides, float scale,
+                            int causal, int window, void* stream) {
   Params p{};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
-  p.l = l; p.m = m; p.delta = delta; p.linv = linv;
+  p.l = l; p.m = m;
+  p.delta = scratch;
+  p.linv = scratch + static_cast<long long>(B) * H * Sq;
+  p.stats = scratch;
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.B = B; p.H = H; p.Hk = Hk; p.Sq = Sq; p.Sk = Sk;
+  p.tiles = (Sq + kStep - 1) / kStep;
   for (int i = 0; i < kTensors; ++i)
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
   p.scale = scale;
   p.causal = causal;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(ByHeadDim<__nv_bfloat16>(d, p, s));
-  if (dtype == 1) return static_cast<int>(ByHeadDim<float>(d, p, s));
+  switch (Design(dtype, d)) {
+    case 0: return static_cast<int>(LaunchWgmma(p, s));
+    case 1: return static_cast<int>(ByHeadDim<__nv_bfloat16>(d, p, s));
+    case 2: return static_cast<int>(ByHeadDim<float>(d, p, s));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The design ts_flash_bwd launches for (dtype, d), as Design() above.
+extern "C" int ts_flash_bwd_design(int dtype, int d) {
+  return Design(dtype, d);
 }

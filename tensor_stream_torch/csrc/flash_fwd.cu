@@ -478,75 +478,16 @@ __global__ void __launch_bounds__(TileCfg<D>::kThreads, 1)
   }
 }
 
-// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime,
-// so the library links no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled Encoder() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 [B, heads, S, d] tensor with element strides (sb, sh, ss) as the
-// 4-D map (d, S, heads, B), in boxes of `rows` rows by `cols` columns.
-bool EncodeMap(CUtensorMap* map, const void* ptr, int d, int s, int heads,
-               int batch, long long sb, long long sh, long long ss, int rows,
-               int cols) {
-  const EncodeTiled encode = Encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
-                           static_cast<cuuint64_t>(sh) * 2,
-                           static_cast<cuuint64_t>(sb) * 2};
-  // A dimension of extent 1 is never stepped over: give it a stride the
-  // map accepts whatever the caller's was.
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i + 1] == 1)
-      strides[i] = i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i];
-  }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
-                             static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t LaunchBf16(const Params& p, cudaStream_t stream) {
   using C = TileCfg<D>;
   CUtensorMap tq, tk, tv;
-  if (!EncodeMap(&tq, p.q, D, p.Sq, p.H, p.B, p.qsb, p.qsh, p.qss, C::kBq,
-                 C::kCols) ||
-      !EncodeMap(&tk, p.k, D, p.Sk, p.Hk, p.B, p.ksb, p.ksh, p.kss, kBk,
-                 C::kCols) ||
-      !EncodeMap(&tv, p.v, D, p.Sk, p.Hk, p.B, p.vsb, p.vsh, p.vss, kBk,
-                 C::kCols))
+  if (!sm90::EncodeMap(&tq, p.q, D, p.Sq, p.H, p.B, p.qsb, p.qsh, p.qss,
+                       C::kBq, C::kCols) ||
+      !sm90::EncodeMap(&tk, p.k, D, p.Sk, p.Hk, p.B, p.ksb, p.ksh, p.kss,
+                       kBk, C::kCols) ||
+      !sm90::EncodeMap(&tv, p.v, D, p.Sk, p.Hk, p.B, p.vsb, p.vsh, p.vss,
+                       kBk, C::kCols))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       FlashFwdBf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);

@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
 // loads, 1-D bulk copies, wgmma shared-memory descriptors and the wgmma
-// shapes the flash kernel issues. Each wrapper is one or a few PTX
+// shapes the flash kernels issue. Each wrapper is one or a few PTX
 // instructions; the PTX ISA's sections on mbarrier, cp.async.bulk,
-// cp.async.bulk.tensor and wgmma.mma_async define what they do.
+// cp.async.bulk.tensor and wgmma.mma_async define what they do. On the
+// host side, EncodeMap builds the TMA tensor map of a [B, heads, S, d]
+// bf16 tensor.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -205,6 +208,55 @@ __device__ __forceinline__ void WgmmaSS128(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory;
+// the accumulator fragment as WgmmaSS128's, 8 columns fewer a j.
+__device__ __forceinline__ void WgmmaSS64(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] = A[64 x 16] B[16 x 64], as WgmmaSS64 with scale-d false,
+// its registers outputs only. It is the first k-step of a product whose
+// accumulator is not carried over, so the compiler sees no use of the
+// old value (with "+f" it may copy the registers between the wgmmas of a
+// loop, which makes ptxas serialize them).
+__device__ __forceinline__ void WgmmaSS64Init(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the mma.sync
 // m16n8k16 A fragment of warp w's 16 rows: a0 (row g, k 2c..2c+1),
 // a1 (g+8, 2c..), a2 (g, 2c+8..), a3 (g+8, 2c+8..)), B MN-major in shared
@@ -243,6 +295,69 @@ __device__ __forceinline__ void WgmmaRS32(float* d, const uint32_t* a,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------------ host side
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime,
+// so a library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled Encoder() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 [B, heads, S, d] tensor with element strides (sb, sh, ss) as the
+// 4-D map (d, S, heads, B), in boxes of `rows` rows by `cols` columns
+// with the 128-byte swizzle (64-byte where a box row is 64 bytes).
+// Elements of a box past S read as zeros.
+inline bool EncodeMap(CUtensorMap* map, const void* ptr, int d, int s,
+                      int heads, int batch, long long sb, long long sh,
+                      long long ss, int rows, int cols) {
+  const EncodeTiled encode = Encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                           static_cast<cuuint64_t>(sh) * 2,
+                           static_cast<cuuint64_t>(sb) * 2};
+  // A dimension of extent 1 is never stepped over: give it a stride the
+  // map accepts whatever the caller's was.
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1)
+      strides[i] = i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i];
+  }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

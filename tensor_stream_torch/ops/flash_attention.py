@@ -17,7 +17,10 @@ its mode's entry of ``launches_by_mode``: "band" with a window (the mode
 that serves ``_band_kernel``), else "causal" or "full"; a forward launched
 while a checkpointed block is recomputed (``recomputing()``) also adds one
 to ``recompute_launches``. Each backward launch adds one to
-``bwd_launches``.
+``bwd_launches`` and to its design's entry of ``bwd_launches_by_design``:
+"wgmma" (bf16 at d = 64: TMA and warp-specialised wgmma), "mma_sync"
+(bf16 at d = 32 and 128) or "f32" (FMAs), as the library's
+``ts_flash_bwd_design`` names the kernels it launches.
 
 ``flash_attention`` is differentiable: with grad enabled and an input that
 requires grad it runs through ``_FlashAttention``, whose forward keeps the
@@ -38,17 +41,21 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 MODES = ("full", "causal", "band")
+BWD_DESIGNS = ("wgmma", "mma_sync", "f32")
+BWD_TILE = 64  # rows of the backward's q tiles, whose statistics it pads
 
 launches = 0
 launches_by_mode = dict.fromkeys(MODES, 0)
 recompute_launches = 0
 bwd_launches = 0
+bwd_launches_by_design = dict.fromkeys(BWD_DESIGNS, 0)
 # dO copies the backward made because autograd handed it a layout the
 # kernel cannot read (a non-contiguous last dim or unaligned strides).
 dout_copies = 0
 
 _FN = None
 _BWD_FN = None
+_BWD_DESIGN_FN = None
 _RECOMPUTING = False
 
 
@@ -57,6 +64,8 @@ def reset_counts():
     launches = recompute_launches = bwd_launches = dout_copies = 0
     for mode in MODES:
         launches_by_mode[mode] = 0
+    for design in BWD_DESIGNS:
+        bwd_launches_by_design[design] = 0
 
 
 @contextlib.contextmanager
@@ -86,14 +95,17 @@ def _kernel():
 
 
 def _bwd_kernel():
-    global _BWD_FN
+    global _BWD_FN, _BWD_DESIGN_FN
     if _BWD_FN is None:
         lib = _build.load("flash_bwd")
         v, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.ts_flash_bwd
         fn.restype = i
-        fn.argtypes = [v] * 12 + [i] * 7 + [v, ctypes.c_float, i, i, v]
-        _BWD_FN = fn
+        fn.argtypes = [v] * 11 + [i] * 7 + [v, ctypes.c_float, i, i, v]
+        design = lib.ts_flash_bwd_design
+        design.restype = i
+        design.argtypes = [i, i]
+        _BWD_FN, _BWD_DESIGN_FN = fn, design
     return _BWD_FN
 
 
@@ -291,14 +303,17 @@ def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta, linv = torch.empty((2, b, h, sq), dtype=torch.float32,
-                              device=q.device)
+    # delta and l_inv, or the wgmma design's per-row bias and delta in
+    # blocks of BWD_TILE rows: the C entry's `scratch`.
+    tiles = -(-sq // BWD_TILE)
+    scratch = torch.empty(2 * b * h * tiles * BWD_TILE, dtype=torch.float32,
+                          device=q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*[st for t in tensors
                                          for st in t.stride()[:3]])
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
-        rc = fn(*[t.data_ptr() for t in (q, k, v, o, do, l, m, delta, linv,
+        rc = fn(*[t.data_ptr() for t in (q, k, v, o, do, l, m, scratch,
                                          dq, dk, dv)],
                 _DTYPES[q.dtype], b, h, hk, sq, sk, d, strides, sm_scale,
                 int(bool(causal)), window or 0,
@@ -307,6 +322,8 @@ def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
         raise RuntimeError(f"ts_flash_bwd launch failed: cudaError {rc}")
     global bwd_launches
     bwd_launches += 1
+    bwd_launches_by_design[BWD_DESIGNS[_BWD_DESIGN_FN(_DTYPES[q.dtype],
+                                                      d)]] += 1
     return dq, dk, dv
 
 
@@ -384,8 +401,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``block_q``/``block_k`` choose the TPU kernel's tiles in the JAX
     package and are accepted for the same signature; the CUDA kernels'
     tiles are fixed: forward bf16 192 q rows x 128 kv at d <= 64 and
-    128 x 128 at d = 128 (TMA and wgmma), f32 32 x 32; backward bf16 64 x
-    64 (mma.sync), f32 32 x 32."""
+    128 x 128 at d = 128 (TMA and wgmma), f32 32 x 32; backward bf16 128
+    rows a block against 64-row steps at d = 64 (TMA and wgmma), 64 x 64
+    at d = 32 and 128 (mma.sync), f32 32 x 32."""
     sm_scale, window = _check(q, k, v, causal, window, sm_scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, sm_scale, impl)

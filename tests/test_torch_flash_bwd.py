@@ -21,6 +21,7 @@ import torch
 
 import chip_smoke
 from tensor_stream_tpu.ops import flash_attention as jfa
+from test_torch_flash import _swizzle_fault
 from tensor_stream_torch.ops import flash_attention as fa
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -226,14 +227,86 @@ def _card_like_inputs(dtype):
     return q, k, v, do
 
 
+def _wgmma_fault_bwd(q, k, v, o, l, m, do, fault):
+    """flash_attention_bwd_plain's arithmetic with one fault the wgmma
+    design (csrc/flash_bwd.cu) could make: "swizzled_q" and "swizzled_do"
+    read Q (in S and dK) or dO (in dP and dV) as a wgmma descriptor
+    without TMA's 128-byte swizzle would (_swizzle_fault: one 128-byte
+    row at d = 64), with delta from the true dO as DeltaTiles reads it;
+    "ds_f32" leaves dS in f32 for dQ and dK; "stats_transposed" takes m,
+    l_inv and delta at the kv index, where Dkv, whose S^T has kv rows,
+    must take them at the q index (needs Sq == Sk)."""
+    scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    qs = _swizzle_fault(q) if fault == "swizzled_q" else q
+    dos = (_swizzle_fault(do) if fault == "swizzled_do" else do).float()
+    s = torch.matmul(qs.float(), kf.transpose(-1, -2)) * scale
+    l_inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    at = (lambda x: x[..., None, :]) if fault == "stats_transposed" else (
+        lambda x: x[..., None])
+    p = torch.exp(s - at(m)) * at(l_inv)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dos)
+    dp = torch.matmul(dos, vf.transpose(-1, -2))
+    ds = p * (dp - at(delta)) * scale
+    if fault != "ds_f32":
+        ds = ds.to(dt).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    return (dq.to(dt), dk.view(b, hk, g, sk, d).sum(dim=2).to(dt),
+            dv.view(b, hk, g, sk, d).sum(dim=2).to(dt))
+
+
+# The rows of _card_like_inputs that "tail_p" takes as Sq: the last 64-row
+# q tile holds 32 of them.
+TAIL_SQ = 160
+
+
+def _tail_p_bwd(q, k, v, do):
+    """The fault "tail_p": the last partial q tile's rows past Sq (=
+    TAIL_SQ) are not zero-filled (the tile reads on into the rows after
+    the head's last, as a map over the flattened heads would) and their P
+    is not zeroed, so they reach dK and dV."""
+    o, l, m = fa.flash_attention_fwd(q, k, v)
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, o, l, m, do)
+    return dq[:, :, :TAIL_SQ], dk, dv
+
+
+# The checks of chip_smoke.bwd_rule that each fault must fail, by dtype;
+# in f32 dS has no cast to leave out.
+FAULT_FAILS = {
+    "no_delta": {"dq_rel", "dk_rel"},
+    "one_head": {"dk_rel", "dv_rel"},
+    "swizzled_q": {"dq_rel", "dk_rel", "dv_rel"},
+    "swizzled_do": {"dq_rel", "dk_rel", "dv_rel"},
+    "ds_f32": {torch.bfloat16: {"dk_cast"}, torch.float32: set()},
+    "stats_transposed": {"dq_rel", "dk_rel", "dv_rel"},
+    "tail_p": {"dk_rel", "dv_rel"},
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("fault", [None, "no_delta", "one_head"])
+@pytest.mark.parametrize("fault", [None, "no_delta", "one_head",
+                                   "swizzled_q", "swizzled_do", "ds_f32",
+                                   "stats_transposed", "tail_p"])
 def test_smoke_bwd_rule_sees_faults(fault, dtype):
     """chip_smoke.bwd_rule passes the plain backward with its dQ summed
     over two kv halves (another rounding, as a tiled kernel's) and fails a
-    backward that drops delta or a head of each GQA group."""
+    backward that drops delta or a head of each GQA group, and each fault
+    of the wgmma design: Q or dO read without the swizzle, dS left in f32
+    (bf16 only: f32 has no cast, so it must pass), the row statistics at
+    the transposed index, the last partial q tile's rows past Sq reaching
+    dK and dV. Inputs of std 2 for q and k, so m varies along a row."""
     q, k, v, do = _card_like_inputs(dtype)
+    if fault == "tail_p":
+        got = _tail_p_bwd(q, k, v, do)
+        q, do = q[:, :, :TAIL_SQ], do[:, :, :TAIL_SQ]
     o, l, m = fa.flash_attention_fwd(q, k, v)
     want = fa.flash_attention_bwd_plain(q, k, v, o, l, m, do)
     if fault is None:
@@ -241,9 +314,51 @@ def test_smoke_bwd_rule_sees_faults(fault, dtype):
         checks, errs = chip_smoke.bwd_rule(got, want)
         assert all(checks.values()), errs
         return
-    got = _broken_bwd(q, k, v, o, l, m, do, fault)
+    if fault in ("no_delta", "one_head"):
+        got = _broken_bwd(q, k, v, o, l, m, do, fault)
+    elif fault != "tail_p":
+        got = _wgmma_fault_bwd(q, k, v, o, l, m, do, fault)
     checks, errs = chip_smoke.bwd_rule(got, want)
     failed = {c for c, passed in checks.items() if not passed}
-    want_failed = {"no_delta": {"dq_rel", "dk_rel"},
-                   "one_head": {"dk_rel", "dv_rel"}}[fault]
+    want_failed = FAULT_FAILS[fault]
+    if isinstance(want_failed, dict):
+        want_failed = want_failed[dtype]
+        if not want_failed:
+            assert not failed, errs
     assert want_failed <= failed, errs
+
+
+def test_wgmma_fault_bwd_without_a_fault_is_the_plain_backward():
+    """The fault emulation's arithmetic is flash_attention_bwd_plain's,
+    bit for bit, when no fault is switched on."""
+    q, k, v, do = _card_like_inputs(torch.bfloat16)
+    o, l, m = fa.flash_attention_fwd(q, k, v)
+    got = _wgmma_fault_bwd(q, k, v, o, l, m, do, None)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, l, m, do)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 64)],
+                         ids=["bf16_d64", "bf16_d32", "f32_d64"])
+def test_bwd_design_counts_stay_zero_on_the_cpu(dtype, d):
+    """On CPU tensors the backward runs its plain version, directly and
+    through autograd, and no design's launch count moves; the counts name
+    the three designs and reset_counts zeroes them."""
+    fa.reset_counts()
+    assert fa.bwd_launches_by_design == dict.fromkeys(
+        ("wgmma", "mma_sync", "f32"), 0)
+    q, k, v, do = [torch.from_numpy(a).to(dtype)
+                   for a in make(1, 2, 1, 40, 40, d, seed=d)]
+    o, l, m = fa.flash_attention_fwd(q, k, v)
+    fa.flash_attention_bwd(q, k, v, o, l, m, do)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True).backward(do)
+    assert all(t.grad is not None for t in leaves)
+    assert fa.bwd_launches == 0
+    assert set(fa.bwd_launches_by_design.values()) == {0}
+    fa.bwd_launches_by_design["wgmma"] = 3
+    fa.reset_counts()
+    assert set(fa.bwd_launches_by_design.values()) == {0}

@@ -3,6 +3,7 @@ JAX package's enums, device selection, the kernel wrapper's CPU dispatch
 and the build settings of its CUDA sources."""
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -161,6 +162,30 @@ def test_build_staleness_follows_included_headers(tmp_path, monkeypatch):
 def test_flash_source_includes_its_hopper_header():
     assert os.path.join(_build.SRC_DIR, "sm90.cuh") in _build.sources_of(
         "flash_fwd")
+
+
+def test_flash_bwd_rebuilds_when_its_hopper_header_changes(tmp_path,
+                                                           monkeypatch):
+    """flash_bwd.cu includes csrc/sm90.cuh (its wgmma and TMA wrappers):
+    a library built after both is fresh, and stale again once the header
+    is newer, whatever the time of the other sources."""
+    src, out = tmp_path / "csrc", tmp_path / "build"
+    shutil.copytree(_build.SRC_DIR, src)
+    out.mkdir()
+    monkeypatch.setattr(_build, "SRC_DIR", str(src))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(out))
+    assert os.path.join(str(src), "sm90.cuh") in _build.sources_of(
+        "flash_bwd")
+    lib = out / "libflash_bwd.so"
+    lib.write_text("")
+    for f in os.listdir(src):
+        os.utime(src / f, (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert not _build._stale("flash_bwd")
+    os.utime(src / "nv12_rgb.cu", (3000, 3000))
+    assert not _build._stale("flash_bwd")  # not included
+    os.utime(src / "sm90.cuh", (3000, 3000))
+    assert _build._stale("flash_bwd")
 
 
 def test_crc_matches_jax_copy():
