@@ -15,17 +15,31 @@ kernels:
   StreamInferencer, one 16-frame clip a stream a tick, into a VideoViT at
   ViT-B width (dim 768, depth 12, 12 heads, patch 16, tubelet 2, joint
   space-time attention over 1568 tokens, bf16) whose every attention runs
-  the flash_fwd kernel;
+  the flash_fwd kernel: eagerly, through cuda_graph, and fused
+  (pipeline="fused": a SyntheticPool's VPP and the model one CUDA graph a
+  tick), the graphed logits bit-equal to the eager ones at every tick;
+* pooled: bench.py::bench_serving's configuration (two streams, 8 frames
+  of 224² RGB merged u8 a stream a tick, inflight 2, the mean model)
+  per-stream, pooled and fused, frames and means bit-equal to the
+  per-stream engine's, one NV12 launch a pooled tick;
 * streaming: the same two streams, one tubelet of 2 frames a stream a
   tick, through StreamInferencer(carry=...) into stream_step, the causal
   VideoViT of bench.py's stateful serving benchmark (dim 384, depth 4, 6
-  heads, MHA and GQA with 2 kv heads, a ring KV cache of 16 steps), held
-  against its windowed causal batch twin, whose spatial and temporal
-  attention run the flash_fwd kernel in its full and band modes;
+  heads, MHA and GQA with 2 kv heads, a ring KV cache of 16 steps),
+  eagerly and through cuda_graph(..., carry=True), bit-equal at every
+  tick past the ring's wrap, and held against its windowed causal batch
+  twin, whose spatial and temporal attention run the flash_fwd kernel in
+  its full and band modes;
 * training: bench.py's joint training configurations (ViT-B width, 16
   frames, B=4 at 224² and B=1 at 448² with remat) through init_vit and
   make_vit_train_step with SGD, flash and materialized attention, every
-  flash attention's gradient from the flash_bwd kernel.
+  flash attention's gradient from the flash_bwd kernel; the step replayed
+  as a CUDA graph, bit-equal to the eager step in every loss and
+  parameter.
+
+A graph replay adds to the kernels' launch counts what its capture
+recorded (tensor_stream_torch/graphs.py), so every path's counts stay
+checkable under replay.
 
 Prints one JSON object per phase, then the "kernels" line, then the
 card's name and power limit as nvidia-smi gives them, and last
@@ -35,7 +49,9 @@ line. Needs one CUDA device; imports nothing of JAX.
 Where the machine cannot build the native decoder (libtsingest.so needs
 FFmpeg's development libraries), the main-path phase says so on a line
 of its own and drives the same FrameLoader staging, copy, event rotation
-and batched VPP from seeded NV12 frames of the same shape instead.
+and batched VPP from seeded NV12 frames of the same shape instead; the
+serving paths always run on seeded NV12 (SyntheticFrameLoader,
+SyntheticPool).
 
 To time another checkout's kernels against this one's on the same card
 (for example the parent commit, unpacked with git archive into dist/),
@@ -45,20 +61,24 @@ in alternating processes:
     python3 -c "import chip_smoke as c; c.flash_ab('dist/parent')"
     python3 -c "import chip_smoke as c; c.flash_bwd_ab('dist/parent')"
 """
+import contextlib
 import inspect
 import json
 import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from tensor_stream_torch import _build, _native
-from tensor_stream_torch.data import FrameLoader, MultiStreamLoader
+from tensor_stream_torch import _build, _native, serving
+from tensor_stream_torch.data import (FrameLoader, MultiStreamLoader,
+                                      PooledStreamLoader)
 from tensor_stream_torch.enums import FourCC, FrameRate, Planes
+from tensor_stream_torch.graphs import CudaGraph, cuda_graph
 from tensor_stream_torch.models import (VideoViT, clone_cache,
                                         init_stream_cache, init_vit,
                                         make_vit_train_step, stream_step)
@@ -103,7 +123,7 @@ VIT = dict(num_classes=1000, depth=12, dim=768, num_heads=12, patch=16,
 STREAMS = 2
 CLIP = 16
 WARMUP_TICKS = 2
-TIMED_TICKS = 8
+TIMED_TICKS = 24
 FLASH_HEADLINE = (2, 12, 1568, 64)  # B, H, S = 8*196 tokens, d
 # Kernel against plain, as tests/test_flash_attention.py on the CPU: bf16
 # outputs quantize to 8 mantissa bits and the two round P at different
@@ -256,6 +276,13 @@ def phase_kernel_vs_plain(device):
     return worst
 
 
+def seeded_frames(seed, h, w, count):
+    """`count` seeded NV12 frames: Y [count, h, w] and UV [count, h/2, w]."""
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, 256, (count, h, w), np.uint8)
+    return ys, rng.integers(0, 256, (count, h // 2, w), np.uint8)
+
+
 class SyntheticFrameLoader(FrameLoader):
     """The FrameLoader with its native drain replaced by seeded NV12
     frames: the same pinned staging pool, one non_blocking copy per
@@ -277,10 +304,7 @@ class SyntheticFrameLoader(FrameLoader):
         self._next_index = 1
         self._cfg = cfg
         self._w, self._h = cfg.src_width, cfg.src_height
-        rng = np.random.default_rng(seed)
-        self._ys = rng.integers(0, 256, (self.POOL, self._h, self._w), np.uint8)
-        self._uvs = rng.integers(0, 256, (self.POOL, self._h // 2, self._w),
-                                 np.uint8)
+        self._ys, self._uvs = seeded_frames(seed, self._h, self._w, self.POOL)
         self._total = total
         self._cursor = 0
         self._start_common()
@@ -817,16 +841,85 @@ def phase_flash_bwd_vs_plain():
     return worst
 
 
+STREAM_SEED = 31  # stream k of every synthetic source draws seed 31 + k
+
+
 class SyntheticStreams(MultiStreamLoader):
     """MultiStreamLoader over SyntheticFrameLoaders: the card's machine
     has no FFmpeg, so each stream is seeded NV12 frames through the same
-    FrameLoader staging, copy and VPP (merged RGB f32, normalized)."""
+    FrameLoader staging, copy and VPP (by default merged RGB f32,
+    normalized)."""
 
-    def __init__(self, n_streams, per_stream, frames, device):
+    def __init__(self, n_streams, per_stream, frames, device, cfg=None):
         self.loaders = [SyntheticFrameLoader(frames, per_stream, 2,
-                                             serving_cfg(), device,
-                                             seed=31 + k)
+                                             cfg or serving_cfg(), device,
+                                             seed=STREAM_SEED + k)
                         for k in range(n_streams)]
+
+
+class SyntheticPool(PooledStreamLoader):
+    """PooledStreamLoader with its native pool replaced by seeded NV12
+    frames: the same pinned staging pool, fill thread, one non_blocking
+    copy a tick, batched VPP (and post_fn graph), event rotation and
+    latched end of stream. Stream "synthetic:k" holds the frames of
+    SyntheticFrameLoader(seed=STREAM_SEED + k) at the target size, as
+    the native host resize would deliver them; each stream holds
+    `frames` frames."""
+
+    def __init__(self, stream_urls, per_stream=8, frames=0, **kwargs):
+        self._frames = int(frames)
+        super().__init__(stream_urls, per_stream=per_stream, **kwargs)
+
+    def _open_pool(self, stream_urls, workers, loop, buffer_size,
+                   fast_decode):
+        self._w, self._h = self.params.width, self.params.height
+        self._sources = [seeded_frames(
+            STREAM_SEED + int(str(url).rsplit(":", 1)[1]), self._h, self._w,
+            SyntheticFrameLoader.POOL) for url in stream_urls]
+        self._cursor = 0
+
+    def _fill_tick(self, buf):
+        n = self.per_stream
+        if self._cursor + n > self._frames:
+            return None
+        dst = buf.numpy()
+        y_total = self.global_batch * self._h * self._w
+        ys = dst[:y_total].reshape(-1, self._h, self._w)
+        uvs = dst[y_total:].reshape(-1, self._h // 2, self._w)
+        ids = (self._cursor + np.arange(n)) % SyntheticFrameLoader.POOL
+        for k, (y, uv) in enumerate(self._sources):
+            ys[k * n:(k + 1) * n] = y[ids]
+            uvs[k * n:(k + 1) * n] = uv[ids]
+        first = self._cursor + 1
+        self._cursor += n
+        return {k: list(range(first, first + n))
+                for k in range(len(self._sources))}
+
+
+@contextlib.contextmanager
+def synthetic_pool():
+    """Engines built inside it get a SyntheticPool where pipeline="pooled"
+    or "fused" would open the native pool."""
+    real = serving.PooledStreamLoader
+    serving.PooledStreamLoader = SyntheticPool
+    try:
+        yield
+    finally:
+        serving.PooledStreamLoader = real
+
+
+def synthetic_urls():
+    return [f"synthetic:{k}" for k in range(STREAMS)]
+
+
+def pooled_engine(pipeline, infer_fn, per_stream, frames, device, **kwargs):
+    """StreamInferencer(pipeline=...) over STREAMS SyntheticPool streams of
+    `frames` 224² frames each, at the host-resize target size."""
+    with synthetic_pool():
+        return StreamInferencer(synthetic_urls(), infer_fn,
+                                per_stream=per_stream, pipeline=pipeline,
+                                frames=frames, host_resize=True, width=SIDE,
+                                height=SIDE, device=device, **kwargs)
 
 
 def serving_cfg():
@@ -834,6 +927,72 @@ def serving_cfg():
     return FrameParameters(pixel_format=FourCC.RGB24,
                            planes_pos=Planes.MERGED,
                            normalization=True).to_config(SIDE, SIDE)
+
+
+def drive_engine(eng, warmup, timed, inflight=1):
+    """`warmup` then `timed` ticks of `eng` with the kernels' counts at 0
+    just before; returns (results, seconds of the timed ticks, launches,
+    NV12 launches by variant, result waits of the timed ticks in ms)."""
+    nv12_rgb.reset_counts()
+    fa.reset_counts()
+    results = list(eng.stream(max_batches=warmup, inflight=inflight))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    results += list(eng.stream(max_batches=timed, inflight=inflight))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = {"nv12_rgb": nv12_rgb.launches, "flash_fwd": fa.launches}
+    lat = np.asarray(eng._lat_ms[warmup:])
+    return (results, seconds, launches, dict(nv12_rgb.launches_by_variant),
+            lat)
+
+
+def by_tick(results, n_streams):
+    """Outputs of an engine's results as [ticks, n_streams, ...]."""
+    outs = torch.stack([r.outputs for r in results])
+    return outs.reshape(-1, n_streams, *outs.shape[1:])
+
+
+def check_clocks(results, ticks, per_stream, label):
+    if [r.stream for r in results] != list(range(STREAMS)) * ticks:
+        raise AssertionError(f"{label}: results out of stream order")
+    for k in range(STREAMS):
+        frames = [f for r in results if r.stream == k for f in r.frames]
+        if frames != list(range(1, ticks * per_stream + 1)):
+            raise AssertionError(f"{label}: stream {k}'s frame clock "
+                                 f"{frames[:4]}...")
+
+
+def pace(seconds, ticks, lat, device_ms=None, graph=None):
+    """A timed run's ms a tick, result waits, the host's ms a tick (the
+    wall time less the result waits) and, given the device's ms a tick,
+    the idle share; a graphed run's captures and replays."""
+    ms = seconds / ticks * 1e3
+    row = {"ms_per_tick": ms,
+           "result_wait_ms": {"p50": float(np.percentile(lat, 50)),
+                              "p95": float(np.percentile(lat, 95))},
+           "host_ms_a_tick": ms - float(lat.sum()) / ticks}
+    if device_ms is not None:
+        row.update(device_ms_a_tick=device_ms, idle_share=1 - device_ms / ms)
+    if graph is not None:
+        row.update(captures=graph.captures, replays=graph.replays)
+    return row
+
+
+def check_replays(graph, calls, label):
+    """A graphed path's `calls` calls: a warm-up, one capture, and a replay
+    for every call but the warm-up."""
+    if graph is not None and (graph.captures, graph.replays) != (1,
+                                                                 calls - 1):
+        raise AssertionError(f"{label}: {graph.captures} captures and "
+                             f"{graph.replays} replays over {calls} calls")
+
+
+def bit_equal_ticks(got, want):
+    """[ticks, ...] against [ticks, ...]: each tick bit for bit."""
+    return [bitwise_equal(g, w) if g.dtype != torch.bfloat16
+            else torch.equal(g.view(torch.int16), w.view(torch.int16))
+            for g, w in zip(got, want)]
 
 
 def vit(device, dtype, flash_impl="auto"):
@@ -883,65 +1042,87 @@ def logit_rule(got, want, rel):
             "ok": err <= tol and bool((same | ~decided).all())}
 
 
-def phase_serving(device):
-    """StreamInferencer over two streams into the ViT-B joint model, every
-    attention through the flash kernel: 2 warm-up ticks, then 8 timed."""
-    model = vit(device, torch.bfloat16)
+def serve_vit(device, model, graphed, pipeline="per-stream"):
+    """One run of ViT-B joint serving, WARMUP_TICKS + TIMED_TICKS ticks,
+    with the kernels' counts at 0 just before: eager or through
+    cuda_graph over SyntheticStreams, or pipeline="fused" over a
+    SyntheticPool (the VPP and the model one graph). Checks launches
+    (NV12: one a stream a tick, or one a tick fused; 12 flash a tick),
+    streams, frame clocks and shapes; returns (logits [ticks, streams,
+    classes], the run's row, the first tick's clips)."""
     first = {}
 
     def serve(batch):  # [n*16, 224, 224, 3] -> logits [n, 1000]
         clips = batch.view(-1, CLIP, SIDE, SIDE, 3)
-        if "clips" not in first:
+        if not graphed and "clips" not in first:
             first["clips"] = clips.clone()
         return model(clips)
 
     ticks = WARMUP_TICKS + TIMED_TICKS
-    loader = SyntheticStreams(STREAMS, CLIP, ticks * CLIP, device)
-    eng = StreamInferencer([f"synthetic:{k}" for k in range(STREAMS)], serve,
-                           per_stream=CLIP, loader=loader)
+    if pipeline == "fused":
+        eng = pooled_engine("fused", serve, CLIP, ticks * CLIP, device,
+                            pixel_format=FourCC.RGB24,
+                            planes_pos=Planes.MERGED, normalization=True)
+        loader, graph = eng.loader, eng.loader._vpp.graphed
+        want_nv12 = ticks
+    else:
+        loader = SyntheticStreams(STREAMS, CLIP, ticks * CLIP, device)
+        graph = cuda_graph(serve) if graphed else None
+        eng = StreamInferencer(synthetic_urls(), graph or serve,
+                               per_stream=CLIP, loader=loader)
+        want_nv12 = ticks * STREAMS
+    label = f"serving {pipeline}{' graphed' if graphed else ''}"
     try:
-        nv12_rgb.reset_counts()
-        fa.reset_counts()
-        warm = list(eng.stream(max_batches=WARMUP_TICKS))
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        timed = list(eng.stream(max_batches=TIMED_TICKS))
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        launches = {"nv12_rgb": nv12_rgb.launches,
-                    "flash_fwd": fa.launches}
-        nv12_variants = dict(nv12_rgb.launches_by_variant)
+        results, seconds, launches, variants, lat = drive_engine(
+            eng, WARMUP_TICKS, TIMED_TICKS)
+        device_ms = (time_ms(graph.graphs[0].replay, device, iters=10,
+                             warmup=2)[0] if graph is not None else None)
     finally:
+        eng.close()
         loader.close()
-    if launches != {"nv12_rgb": ticks * STREAMS,
+    check_replays(graph, ticks, label)
+    if launches != {"nv12_rgb": want_nv12,
                     "flash_fwd": ticks * VIT["depth"]}:
-        raise AssertionError(f"launches {launches} over {ticks} ticks: "
-                             "the serving path bypassed a kernel")
-    results = warm + timed
-    if ([r.stream for r in results] != list(range(STREAMS)) * ticks
-            or any(tuple(r.outputs.shape) != (1, VIT["num_classes"])
-                   for r in results)):
-        raise AssertionError("serving results: wrong streams or shapes")
-    for k in range(STREAMS):
-        frames = [f for r in results if r.stream == k for f in r.frames]
-        if frames != list(range(1, ticks * CLIP + 1)):
-            raise AssertionError(f"stream {k}: frame clock {frames[:3]}...")
-    got = torch.cat([r.outputs for r in results[:STREAMS]])
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError("non-finite logits")
-    clips = first["clips"]
+        raise AssertionError(f"{label}: launches {launches} over {ticks} "
+                             "ticks: the serving path bypassed a kernel")
+    check_clocks(results, ticks, CLIP, label)
+    if any(tuple(r.outputs.shape) != (1, VIT["num_classes"])
+           for r in results):
+        raise AssertionError(f"{label}: wrong output shapes")
+    logits = by_tick(results, STREAMS)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    frames = TIMED_TICKS * STREAMS * CLIP
+    row = {"pipeline": pipeline, "graphed": graphed, "launches": launches,
+           "nv12_rgb_by_variant": variants, "seconds": seconds,
+           "frames_per_s": frames / seconds,
+           **pace(seconds, TIMED_TICKS, lat, device_ms, graph)}
+    return logits, row, first.get("clips")
+
+
+def phase_serving(device):
+    """StreamInferencer over two streams into the ViT-B joint model, every
+    attention through the flash kernel, 2 warm-up ticks and 24 timed, three
+    times: eager, through cuda_graph, and pipeline="fused" (the VPP and the
+    model one graph a tick). The graphed logits must equal the eager ones
+    and the fused ones the graphed ones, bit for bit at every tick."""
+    model = vit(device, torch.bfloat16)
+    got_eager, eager, clips = serve_vit(device, model, False)
+    got_graphed, graphed, _ = serve_vit(device, model, True)
+    got_fused, fused, _ = serve_vit(device, model, True, "fused")
+    graphed["bit_equal_to_eager"] = bit_equal_ticks(got_graphed, got_eager)
+    fused["bit_equal_to_graphed"] = bit_equal_ticks(got_fused, got_graphed)
+    got = got_eager[0]
     # bf16: the flash and plain paths round P to bf16 at different points
     # (unnormalized in the kernel, normalized in the plain version) in each
     # of 12 layers, and the residual stream is bf16 (8 mantissa bits), so
     # per-layer differences of about one bf16 step compound through the
     # depth: 1% of the logit scale allows for a few such steps.
     bf16 = logits_check(model, clips, got, BF16_LOGIT_REL)
-    lat = np.asarray(eng._lat_ms[WARMUP_TICKS:])
     # The forward alone on the first tick's clips: with CUDA events around
     # an eager call (paced by the host when its launches are slower than
     # the device), the host's time to enqueue it, and the device's own
-    # time from a CUDA-graph replay of it (a measurement only; the port
-    # runs eagerly).
+    # time from a CUDA-graph replay of it.
     with torch.no_grad():
         forward_ms = time_ms(lambda: model(clips), device, iters=10,
                              warmup=2, hold=False)
@@ -951,18 +1132,21 @@ def phase_serving(device):
             t0 = time.perf_counter()
             model(clips)
             enqueue.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # warm-up off the default stream
-            model(clips)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            model(clips)
-        graph_ms = time_ms(graph.replay, device, iters=10, warmup=2)
-        del graph
+        forward = cuda_graph(model)
+        for _ in range(2):  # warm-up, capture
+            forward(clips)
+        graph_enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(clips)
+            graph_enqueue.append((time.perf_counter() - t0) * 1e3)
+        graph_ms = time_ms(forward.graphs[0].replay, device, iters=10,
+                           warmup=2)
+        del forward
     del model
+    eager["device_ms_a_tick"] = graph_ms[0]
+    eager["idle_share"] = 1 - graph_ms[0] / eager["ms_per_tick"]
     # f32: the f32 kernel against the plain f32 path, tight: the only
     # difference is the order of f32 sums.
     model32 = vit(device, torch.float32)
@@ -973,20 +1157,15 @@ def phase_serving(device):
             raise AssertionError("f32 model bypassed the kernel")
     f32 = logits_check(model32, clips, got32, F32_LOGIT_REL)
     del model32
-    frames = TIMED_TICKS * STREAMS * CLIP
     out = {"phase": "serving", "streams": STREAMS,
            "clip": [CLIP, SIDE, SIDE, 3],
            "model": VIT, "compute": "bf16", "residual": "bf16",
            "warmup_ticks": WARMUP_TICKS, "timed_ticks": TIMED_TICKS,
-           "launches": launches, "nv12_rgb_by_variant": nv12_variants,
-           "seconds": seconds,
-           "frames_per_s": frames / seconds,
-           "ms_per_tick": seconds / TIMED_TICKS * 1e3,
-           "result_wait_ms": {"p50": float(np.percentile(lat, 50)),
-                              "p95": float(np.percentile(lat, 95))},
+           **eager, "graphed_run": graphed, "fused_run": fused,
            "forward_ms": forward_ms[0], "forward_p10_ms": forward_ms[1],
            "forward_p90_ms": forward_ms[2],
            "forward_enqueue_ms": float(np.median(enqueue)),
+           "forward_graph_call_enqueue_ms": float(np.median(graph_enqueue)),
            "forward_device_ms": graph_ms[0],
            "forward_device_p10_ms": graph_ms[1],
            "forward_device_p90_ms": graph_ms[2],
@@ -994,6 +1173,166 @@ def phase_serving(device):
     emit(out)
     if not (bf16["ok"] and f32["ok"]):
         raise AssertionError("serving logits disagree with the plain path")
+    if not all(graphed["bit_equal_to_eager"]):
+        raise AssertionError("graphed serving logits differ from eager ones: "
+                             f"{graphed['bit_equal_to_eager']}")
+    if not all(fused["bit_equal_to_graphed"]):
+        raise AssertionError("fused serving logits differ from the graphed "
+                             f"ones: {fused['bit_equal_to_graphed']}")
+    return out
+
+
+# ------------------------------------------------------------ pooled
+
+# bench.py::bench_serving's configuration (:462-505): two streams, 8
+# frames a stream a tick, 224² RGB merged u8 after a host resize,
+# inflight 2, the mean model; pooled and fused, against the per-stream
+# engine. Seeded NV12 at 224² stands in for the decode and host resize.
+POOL_PER_STREAM = 8
+POOL_WARMUP_TICKS = 3
+POOL_TIMED_TICKS = 200
+POOL_INFLIGHT = 2
+
+
+def pool_cfg():
+    return FrameParameters(pixel_format=FourCC.RGB24,
+                           planes_pos=Planes.MERGED).to_config(SIDE, SIDE)
+
+
+def mean_model(batch):
+    """bench_serving's model: each frame's mean, in f32."""
+    return batch.float().mean(dim=(1, 2, 3))
+
+
+def identity(batch):
+    return batch
+
+
+def pool_run(device, pipeline, infer_fn):
+    """POOL_WARMUP_TICKS + POOL_TIMED_TICKS ticks of bench_serving's
+    configuration through `pipeline` (per-stream over SyntheticStreams,
+    pooled or fused over a SyntheticPool) with the kernels' counts at 0
+    just before. Returns (outputs [ticks, streams, per_stream, ...], the
+    row, the per-stream loader's synthetic streams or None, the graph
+    that served the tick or None)."""
+    ticks = POOL_WARMUP_TICKS + POOL_TIMED_TICKS
+    frames = ticks * POOL_PER_STREAM
+    streams = None
+    if pipeline == "per-stream":
+        streams = SyntheticStreams(STREAMS, POOL_PER_STREAM, frames, device,
+                                   pool_cfg())
+        eng = StreamInferencer(synthetic_urls(), infer_fn,
+                               per_stream=POOL_PER_STREAM, loader=streams)
+    else:
+        eng = pooled_engine(pipeline, infer_fn, POOL_PER_STREAM, frames,
+                            device, pixel_format=FourCC.RGB24,
+                            planes_pos=Planes.MERGED)
+    graph = (eng.loader._vpp.graphed if pipeline == "fused"
+             else infer_fn if isinstance(infer_fn, CudaGraph) else None)
+    try:
+        results, seconds, launches, variants, lat = drive_engine(
+            eng, POOL_WARMUP_TICKS, POOL_TIMED_TICKS, POOL_INFLIGHT)
+    finally:
+        eng.close()
+        if streams is not None:
+            streams.close()
+    label = f"pooled phase, {pipeline} {getattr(infer_fn, '__name__', '')}"
+    check_replays(graph, ticks, label)
+    want = ticks * (STREAMS if pipeline == "per-stream" else 1)
+    if launches != {"nv12_rgb": want, "flash_fwd": 0}:
+        raise AssertionError(f"{label}: launches {launches} over {ticks} "
+                             f"ticks, want {want} NV12")
+    if variants["vector"] != want:
+        raise AssertionError(f"{label}: NV12 variants {variants}: the "
+                             "staging planes (and a graph's static copy) "
+                             "must keep the vector variant's alignment")
+    check_clocks(results, ticks, POOL_PER_STREAM, label)
+    outs = by_tick(results, STREAMS)
+    frames = POOL_TIMED_TICKS * STREAMS * POOL_PER_STREAM
+    row = {"pipeline": pipeline, "launches": launches,
+           "nv12_rgb_by_variant": variants, "seconds": seconds,
+           "frames_per_s": frames / seconds,
+           **pace(seconds, POOL_TIMED_TICKS, lat, graph=graph)}
+    return outs, row, streams, graph
+
+
+def pool_device_ms(device, pipeline, graph):
+    """The device's ms of one tick's work at bench_serving's
+    configuration, with the held timer (no copy to the device): per-stream,
+    two VPPs of 8 frames, the concatenation and the mean; pooled, one VPP
+    of 16 and the mean's graph; fused, the one graph."""
+    n = STREAMS * POOL_PER_STREAM
+    if pipeline == "fused":
+        return time_ms(graph.graphs[0].replay, device)[0]
+    flat = torch.from_numpy(seeded_nv12(n, SIDE, SIDE, 13)).to(device)
+    if pipeline == "pooled":
+        vpp = build_vpp_batched_flat(pool_cfg(), n, device)
+        return time_ms(lambda: (vpp(flat), graph.graphs[0].replay()),
+                       device)[0]
+    vpp = build_vpp_batched_flat(pool_cfg(), POOL_PER_STREAM, device)
+    parts = [torch.from_numpy(seeded_nv12(POOL_PER_STREAM, SIDE, SIDE,
+                                          14 + k)).to(device)
+             for k in range(STREAMS)]
+    with torch.no_grad():
+        return time_ms(lambda: mean_model(torch.cat([vpp(p) for p in parts])),
+                       device)[0]
+
+
+def phase_pooled(device, smi):
+    """bench_serving's configuration pooled and fused. Frames: the
+    per-stream engine's (each stream's first and last tick bit-equal to
+    the plain NV12 version on the CPU on the same staging bytes), then
+    pooled and fused with the identity as the model, bit-equal to them at
+    every tick, one NV12 launch a tick. Then the mean model, per-stream
+    (eager), pooled (the mean through cuda_graph) and fused (the VPP and
+    the mean one graph), timed, their means bit-equal to the per-stream
+    engine's at every tick."""
+    ref, _, streams, _ = pool_run(device, "per-stream", identity)
+    ticks = ref.shape[0]
+    cpu_vpp = build_vpp_batched_flat(pool_cfg(), POOL_PER_STREAM, "cpu")
+    for k, ld in enumerate(streams.loaders):
+        for t in (0, ticks - 1):
+            staging = torch.from_numpy(ld.staging_bytes(
+                t * POOL_PER_STREAM + 1, POOL_PER_STREAM))
+            if not bitwise_equal(ref[t, k].cpu(), cpu_vpp(staging)):
+                raise AssertionError(f"pooled phase: stream {k} tick {t}: "
+                                     "frames differ from the plain version")
+    frames = {}
+    for pipeline in ("pooled", "fused"):
+        got, row, _, _ = pool_run(device, pipeline, identity)
+        row["bit_equal_to_per_stream"] = bit_equal_ticks(got, ref)
+        frames[pipeline] = row
+        del got
+    del ref
+    means = {}
+    want = None
+    for pipeline, infer in (("per-stream", mean_model),
+                            ("pooled", cuda_graph(mean_model)),
+                            ("fused", mean_model)):
+        got, row, _, graph = pool_run(device, pipeline, infer)
+        if want is None:
+            want = got
+        row["bit_equal_to_per_stream"] = bit_equal_ticks(got, want)
+        dev_ms = pool_device_ms(device, pipeline, graph)
+        row.update(device_ms_a_tick=dev_ms,
+                   idle_share=1 - dev_ms / row["ms_per_tick"])
+        means[pipeline] = row
+    out = {"phase": "pooled", "card": smi,
+           "config": {"streams": STREAMS, "per_stream": POOL_PER_STREAM,
+                      "frame": [SIDE, SIDE, 3], "dtype": "uint8",
+                      "layout": "merged", "host_resize": True,
+                      "inflight": POOL_INFLIGHT, "model": "mean",
+                      "source": "bench.py::bench_serving (:462-505)"},
+           "warmup_ticks": POOL_WARMUP_TICKS, "timed_ticks": POOL_TIMED_TICKS,
+           "frames": frames, "mean_model": means,
+           "first_and_last_ticks": "bitwise equal to the CPU plain run"}
+    emit(out)
+    bad = [f"{kind} {p}" for kind, rows in (("frames", frames),
+                                            ("means", means))
+           for p, r in rows.items() if not all(r["bit_equal_to_per_stream"])]
+    if bad:
+        raise AssertionError(f"pooled phase: not bit-equal to the per-stream "
+                             f"engine: {bad}")
     return out
 
 
@@ -1054,14 +1393,15 @@ def step_times(model, cache, frames, device):
     return count.ops, float(np.median(enqueue)), device_ms
 
 
-def serve_stream(device, name):
+def serve_stream(device, name, model, graphed):
     """Two SyntheticStreams through StreamInferencer(carry=...) into
-    stream_step for STREAM_WARMUP_TICKS + STREAM_TIMED_TICKS ticks at
-    inflight 2, with the kernels' counts at 0 just before. Checks launches,
-    streams, frame clocks, shapes, finite logits and the first tick's
-    frames against the plain NV12 version; returns (model, first tick's
-    batch, row, result waits of the timed ticks in ms)."""
-    model = stream_vit(device, torch.bfloat16, STREAM_KV[name])
+    stream_step, eagerly or through cuda_graph(..., carry=True), for
+    STREAM_WARMUP_TICKS + STREAM_TIMED_TICKS ticks at inflight 2 from a
+    zeroed cache, with the kernels' counts at 0 just before. Checks
+    launches, streams, frame clocks, shapes, finite logits, t and the
+    first tick's frames against the plain NV12 version; returns (logits
+    [ticks, streams, classes], first tick's batch, row, result waits of
+    the timed ticks in ms)."""
     cache = init_stream_cache(model, STREAMS, STREAM_RING)
     first = {}
 
@@ -1070,64 +1410,72 @@ def serve_stream(device, name):
             first["batch"] = batch.clone()
         return stream_step(model, carry, batch)
 
+    graph = cuda_graph(partial(stream_step, model), carry=True) \
+        if graphed else None
     ticks = STREAM_WARMUP_TICKS + STREAM_TIMED_TICKS
     loader = SyntheticStreams(STREAMS, TUBELET, ticks * TUBELET, device)
-    eng = StreamInferencer([f"synthetic:{k}" for k in range(STREAMS)], infer,
+    eng = StreamInferencer(synthetic_urls(), graph or infer,
                            per_stream=TUBELET, loader=loader, carry=cache)
+    label = f"streaming {name}{' graphed' if graphed else ''}"
     try:
-        nv12_rgb.reset_counts()
-        fa.reset_counts()
-        warm = list(eng.stream(max_batches=STREAM_WARMUP_TICKS,
-                               inflight=STREAM_INFLIGHT))
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        timed = list(eng.stream(max_batches=STREAM_TIMED_TICKS,
-                                inflight=STREAM_INFLIGHT))
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        launches = {"nv12_rgb": nv12_rgb.launches, "flash_fwd": fa.launches}
-        nv12_variants = dict(nv12_rgb.launches_by_variant)
-        # The plain NV12 version on the CPU, on the staging bytes of the
-        # first tick.
-        for k, ld in enumerate(loader.loaders):
-            staging = torch.from_numpy(ld.staging_bytes(1, TUBELET))
-            want = build_vpp_batched_flat(serving_cfg(), TUBELET, "cpu")(
-                staging)
-            if not bitwise_equal(first["batch"][k].cpu(), want):
-                raise AssertionError(f"streaming {name}: stream {k}'s first "
-                                     "frames differ from the plain version")
+        results, seconds, launches, nv12_variants, lat = drive_engine(
+            eng, STREAM_WARMUP_TICKS, STREAM_TIMED_TICKS, STREAM_INFLIGHT)
+        if not graphed:
+            # The plain NV12 version on the CPU, on the staging bytes of
+            # the first tick.
+            for k, ld in enumerate(loader.loaders):
+                staging = torch.from_numpy(ld.staging_bytes(1, TUBELET))
+                want = build_vpp_batched_flat(serving_cfg(), TUBELET, "cpu")(
+                    staging)
+                if not bitwise_equal(first["batch"][k].cpu(), want):
+                    raise AssertionError(f"{label}: stream {k}'s first "
+                                         "frames differ from the plain "
+                                         "version")
     finally:
         loader.close()
     if launches != {"nv12_rgb": ticks * STREAMS, "flash_fwd": 0}:
-        raise AssertionError(f"streaming {name}: launches {launches} over "
+        raise AssertionError(f"{label}: launches {launches} over "
                              f"{ticks} ticks, want 2 NV12 a tick and no flash")
-    results = warm + timed
-    if ([r.stream for r in results] != list(range(STREAMS)) * ticks
-            or any(tuple(r.outputs.shape) != (1, STREAM_VIT["num_classes"])
-                   for r in results)):
-        raise AssertionError(f"streaming {name}: wrong streams or shapes")
-    for k in range(STREAMS):
-        frames = [f for r in results if r.stream == k for f in r.frames]
-        if frames != list(range(1, ticks * TUBELET + 1)):
-            raise AssertionError(f"streaming {name}: stream {k}'s frame "
-                                 f"clock {frames[:4]}...")
-    if not bool(torch.isfinite(torch.cat([r.outputs for r in results])).all()):
-        raise AssertionError(f"streaming {name}: non-finite logits")
+    check_clocks(results, ticks, TUBELET, label)
+    if any(tuple(r.outputs.shape) != (1, STREAM_VIT["num_classes"])
+           for r in results):
+        raise AssertionError(f"{label}: wrong shapes")
+    logits = by_tick(results, STREAMS)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite logits")
     if int(eng.carry["t"]) != ticks:
-        raise AssertionError(f"streaming {name}: t={int(eng.carry['t'])} "
-                             f"after {ticks} ticks")
-    ops, enqueue_ms, device_ms = step_times(model, eng.carry,
-                                            first["batch"], device)
-    lat = np.asarray(eng._lat_ms[STREAM_WARMUP_TICKS:])
+        raise AssertionError(f"{label}: t={int(eng.carry['t'])} after "
+                             f"{ticks} ticks")
+    check_replays(graph, ticks, label)
     row = {"kv_cache_mib": cache_bytes(eng.carry) / 2 ** 20,
            "launches": launches, "nv12_rgb_by_variant": nv12_variants,
            "ticks": ticks, "seconds": seconds,
            **tick_rates(STREAM_TIMED_TICKS, seconds, lat),
-           "step_aten_ops": ops, "step_enqueue_ms": enqueue_ms,
-           "step_device_ms": device_ms[0],
-           "step_device_p10_ms": device_ms[1],
-           "step_device_p90_ms": device_ms[2]}
-    return model, first["batch"], row, lat
+           **pace(seconds, STREAM_TIMED_TICKS, lat, graph=graph)}
+    if graphed:
+        # The device's time of one step: the engine's own graph, replayed
+        # (the replays step the cache on past the run).
+        device_ms = time_ms(graph.graphs[0].replay, device, iters=20,
+                            warmup=3)
+        frames = torch.zeros((STREAMS, TUBELET, SIDE, SIDE, 3),
+                             device=device)
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph(eng.carry, frames)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        row.update(step_call_enqueue_ms=float(np.median(enqueue)))
+    else:
+        ops, enqueue_ms, device_ms = step_times(model, eng.carry,
+                                                first["batch"], device)
+        row.update(step_aten_ops=ops, step_enqueue_ms=enqueue_ms)
+    row.update(step_device_ms=device_ms[0],
+               step_device_p10_ms=device_ms[1],
+               step_device_p90_ms=device_ms[2],
+               idle_share=1 - device_ms[0] / row["ms_per_tick"])
+    return logits, first.get("batch"), row, lat
 
 
 def tick_rates(ticks, seconds, lat):
@@ -1198,20 +1546,48 @@ def twin_check(model, clips, name, dtype):
                    and past_wrap > rule["bound"])}
 
 
+def pool_stream_runs(rs, lats):
+    """A model's runs of one kind, pooled: rates over all their timed
+    ticks, means of the per-run step times."""
+    seconds = sum(r["seconds"] for r in rs)
+    ticks = STREAM_TIMED_TICKS * len(rs)
+    lat = np.concatenate(lats)
+    out = {"seconds": seconds, **tick_rates(ticks, seconds, lat),
+           "host_ms_a_tick": float(np.mean([r["host_ms_a_tick"]
+                                            for r in rs])),
+           "idle_share": float(np.mean([r["idle_share"] for r in rs]))}
+    for key in ("step_enqueue_ms", "step_call_enqueue_ms", "step_device_ms"):
+        if key in rs[0]:
+            out[key] = float(np.mean([r[key] for r in rs]))
+    return out
+
+
 def phase_streaming(device, smi):
     """Stateful live-stream serving at bench.py's configuration, MHA and
-    GQA, then the twin check at full width in bf16 and f32 (TF32 off)."""
+    GQA, each run eagerly and through cuda_graph from the same zeroed
+    cache and frames (logits bit-equal at every tick, past the ring's
+    wrap); then the twin check at full width in bf16 and f32 (TF32
+    off)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    runs = {name: [] for name in STREAM_KV}
-    lats = {name: [] for name in STREAM_KV}
+    runs = {(name, g): [] for name in STREAM_KV for g in (False, True)}
+    lats = {key: [] for key in runs}
     twins = []
+    equal = {name: [] for name in STREAM_KV}
     band_launches = full_launches = 0
     for name in STREAM_ORDER:
-        model, first_batch, row, lat = serve_stream(device, name)
-        runs[name].append(row)
-        lats[name].append(lat)
-        if len(runs[name]) > 1:
+        model = stream_vit(device, torch.bfloat16, STREAM_KV[name])
+        logits = {}
+        for graphed in (False, True):
+            logits[graphed], batch, row, lat = serve_stream(
+                device, name, model, graphed)
+            runs[name, graphed].append(row)
+            lats[name, graphed].append(lat)
+            if not graphed:
+                first_batch = batch
+        equal[name].append(bit_equal_ticks(logits[True], logits[False]))
+        del logits
+        if len(runs[name, False]) > 1:
             continue
         # The twin check, once a model.
         clips = twin_clips(device, first_batch)
@@ -1223,30 +1599,30 @@ def phase_streaming(device, smi):
             full_launches += twins[-1]["flash_launches_by_mode"]["full"]
         del model32, clips
     pooled = {}
-    for name, rs in runs.items():
-        seconds = sum(r["seconds"] for r in rs)
+    for name in STREAM_KV:
+        eager = runs[name, False]
         pooled[name] = {
             "kv_heads": STREAM_KV[name] or STREAM_VIT["num_heads"],
-            "kv_cache_mib": rs[0]["kv_cache_mib"], "seconds": seconds,
-            **tick_rates(STREAM_TIMED_TICKS * len(rs), seconds,
-                         np.concatenate(lats[name])),
-            "step_enqueue_ms": float(np.mean([r["step_enqueue_ms"]
-                                              for r in rs])),
-            "step_device_ms": float(np.mean([r["step_device_ms"]
-                                             for r in rs])),
-            "runs": rs}
-    mha, gqa = pooled["mha"], pooled["gqa"]
+            "kv_cache_mib": eager[0]["kv_cache_mib"],
+            **pool_stream_runs(eager, lats[name, False]), "runs": eager,
+            "graphed": {**pool_stream_runs(runs[name, True],
+                                           lats[name, True]),
+                        "runs": runs[name, True],
+                        "bit_equal_to_eager": equal[name]}}
+    mha, gqa = pooled["mha"]["graphed"], pooled["gqa"]["graphed"]
+    kv_mha, kv_gqa = pooled["mha"]["kv_cache_mib"], pooled["gqa"]["kv_cache_mib"]
     out = {"phase": "streaming", "card": smi, "streams": STREAMS,
            "tubelet": [TUBELET, SIDE, SIDE, 3], "model": STREAM_VIT,
            "compute": "bf16", "residual": "f32", "max_steps": STREAM_RING,
            "inflight": STREAM_INFLIGHT, "warmup_ticks": STREAM_WARMUP_TICKS,
            "timed_ticks": STREAM_TIMED_TICKS, "order": STREAM_ORDER,
-           "mha": mha, "gqa": gqa,
+           "mha": pooled["mha"], "gqa": pooled["gqa"],
+           "serving_model_source": "graphed runs",
            "serving_model_steps_per_s": gqa["steps_per_s_a_stream"],
            "serving_model_fps": gqa["frames_per_s"],
-           "serving_model_kv_mb": gqa["kv_cache_mib"],
-           "serving_model_kv_mb_mha": mha["kv_cache_mib"],
-           "serving_model_kv_ratio": mha["kv_cache_mib"] / gqa["kv_cache_mib"],
+           "serving_model_kv_mb": kv_gqa,
+           "serving_model_kv_mb_mha": kv_mha,
+           "serving_model_kv_ratio": kv_mha / kv_gqa,
            "serving_model_gqa_vs_mha": gqa["steps_per_s_a_stream"]
                / mha["steps_per_s_a_stream"],
            "twin": {"ring": TWIN_RING, "steps": TWIN_STEPS,
@@ -1257,6 +1633,10 @@ def phase_streaming(device, smi):
     bad = [t for t in twins if not t["ok"]]
     if bad:
         raise AssertionError(f"twin check failed: {bad}")
+    for name, runs_equal in equal.items():
+        if not all(all(e) for e in runs_equal):
+            raise AssertionError(f"streaming {name}: graphed logits differ "
+                                 f"from eager ones: {runs_equal}")
     return out
 
 
@@ -1398,23 +1778,6 @@ def ramp_clips(batch, size, device):
             torch.from_numpy(mask).to(device))
 
 
-def step_device_ms(step, clips, mask):
-    """The device's time of one training step: a CUDA graph of the whole
-    step (forward, backward, optimizer), replayed; the replays train the
-    model on. A capture that fails raises."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the default stream
-        step(clips, mask)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        step(clips, mask)
-    ms = time_ms(graph.replay, clips.device, iters=5, warmup=1)[0]
-    del graph
-    return ms
-
-
 def kernel_ms(prof):
     """{kernel name: device ms} of a torch.profiler run: the device's own
     records (kernels, copies, sets), not the ranges that record_function
@@ -1481,6 +1844,11 @@ def grad_summary(got, want, dtype, top=5):
             "ok": worst <= bound_worst and median <= bound_median}
 
 
+def eager_step(model, opt):
+    """make_vit_train_step's step without its CUDA graph."""
+    return make_vit_train_step(model, opt).graphed.fn
+
+
 def first_grads(device, size, remat, clips, mask, dtype, use_flash,
                 flash_impl="auto"):
     """The first step's gradients of make_vit_train_step from train_run's
@@ -1494,20 +1862,26 @@ def first_grads(device, size, remat, clips, mask, dtype, use_flash,
     opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR,
                           momentum=TRAIN_MOMENTUM)
     grads = first_step_grads(model, opt)
-    make_vit_train_step(model, opt)(clips, mask)
+    eager_step(model, opt)(clips, mask)
     del model, opt
     torch.cuda.empty_cache()
     return grads
 
 
-def train_run(device, name, batch, size, remat, use_flash, clips, mask):
-    """TRAIN_WARMUP + TRAIN_STEPS steps of make_vit_train_step with the
-    kernels' counts at 0 just before; returns the run's row (an "outcome"
-    of "OOM" where the card's memory ran out) and the first step's
-    gradients (first_step_grads; None after an OOM)."""
+def train_run(device, name, batch, size, remat, use_flash, clips, mask,
+              graphed=True):
+    """TRAIN_WARMUP + TRAIN_STEPS steps of make_vit_train_step (through
+    its CUDA graph, or eagerly with `graphed` False) with the kernels'
+    counts at 0 just before; returns the run's row (an "outcome" of "OOM"
+    where the card's memory ran out), the first step's gradients
+    (first_step_grads) and every parameter after those steps on the host
+    (both None after an OOM). A graphed run's row has its device ms a
+    step from its own graph, replayed (the replays train the model on,
+    after the parameters were read)."""
     flops, n_tok, s_joint = train_flops(batch, size)
     row = {"config": name, "use_flash": use_flash, "remat": remat,
-           "batch": batch, "size": size, "tokens": s_joint}
+           "graphed": graphed, "batch": batch, "size": size,
+           "tokens": s_joint}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1517,7 +1891,8 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask):
         init_vit(torch.Generator().manual_seed(0), model, tuple(clips.shape))
         opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR,
                               momentum=TRAIN_MOMENTUM)
-        step = make_vit_train_step(model, opt)
+        step = (make_vit_train_step(model, opt) if graphed
+                else eager_step(model, opt))
         grads = first_step_grads(model, opt)
         fa.reset_counts()
         out = [step(clips, mask) for _ in range(TRAIN_WARMUP)]
@@ -1532,6 +1907,7 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask):
                     "flash_bwd_by_design": dict(fa.bwd_launches_by_design),
                     "dout_copies": fa.dout_copies}
         peak = torch.cuda.max_memory_allocated()
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
         enqueue = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1539,10 +1915,14 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask):
             step(clips, mask)
             enqueue.append((time.perf_counter() - t1) * 1e3)
         torch.cuda.synchronize()
-        device_ms = step_device_ms(step, clips, mask)
+        if graphed:
+            row.update(captures=step.graphed.captures,
+                       replays=step.graphed.replays)
+            device_ms = time_ms(step.graphed.graphs[0].replay, device,
+                                iters=5, warmup=1)[0]
     except torch.cuda.OutOfMemoryError as e:
         row.update(outcome="OOM", error=str(e)[:200])
-        return row, None
+        return row, None, None
     finally:
         model = opt = step = None
         torch.cuda.empty_cache()
@@ -1555,42 +1935,57 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask):
         flops_a_step=flops,
         mfu=flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
         peak_memory_gib=peak / 2 ** 30, launches=launches,
-        step_enqueue_ms=float(np.median(enqueue)), step_device_ms=device_ms,
-        device_time_source="cuda_graph_replay",
-        idle_share=1 - device_ms / step_ms)
-    return row, grads
+        step_enqueue_ms=float(np.median(enqueue)))
+    if graphed:
+        row.update(step_device_ms=device_ms,
+                   device_time_source="cuda_graph_replay",
+                   idle_share=1 - device_ms / step_ms)
+    return row, grads, params
+
+
+def params_equal(got, want):
+    """Names of the parameters whose bytes differ (all f32)."""
+    return [n for n, w in want.items()
+            if n not in got or not bitwise_equal(got[n], w)]
+
+
+TRAIN_RUNS = (("flash", True, True), ("flash_eager", True, False),
+              ("materialized", False, True))  # (key, use_flash, graphed)
 
 
 def phase_training(device, smi):
     """bench.py's joint training configurations through init_vit and
-    make_vit_train_step, flash and materialized, each for 2 + 8 steps:
-    launches (12 flash forwards and 12 backwards a step, every backward
-    through the wgmma design, 24 forwards with remat, none on the
-    materialized path), step ms, tokens/s, MFU against
-    the bf16 peak, peak memory, device ms and idle share; gates: a finite
-    loss at every step, the two paths' first losses within the bf16 model
-    rule, their first-step gradients leaf by leaf within
-    TRAIN_GRAD_BOUNDS of each other, in bf16 and again with the model in
-    f32, the flash path's loss falling over its first 8 steps. Printed
-    beside them, to tell the kernels' part from the flash contract's: the
-    bf16 first step of the flash path's plain versions against the
-    kernels', and each bf16 path against the model in f32 on the
-    materialized path."""
+    make_vit_train_step, each for 2 + 8 steps: flash through the step's
+    CUDA graph, flash eagerly, materialized through the graph. Launches
+    (12 flash forwards and 12 backwards a step, every backward through the
+    wgmma design, 24 forwards with remat, none on the materialized path),
+    step ms, tokens/s, MFU against the bf16 peak, peak memory, host ms,
+    device ms (graph replay), replays and idle share; gates: the graphed
+    flash run bit-equal to the eager one (every loss, every parameter
+    after the 10 steps), a finite loss at every step, the two paths'
+    first losses within the bf16 model rule, their first-step gradients
+    leaf by leaf within TRAIN_GRAD_BOUNDS of each other, in bf16 and
+    again with the model in f32, the flash path's loss falling over its
+    first 8 steps. Printed beside them, to tell the kernels' part from
+    the flash contract's: the bf16 first step of the flash path's plain
+    versions against the kernels', and each bf16 path against the model
+    in f32 on the materialized path."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     depth = TRAIN_VIT["depth"]
     runs, failures = [], []
     for name, batch, size, remat in TRAIN_CONFIGS:
         clips, mask = ramp_clips(batch, size, device)
-        rows, grads = {}, {}
-        for use_flash in (True, False):
-            row, grads[use_flash] = train_run(device, name, batch, size,
-                                              remat, use_flash, clips, mask)
-            rows[use_flash] = row
+        rows, grads, params = {}, {}, {}
+        for key, use_flash, graphed in TRAIN_RUNS:
+            row, grads[key], params[key] = train_run(
+                device, name, batch, size, remat, use_flash, clips, mask,
+                graphed)
+            rows[key] = row
             runs.append(row)
             if row["outcome"] != "ran":
                 if use_flash:
-                    failures.append(f"{name} flash: {row['outcome']}")
+                    failures.append(f"{name} {key}: {row['outcome']}")
                 continue
             n = row["steps"]
             fwd = depth * n * (2 if remat else 1) if use_flash else 0
@@ -1604,11 +1999,29 @@ def phase_training(device, smi):
                 for d in fa.BWD_DESIGNS}
             got = {k: row["launches"][k] for k in want}
             if got != want:
-                failures.append(f"{name} flash={use_flash}: launches {got}, "
-                                f"want {want}")
+                failures.append(f"{name} {key}: launches {got}, want {want}")
+            if graphed and (row["captures"], row["replays"]) != (1, n + 2):
+                failures.append(f"{name} {key}: {row['captures']} captures, "
+                                f"{row['replays']} replays over {n} + 3 "
+                                "steps, want 1 and all but the first")
             if not np.isfinite(row["loss"]).all():
-                failures.append(f"{name} flash={use_flash}: loss "
-                                f"{row['loss']}")
+                failures.append(f"{name} {key}: loss {row['loss']}")
+        eager = rows["flash_eager"]
+        rows["flash"]["graphed_vs_eager"] = check = {}
+        if eager["outcome"] == "ran" and rows["flash"]["outcome"] == "ran":
+            eager["idle_share"] = (1 - rows["flash"]["step_device_ms"]
+                                   / eager["step_ms"])
+            check["losses_bit_equal"] = (rows["flash"]["loss"]
+                                         == eager["loss"])
+            check["params_differing"] = params_equal(params["flash"],
+                                                     params["flash_eager"])
+            check["params"] = len(params["flash_eager"])
+            if not check["losses_bit_equal"] or check["params_differing"]:
+                failures.append(f"{name}: graphed flash steps differ from "
+                                f"eager ones: {check}")
+        del params
+        grads = {True: grads["flash"], False: grads["materialized"]}
+        rows = {True: rows["flash"], False: rows["materialized"]}
         flash, plain = rows[True], rows[False]
         if flash["outcome"] == "ran":
             losses = flash["loss"]
@@ -1768,7 +2181,7 @@ def train_profile(device, name, use_flash, replay_ms, top=8):
     model = VideoViT(compute_dtype=torch.bfloat16,
                      residual_dtype=torch.bfloat16, use_flash=use_flash,
                      remat=remat, size=size, device=device, **TRAIN_VIT)
-    step = make_vit_train_step(model, torch.optim.SGD(
+    step = eager_step(model, torch.optim.SGD(
         model.parameters(), lr=TRAIN_LR, momentum=TRAIN_MOMENTUM))
     for _ in range(3):
         step(clips, mask)
@@ -1800,7 +2213,8 @@ def phase_train_profile(device, training):
     replay adds the gaps between kernels)."""
     rows = [train_profile(device, r["config"], r["use_flash"],
                           r["step_device_ms"])
-            for r in training["runs"] if r["outcome"] == "ran"]
+            for r in training["runs"]
+            if r["outcome"] == "ran" and r["graphed"]]
     out = {"phase": "train_profile", "source": "torch.profiler, "
            "device records without user annotations", "runs": rows}
     emit(out)
@@ -1949,6 +2363,7 @@ def run(device):
     rows = phase_times(device, smi, main)
     flash_worst = phase_flash_vs_plain()
     serving = phase_serving(device)
+    pooled = phase_pooled(device, smi)
     streaming = phase_streaming(device, smi)
     flash = phase_flash_times(device, smi, serving)
     bwd_worst = phase_flash_bwd_vs_plain()
@@ -1958,25 +2373,40 @@ def run(device):
     head = rows[0]
     band = next(r for r in flash["cases"] if r["case"] == "twin_temporal")
     twin = streaming["flash_launches"]
-    train = {f"train_{r['config']}": r["launches"] for r in training["runs"]
-             if r["use_flash"]}
+    train = {f"train_{r['config']}"
+             f"{'' if r['graphed'] else '_eager'}": r["launches"]
+             for r in training["runs"]
+             if r["use_flash"] and r["outcome"] == "ran"}
     source = "tensor_stream_torch/csrc/flash_fwd.cu"
+    serve_runs = {"serving": serving, "serving_graphed":
+                  serving["graphed_run"], "serving_fused":
+                  serving["fused_run"]}
+    pool_runs = {f"pooled_{kind}_{p}": r["launches"]["nv12_rgb"]
+                 for kind in ("frames", "mean_model")
+                 for p, r in pooled[kind].items()}
+    stream_runs = {f"streaming{'_graphed' if g else ''}": sum(
+        r["launches"]["nv12_rgb"] for name in STREAM_KV
+        for r in (streaming[name]["graphed"] if g else
+                  streaming[name])["runs"]) for g in (False, True)}
     # "launches" is each kernel's count summed over the main paths that
-    # run it (the headline loader; serving; the two training runs), each
-    # path's count taken from 0 just before it and read just after; every
-    # path's count is beside it, the streaming twin's check among them.
-    fwd_paths = {"serving": serving["launches"]["flash_fwd"],
+    # run it (the headline loader; serving eager, graphed and fused; the
+    # pooled phase; streaming eager and graphed; the training runs), each
+    # path's count taken from 0 just before it and read just after, a
+    # graph replay counting what its capture recorded; every path's count
+    # is beside it, the streaming twin's check among them.
+    nv12_paths = {"main_path": main[3]["total"],
+                  **{k: r["launches"]["nv12_rgb"]
+                     for k, r in serve_runs.items()},
+                  **pool_runs, **stream_runs}
+    fwd_paths = {**{k: r["launches"]["flash_fwd"]
+                    for k, r in serve_runs.items()},
                  **{k: v["flash_fwd"] for k, v in train.items()}}
     emit({"kernels": [{
         "name": "nv12_rgb", "route": "cuda",
         "source": "tensor_stream_torch/csrc/nv12_rgb.cu",
         "replaces": "tensor_stream_tpu/ops/pallas_color.py:68",
-        "launches": main[3]["total"],
-        "launches_by_path": {
-            "main_path": main[3]["total"],
-            "serving": serving["launches"]["nv12_rgb"],
-            "streaming": sum(run["launches"]["nv12_rgb"] for name in STREAM_KV
-                             for run in streaming[name]["runs"])},
+        "launches": sum(nv12_paths.values()),
+        "launches_by_path": nv12_paths,
         "launches_by_variant": {v: main[3][v] for v in nv12_rgb.VARIANTS},
         "max_abs_err": worst, "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

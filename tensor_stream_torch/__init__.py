@@ -7,9 +7,10 @@ converted on the card (crop -> NV12-domain resize -> colour conversion ->
 normalization -> planar/merged layout) into ``torch.Tensor``s on
 ``cuda:N``. Full-frame NV12->RGB runs in a hand-written CUDA kernel
 (csrc/nv12_rgb.cu). ``StreamInferencer`` serves many streams through one
-model call a tick; ``models.VideoViT`` is the video transformer it serves,
-whose attention runs a hand-written CUDA flash-attention forward
-(csrc/flash_fwd.cu).
+model call a tick; ``models.VideoViT`` is the video transformer it serves
+and trains, whose attention runs hand-written CUDA flash-attention kernels
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu). ``cuda_graph`` replays a tick or a
+training step as one CUDA graph, where the JAX package jits it.
 
     from tensor_stream_torch import TensorStreamConverter, FourCC, Planes
 
@@ -17,9 +18,10 @@ Entry points take ``device=None``, meaning ``cuda:<index>``; they raise
 when no CUDA device is present unless ``device="cpu"`` is passed.
 This package imports nothing of JAX or of the JAX package.
 """
-from .data import FrameLoader, MultiStreamLoader
+from .data import FrameLoader, MultiStreamLoader, PooledStreamLoader
 from .enums import (ColorStandard, FourCC, FrameRate, LogsLevel, LogsType,
                     Planes, ResizeType, StatusLevel, channels_by_fourcc)
+from .graphs import cuda_graph
 from .ops.vpp import VPPConfig
 from .serving import StreamInferencer, StreamResult
 from .tensor_stream import FrameParameters, TensorStreamConverter
@@ -28,7 +30,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "TensorStreamConverter", "FrameParameters", "FrameLoader",
-    "MultiStreamLoader", "StreamInferencer", "StreamResult", "VPPConfig",
+    "MultiStreamLoader", "PooledStreamLoader", "StreamInferencer",
+    "StreamResult", "VPPConfig", "cuda_graph",
     "StatusLevel", "LogsLevel", "LogsType", "FourCC", "ResizeType", "Planes",
     "FrameRate", "ColorStandard", "channels_by_fourcc",
 ]

@@ -141,6 +141,15 @@ def load():
         sig("ts_segmented_seek_frame", None, [c_void_p, ctypes.c_longlong])
         sig("ts_segmented_stop", None, [c_void_p])
         sig("ts_segmented_destroy", None, [c_void_p])
+        # Shared worker pool, many streams (csrc/stream_pool.cpp); each
+        # stream's handle is a pipeline for the ts_pipeline_* calls.
+        sig("ts_pool_create", c_void_p, [c_int])
+        sig("ts_pool_add_stream", c_int,
+            [c_void_p, c_char_p, c_int, c_int, c_int])
+        sig("ts_pool_start", c_int, [c_void_p])
+        sig("ts_pool_stream", c_void_p, [c_void_p, c_int])
+        sig("ts_pool_stop", None, [c_void_p])
+        sig("ts_pool_destroy", None, [c_void_p])
         # Host VPP (csrc/vpp_convert.cpp): the source-order reference the
         # tests hold the plain torch colour math to.
         sig("ts_vpp_convert_host", c_int,

@@ -1,11 +1,13 @@
 """FrameLoader: a prefetching iterator from a video stream to device batches;
-MultiStreamLoader: several FrameLoaders stacked into one batch a tick.
+MultiStreamLoader: several FrameLoaders stacked into one batch a tick;
+PooledStreamLoader: many streams on one native worker pool, one flat
+staging buffer and one VPP dispatch a tick.
 
-Port of the JAX package's ``data.py:53-420``. Decode runs in the native
-producer thread, the drain (plus the optional native host resize) in a
-loader thread, both outside the GIL; the caller's thread only ships each
-filled pinned staging buffer to the device in one ``non_blocking`` copy
-and queues the batched VPP. Host decode, the copy and device compute
+Port of the JAX package's ``data.py:53-420`` and ``:1399-1679``. Decode
+runs in native producer threads, the drain (plus the optional native host
+resize) in a loader thread, both outside the GIL; the caller's thread
+only ships each filled pinned staging buffer to the device in one
+``non_blocking`` copy and queues the batched VPP. Host decode, the copy and device compute
 overlap.
 
     loader = FrameLoader("video.mp4", batch=16, width=224, height=224,
@@ -386,6 +388,253 @@ class MultiStreamLoader:
     def close(self):
         for loader in self.loaders:
             loader.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class PooledStreamLoader:
+    """Many streams, one shared native worker pool, one device dispatch.
+
+    Port of the JAX package's ``data.py:1454-1679``. N streams share M
+    pool workers (csrc/stream_pool.cpp): each worker round-robins decode
+    iterations over the streams with ring headroom, so the thread count
+    is bounded by cores, not streams. A fill thread drains every stream
+    into one flat pinned staging buffer (all Y planes, then all UV
+    planes); a tick is one ``non_blocking`` copy and one batched VPP over
+    ``n_streams * per_stream`` frames.
+
+        loader = PooledStreamLoader(urls, per_stream=4, workers=8,
+                                    host_resize=True, width=224,
+                                    height=224, pixel_format=FourCC.RGB24,
+                                    planes_pos=Planes.PLANAR,
+                                    normalization=True, loop=True)
+        for batch, indices in loader:   # [len(urls)*4, 3, 224, 224]
+            serve(batch)
+
+    All streams must share one geometry unless host_resize unifies them.
+    Iteration ends when any stream is exhausted (loop=True never ends);
+    a drained stream gives StopIteration on every later next(), a
+    mid-stream resolution switch without host_resize a RuntimeError.
+
+    The native pool is set up by ``_open_pool`` and drained by
+    ``_fill_tick``; a subclass that feeds frames from elsewhere overrides
+    both and keeps the staging, copy and VPP.
+    """
+
+    def __init__(self, stream_urls, per_stream=8, workers=0,
+                 host_resize=False, loop=False, buffer_size=None,
+                 device_index=0, fast_decode=False, post_fn=None,
+                 prefetch=2, device=None, **frame_kwargs):
+        """`post_fn` ([global_batch, ...] in, anything out) runs in the
+        same dispatch as the VPP: on CUDA the two are one CUDA graph
+        (ops/vpp.py::build_vpp_batched_flat), and serving's
+        pipeline="fused" rides this.
+
+        `prefetch` bounds how many ticks the fill thread runs ahead of the
+        consumer: the fill (blocking per-stream batch gets plus the native
+        host resize into staging) overlaps the copy and dispatch of
+        earlier ticks. The staging pool holds prefetch + 2 buffers, each
+        reused only after the event recorded behind the tick that read
+        it."""
+        self.device = resolve_device(device, device_index)
+        self.device_index = self.device.index or 0
+        self.params = FrameParameters(**frame_kwargs)
+        self.per_stream = int(per_stream)
+        self.host_resize = bool(host_resize)
+        if self.host_resize:
+            self._algo = host_resize_algo(self.params)
+        self.prefetch = max(1, int(prefetch))
+        self._bufs = queue.Queue()
+        self._filled = queue.Queue(maxsize=self.prefetch)
+        self._pending = collections.deque()  # (buf, event) in flight
+        self._stop = threading.Event()
+        self._thread = None
+        self._closed = False
+        self._lib = None
+        self.pool = None
+        self.handles = []
+        self._open_pool(stream_urls, workers, loop, buffer_size, fast_decode)
+        self.n_streams = len(stream_urls)
+        self.global_batch = self.n_streams * self.per_stream
+        if self.host_resize:
+            params = FrameParameters(
+                pixel_format=self.params.pixel_format,
+                planes_pos=self.params.planes_pos,
+                normalization=self.params.normalization,
+                color_standard=self.params.color_standard,
+                dtype=self.params.dtype)
+        else:
+            params = self.params
+        self._vpp = build_vpp_batched_flat(params.to_config(self._w, self._h),
+                                           self.global_batch, self.device,
+                                           post_fn=post_fn)
+        size = self.global_batch * self._w * self._h * 3 // 2
+        for _ in range(self.prefetch + 2):
+            self._bufs.put(staging_buffer(size, self.device))
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+
+    def _open_pool(self, stream_urls, workers, loop, buffer_size,
+                   fast_decode):
+        """Opens every stream in one native pool, starts it, sets the
+        tick geometry (self._w, self._h) and resolves
+        ColorStandard.AUTO, which every stream must agree on."""
+        self._lib = lib = _native.load()
+        self.pool = lib.ts_pool_create(int(workers))
+        for url in stream_urls:
+            idx = lib.ts_pool_add_stream(
+                self.pool, str(url).encode(),
+                int(buffer_size or 4 * self.per_stream), int(bool(loop)),
+                int(bool(fast_decode)))
+            if idx < 0:
+                lib.ts_pool_destroy(self.pool)
+                self.pool = None
+                raise RuntimeError(f"cannot open stream {url}")
+            handle = lib.ts_pool_stream(self.pool, idx)
+            # The cursor is registered before the start, so the no-drop
+            # window opens at frame 1.
+            lib.ts_pipeline_register_cursor(handle, b"pool")
+            self.handles.append(handle)
+        dims = {(lib.ts_pipeline_width(h), lib.ts_pipeline_height(h))
+                for h in self.handles}
+        if self.host_resize:
+            self._w, self._h = self.params.width, self.params.height
+        else:
+            if len(dims) != 1:
+                lib.ts_pool_destroy(self.pool)
+                self.pool = None
+                raise ValueError(f"streams disagree on geometry {dims}; "
+                                 "use host_resize to unify")
+            (self._w, self._h), = dims
+        if lib.ts_pool_start(self.pool) != 0:
+            raise RuntimeError("StreamPool start failed")
+        if self.params.color_standard is ColorStandard.AUTO:
+            # Colorimetry comes from decoded frames, and the one shared VPP
+            # needs every stream to agree on it. A stream that decoded no
+            # frame before the deadline is a timeout, not a BT.601
+            # detection.
+            deadline = time.monotonic() + 10.0
+            detected = set()
+            for k, handle in enumerate(self.handles):
+                std = _wait_detected_standard(lib, handle, 0, deadline)
+                if std is None:
+                    self.close()
+                    raise RuntimeError(
+                        f"color_standard=AUTO: stream {k} decoded no frame "
+                        "in time to detect colorimetry from; pass an "
+                        "explicit standard")
+                detected.add(std)
+            if len(detected) != 1:
+                self.close()
+                raise ValueError(
+                    f"streams disagree on colorimetry {sorted(detected)}; "
+                    "pass an explicit color_standard")
+            self.params.color_standard = ColorStandard(detected.pop())
+
+    def _fill_tick(self, buf):
+        """Drains one tick into `buf`: per_stream frames a stream, stream
+        k's Y planes at k * per_stream frames into the Y half and its UV
+        planes likewise into the UV half. Returns {stream: indices}, None
+        when a stream has drained (ticks stay rectangular) or
+        _RENEGOTIATED on a mid-stream geometry switch without
+        host_resize."""
+        lib = self._lib
+        y_frame = self._w * self._h
+        y_total = self.global_batch * y_frame
+        base = buf.data_ptr()
+        first = ctypes.c_int(0)
+        indices = {}
+        for k, handle in enumerate(self.handles):
+            y_ptr = base + k * self.per_stream * y_frame
+            uv_ptr = base + y_total + k * self.per_stream * y_frame // 2
+            if self.host_resize:
+                got = lib.ts_pipeline_get_batch_resized(
+                    handle, b"pool", self.per_stream, self._w, self._h,
+                    self._algo, y_ptr, uv_ptr, ctypes.byref(first))
+            else:
+                got = lib.ts_pipeline_get_batch(
+                    handle, b"pool", self.per_stream, y_ptr, uv_ptr,
+                    ctypes.byref(first))
+            if got == _native.TS_RENEGOTIATE:
+                return _RENEGOTIATED
+            if got < self.per_stream:
+                return None
+            indices[k] = list(range(first.value, first.value + got))
+        return indices
+
+    def _drain(self):
+        """Fill thread: one tick into a staging buffer from the rotating
+        pool, pushed to the bounded `_filled` queue; the ctypes calls
+        release the GIL. A terminal sentinel ends it."""
+        while not self._stop.is_set():
+            buf = self._bufs.get()
+            if buf is None or self._stop.is_set():
+                break
+            indices = self._fill_tick(buf)
+            if indices is None or indices is _RENEGOTIATED:
+                self._filled.put(indices)
+                break
+            self._filled.put((buf, indices))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._closed:
+            raise StopIteration
+        item = self._filled.get()
+        if item is None:
+            self._filled.put(item)  # latch: a later next() raises again
+            raise StopIteration
+        if item is _RENEGOTIATED:
+            self._filled.put(item)  # latch
+            raise RuntimeError(
+                "a stream changed resolution mid-stream; use "
+                "PooledStreamLoader(host_resize=True) to ride through "
+                "switches, or restart the pool for the new geometry")
+        buf, indices = item
+        with torch.no_grad():
+            tensors = self._vpp(ship(buf, self.device))
+        self._pending.append((buf, record_event(self.device)))
+        if len(self._pending) > self.prefetch:
+            self._recycle(*self._pending.popleft())
+        return tensors, indices
+
+    def _recycle(self, buf, event):
+        wait_event(event)
+        self._bufs.put(buf)
+
+    def close(self):
+        """Shuts down in order: stop flag, in-flight buffers back, a
+        drain waiting for a buffer woken, the native pool stopped (wakes a
+        drain parked in a blocking get), a drain parked on the full queue
+        woken, the thread joined, and only then the pool destroyed."""
+        if self._closed:
+            return
+        self._closed = True
+        self._stop.set()
+        while self._pending:
+            self._recycle(*self._pending.popleft())
+        try:
+            self._bufs.put_nowait(None)
+        except queue.Full:
+            pass
+        if self.pool is not None:
+            self._lib.ts_pool_stop(self.pool)
+        try:
+            self._filled.get_nowait()
+        except queue.Empty:
+            pass
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+        if self.pool is not None:
+            self._lib.ts_pool_destroy(self.pool)
+            self.pool = None
 
     def __enter__(self):
         return self

@@ -26,10 +26,11 @@ Training: ``remat=True`` runs each block under ``torch.utils.checkpoint``
 (non-reentrant) when grad is enabled, as the flax module wraps its blocks
 in ``nn.remat``; ``init_vit`` re-draws a model's parameters from a
 generator; ``make_vit_train_step`` is the JAX step without its mesh (the
-arrow-of-time task, its loss and accuracy, then the optimizer). Left out
-here: ring attention (``ring_axis``/``mesh``), ``act_sharding``,
-``vit_param_specs``, ``make_act_sharding`` and the mesh of
-``make_vit_train_step`` (ROADMAP.md, the parallel slice).
+arrow-of-time task, its loss and accuracy, then the optimizer), replayed
+as a CUDA graph on the card. Left out here: ring attention
+(``ring_axis``/``mesh``), ``act_sharding``, ``vit_param_specs``,
+``make_act_sharding`` and the mesh of ``make_vit_train_step`` (ROADMAP.md,
+the parallel slice).
 """
 from typing import Optional, Tuple
 
@@ -39,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..graphs import cuda_graph
 from ..ops.flash_attention import band_mask, flash_attention, recomputing
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -399,11 +401,52 @@ def make_vit_train_step(model: VideoViT, optimizer: torch.optim.Optimizer):
     returns step(clips, flip_mask) -> (loss, acc), which takes the
     gradients of ``vit_loss``, applies `optimizer` and clears the
     gradients, updating `model` and `optimizer` in place. Nothing in it
-    waits for the device: loss and acc come back as 0-d device tensors."""
+    waits for the device: loss and acc come back as 0-d device tensors.
+
+    On CUDA the step is served through a CUDA graph (``graphs.cuda_graph``,
+    the counterpart of the JAX step's ``jax.jit``): the first call is a
+    real eager step, which also makes the optimizer's lazy state (SGD's
+    momentum buffers); the second captures forward, backward,
+    ``optimizer.step()`` and ``zero_grad`` over static clips and mask,
+    with the gradients in the graph's memory, and replays it; later calls
+    replay. Loss and acc come back as copies. The optimizer's
+    hyperparameters (lr, momentum, ...) are baked into the graph: a call
+    after one of them changed raises. On the CPU the step runs eagerly;
+    on CUDA ``step.graphed.fn`` is the same step, eager."""
     def step(clips, flip_mask):
         loss, acc = vit_loss(model, clips, flip_mask)
         loss.backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return loss.detach(), acc
-    return step
+    if resolve_device(model.device).type != "cuda":
+        return step
+    return _GraphedStep(step, optimizer)
+
+
+def _hyperparameters(optimizer):
+    return [{k: v for k, v in group.items() if k != "params"}
+            for group in optimizer.param_groups]
+
+
+class _GraphedStep:
+    """A train step behind ``cuda_graph``, refusing to replay a graph
+    whose baked hyperparameters are no longer the optimizer's.
+    ``graphed`` is the CudaGraph (its replays and graphs)."""
+
+    def __init__(self, step, optimizer):
+        self.graphed = cuda_graph(step)
+        self.optimizer = optimizer
+        self._captured = None
+
+    def __call__(self, clips, flip_mask):
+        now = _hyperparameters(self.optimizer)
+        if self._captured is not None and now != self._captured:
+            raise ValueError(
+                f"optimizer hyperparameters changed from {self._captured} "
+                f"to {now} after the step was captured; build a new step")
+        captures = self.graphed.captures
+        out = self.graphed(clips, flip_mask)
+        if self.graphed.captures != captures:
+            self._captured = now
+        return out

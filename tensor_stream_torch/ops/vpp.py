@@ -19,6 +19,7 @@ import torch
 from .._device import resolve_device
 from ..enums import (ColorStandard, FourCC, Planes, ResizeType,
                      channels_by_fourcc)
+from ..graphs import cuda_graph
 from . import color as color_ops
 from . import nv12_rgb
 from .crop import crop_nv12
@@ -170,20 +171,24 @@ def build_vpp_batched(cfg: VPPConfig, device=None, device_index: int = 0):
     return _vpp(cfg, resolve_device(device, device_index))
 
 
-@lru_cache(maxsize=64)
-def _vpp_flat(cfg: VPPConfig, batch: int, device: torch.device, post_fn):
+def _convert_flat(cfg: VPPConfig, batch: int, post_fn):
     fn = make_vpp_fn(cfg)
     h, w = cfg.src_height, cfg.src_width
     y_size = batch * h * w
 
-    def flat_fn(flat):
-        flat = _on(device, flat)
+    def convert(flat):
         ys = flat[:y_size].view(batch, h, w)
         uvs = flat[y_size:].view(batch, h // 2, w)
         out = fn(ys, uvs)
         return post_fn(out) if post_fn is not None else out
 
-    return flat_fn
+    return convert
+
+
+@lru_cache(maxsize=64)
+def _vpp_flat(cfg: VPPConfig, batch: int, device: torch.device):
+    convert = _convert_flat(cfg, batch, None)
+    return lambda flat: convert(_on(device, flat))
 
 
 def build_vpp_batched_flat(cfg: VPPConfig, batch: int, device=None,
@@ -192,11 +197,26 @@ def build_vpp_batched_flat(cfg: VPPConfig, batch: int, device=None,
 
     Takes a (batch*H*W*3/2,) uint8 tensor laid out as all Y planes then
     all UV planes and returns [batch, ...] tensors; the planes are views
-    of the buffer, so a batch costs one host-to-device copy. `post_fn`
-    ([batch, ...] in, anything out) runs right after the conversion on
-    the same stream."""
-    return _vpp_flat(cfg, int(batch), resolve_device(device, device_index),
-                     post_fn)
+    of the buffer, so a batch costs one host-to-device copy.
+
+    `post_fn` ([batch, ...] in, anything out) runs right after the
+    conversion. On CUDA the conversion and `post_fn` are one CUDA graph
+    (graphs.cuda_graph: a warm-up call, then a capture, then replays),
+    the counterpart of the JAX package tracing `post_fn` into the VPP
+    program: one dispatch a batch. The graph reads its own static device
+    buffer: the copy to the device stays outside it, so each replay reads
+    the staging buffer the call was given. Each call builds a new graph,
+    which lives as long as the returned function."""
+    device = resolve_device(device, device_index)
+    if post_fn is None:
+        return _vpp_flat(cfg, int(batch), device)
+    graphed = cuda_graph(_convert_flat(cfg, int(batch), post_fn))
+
+    def flat_fn(flat):
+        return graphed(_on(device, flat))
+
+    flat_fn.graphed = graphed
+    return flat_fn
 
 
 def vpp_numpy(cfg: VPPConfig, y: np.ndarray, uv: np.ndarray,

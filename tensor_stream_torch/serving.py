@@ -1,18 +1,25 @@
 """StreamInferencer: continuous batched inference over many streams.
 
-Port of the JAX package's ``serving.py``. N streams decode through one
-MultiStreamLoader into a single ``[N*per_stream, ...]`` batch a tick; one
-model call serves every stream at once, and the results demux back to
-per-stream slices with their frame indices.
+Port of the JAX package's ``serving.py``. N streams decode into a single
+``[N*per_stream, ...]`` batch a tick; one model call serves every stream
+at once, and the results demux back to per-stream slices with their frame
+indices.
 
 Dispatch stays asynchronous: ``infer_fn`` enqueues its kernels on the
 current CUDA stream and returns, a CUDA event is recorded behind them,
 and the loop only waits on that event when it drains the batch, up to
 ``inflight`` ticks later. Host decode of the next tick overlaps device
-compute of this one. ``infer_fn`` runs under ``torch.no_grad()``.
+compute of this one. ``infer_fn`` (and, for "fused", the loader's
+dispatch) runs under ``torch.no_grad()``.
 
+The JAX package serves a jitted ``infer_fn``; here the counterpart is an
+``infer_fn`` wrapped in ``graphs.cuda_graph``, which the engine runs as
+it runs any other. ``pipeline="fused"`` graphs the VPP and ``infer_fn``
+together on its own.
+
+    from tensor_stream_torch.graphs import cuda_graph
     from tensor_stream_torch.serving import StreamInferencer
-    eng = StreamInferencer(["cam0.mp4", "cam1.mp4"], serve_fn,
+    eng = StreamInferencer(["cam0.mp4", "cam1.mp4"], cuda_graph(serve_fn),
                            per_stream=16, width=224, height=224,
                            pixel_format=FourCC.RGB24,
                            planes_pos=Planes.MERGED, normalization=True,
@@ -20,9 +27,6 @@ compute of this one. ``infer_fn`` runs under ``torch.no_grad()``.
     for r in eng.stream(max_batches=100):
         push(r.stream, r.frames, r.outputs)   # per-stream slice
     eng.close()
-
-Only the ``"per-stream"`` pipeline is ported; ``"pooled"`` and ``"fused"``
-need ``PooledStreamLoader`` (ROADMAP.md queue 1 item 5).
 """
 import time
 from collections import deque, namedtuple
@@ -32,7 +36,9 @@ import numpy as np
 import torch
 
 from ._device import record_event, wait_event
-from .data import MultiStreamLoader
+from .data import MultiStreamLoader, PooledStreamLoader
+from .graphs import leaves as _leaves
+from .graphs import tree_map as _map
 
 StreamResult = namedtuple("StreamResult", ("stream", "frames", "outputs"))
 StreamResult.__doc__ = """One stream's slice of a served batch.
@@ -43,24 +49,8 @@ outputs: the model outputs for those rows (leading axis = frames)
 """
 
 
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return []
-
-
-def _map(fn, tree):
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return tree
+def _identity(outputs):
+    return outputs
 
 
 class StreamInferencer:
@@ -83,7 +73,21 @@ class StreamInferencer:
 
         ``on_end``: "stop" ends service when any stream ends; "drop"
         evicts exhausted streams (and their carry rows) and serves the
-        rest with a smaller batch."""
+        rest with a smaller batch.
+
+        ``pipeline`` picks the decode and dispatch topology:
+          "per-stream" (default): one MultiStreamLoader, a native
+            producer and a VPP dispatch per stream a tick; supports
+            on_end="drop" and a carry.
+          "pooled": one PooledStreamLoader, the streams on one native
+            worker pool and one flat staging buffer: one copy and one VPP
+            dispatch a tick.
+          "fused": pooled, with ``infer_fn`` run inside the loader's
+            dispatch (on CUDA the VPP and ``infer_fn`` are one CUDA
+            graph): one dispatch a tick; ``infer_fn`` must be stateless
+            and must not wait for the device.
+        Pooled and fused engines own their loader (pass no ``loader``),
+        are stateless and end service when any stream drains."""
         if on_end not in ("stop", "drop"):
             raise ValueError(f"on_end must be 'stop' or 'drop': {on_end}")
         if on_end == "drop" and loader is not None:
@@ -93,9 +97,11 @@ class StreamInferencer:
             raise ValueError("pipeline must be 'per-stream', 'pooled' "
                              f"or 'fused': {pipeline!r}")
         if pipeline != "per-stream":
-            raise NotImplementedError(
-                f"pipeline={pipeline!r} needs PooledStreamLoader, which is "
-                "not ported yet (ROADMAP.md queue 1 item 5)")
+            if loader is not None or carry is not None or on_end != "stop":
+                raise ValueError(
+                    f"pipeline={pipeline!r} builds its own pooled "
+                    "loader and is stateless: omit loader/carry and "
+                    "keep on_end='stop'")
         self.pipeline = pipeline
         self.infer_fn = infer_fn
         self.carry = carry
@@ -103,8 +109,19 @@ class StreamInferencer:
         self.per_stream = per_stream
         self.on_end = on_end
         self._own_loader = loader is None
-        self.loader = loader if loader is not None else MultiStreamLoader(
-            stream_urls, per_stream=per_stream, **loader_kwargs)
+        if loader is not None:
+            self.loader = loader
+        elif pipeline == "per-stream":
+            self.loader = MultiStreamLoader(
+                stream_urls, per_stream=per_stream, **loader_kwargs)
+        else:
+            self.loader = PooledStreamLoader(
+                stream_urls, per_stream=per_stream,
+                post_fn=infer_fn if pipeline == "fused" else None,
+                **loader_kwargs)
+            if pipeline == "fused":
+                # The loader's dispatch already gave the model's outputs.
+                self.infer_fn = _identity
         self._n_streams = len(stream_urls)
         self._frames = [0] * self._n_streams
         self._batches = 0
@@ -140,7 +157,7 @@ class StreamInferencer:
                     self.carry, out = self.infer_fn(self.carry, batch)
                 else:
                     out = self.infer_fn(batch)
-            event = record_event(batch.device)
+            event = record_event(_leaves(batch)[0].device)
             pending.append((out, indices, event))
             if len(pending) > inflight:
                 yield from self._drain(pending.popleft())

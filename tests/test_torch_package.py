@@ -26,7 +26,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, tensor_stream_torch, tensor_stream_torch.data, "
             "tensor_stream_torch.utils.crc, tensor_stream_torch.serving, "
             "tensor_stream_torch.models, "
-            "tensor_stream_torch.ops.flash_attention; "
+            "tensor_stream_torch.ops.flash_attention, "
+            "tensor_stream_torch.graphs; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'tensor_stream_tpu'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -192,8 +192,8 @@ def test_run_drives_to_exhaustion():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(pipeline="sharded"), ValueError, "pipeline must be"),
-    (dict(pipeline="pooled"), NotImplementedError, "PooledStreamLoader"),
-    (dict(pipeline="fused"), NotImplementedError, "queue 1 item 5"),
+    (dict(pipeline="pooled", carry=torch.zeros(1)), ValueError, "stateless"),
+    (dict(pipeline="fused", on_end="drop"), ValueError, "stateless"),
     (dict(on_end="later"), ValueError, "on_end must be"),
     (dict(on_end="drop", loader=object()), ValueError, "engine-owned"),
 ], ids=["unknown", "pooled", "fused", "on_end", "drop_with_loader"])
