@@ -10,7 +10,14 @@ kernels:
 
 * the headline FrameLoader: 1080p H.264 -> native decode -> host resize
   to 224x224 -> one pinned H2D copy per batch of 128 -> NV12->RGB planar
-  f32 on the card (the nv12_rgb kernel);
+  f32 on the card (the nv12_rgb kernel); and the same loader with the
+  resize on the card (1080p NV12 -> BILINEAR, BICUBIC or AREA -> 224²:
+  the resize_nv12 kernels, each first held byte for byte against its
+  plain version at the reference's CRC geometries, crops included);
+* clip augmentation: bench.py::bench_device_augment's configuration
+  (16 clips of 8 frames of 224², RandomResizedCrop, flip, ColorJitter,
+  normalize), from 224² frames and from 1080p through the device
+  resize, as one CUDA graph a batch, bit-equal to the eager run;
 * serving: two streams of 224x224 NV12 frames -> MultiStreamLoader ->
   StreamInferencer, one 16-frame clip a stream a tick, into a VideoViT at
   ViT-B width (dim 768, depth 12, 12 heads, patch 16, tubelet 2, joint
@@ -75,17 +82,23 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from tensor_stream_torch import _build, _native, serving
+from tensor_stream_torch._device import staging_buffer
 from tensor_stream_torch.data import (FrameLoader, MultiStreamLoader,
                                       PooledStreamLoader)
-from tensor_stream_torch.enums import FourCC, FrameRate, Planes
+from tensor_stream_torch.enums import FourCC, FrameRate, Planes, ResizeType
 from tensor_stream_torch.graphs import CudaGraph, cuda_graph
 from tensor_stream_torch.models import (VideoViT, clone_cache,
                                         init_stream_cache, init_vit,
                                         make_vit_train_step, stream_step)
 from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
+from tensor_stream_torch.ops import resize as resize_ops
+from tensor_stream_torch.ops.augment import AugmentConfig, sample_clip_params
+from tensor_stream_torch.ops.crop import crop_nv12
 from tensor_stream_torch.serving import StreamInferencer
-from tensor_stream_torch.ops.vpp import build_vpp, build_vpp_batched_flat
+from tensor_stream_torch.ops.vpp import (VPPConfig, build_vpp,
+                                         build_vpp_batched_flat,
+                                         build_vpp_clip_augment)
 from tensor_stream_torch.tensor_stream import (FrameParameters,
                                                TensorStreamConverter)
 
@@ -298,6 +311,7 @@ class SyntheticFrameLoader(FrameLoader):
         self.prefetch = prefetch
         self.host_resize = False
         self.drop_partial = False
+        self.augment = None
         self.stream_url = f"synthetic:{seed}"
         self.reader = None
         self._segmented = None
@@ -560,6 +574,386 @@ def phase_times(device, smi, main):
           "vpp_share_of_steady": rows[0]["ms"] * s_batches / 1e3 / s_seconds,
           "library_ms": None,
           "library_note": "no single PyTorch call computes NV12->RGB"})
+    return rows
+
+
+# ------------------------------------------------- resize and clip phases
+
+RESIZE_ALGOS = (ResizeType.BILINEAR, ResizeType.BICUBIC, ResizeType.AREA)
+# tests/test_resize_crc.py:37-95, the reference's 19 CRC cases on a 1080x608
+# frame, as (crop, width, height): 8 distinct geometries, each run through
+# all three kernels (the crops are strided views the kernels read in place).
+RESIZE_SRC = (1080, 608)
+RESIZE_CRC_GEOMETRIES = (
+    (None, 480, 360), (None, 540, 304), (None, 1920, 1080),
+    (None, 720, 480), ((0, 0, 320, 240), 1920, 1080),
+    ((320, 240, 720, 480), 1920, 1080), ((720, 480, 1080, 608), 1920, 1080),
+    ((120, 60, 960, 540), 320, 240))
+# tests/test_resize_crc.py:179-180: up, down and anisotropic, non-dyadic.
+RESIZE_FUZZ = (((64, 48), (52, 36)), ((64, 48), (100, 76)),
+               ((100, 76), (64, 18)), ((56, 34), (146, 108)))
+RESIZE_CONTENTS = ("random", "flat", "checker", "ramp")
+HEADLINE_SRC = (1920, 1080)
+RESIZED_BATCHES = 6
+# bench.py::bench_device_augment (bench.py:284-320): 16 clips of 8 frames of
+# 224² RGB24 planar, normalized, with this AugmentConfig.
+AUG_CLIPS, AUG_CLIP_LEN = 16, 8
+BENCH_AUG = AugmentConfig(width=SIDE, height=SIDE, scale=(0.3, 1.0),
+                          ratio=(0.75, 4 / 3), hflip=0.5, brightness=0.4,
+                          contrast=0.4, saturation=0.4, hue=0.05,
+                          mean=(0.45, 0.45, 0.45), std=(0.225, 0.225, 0.225))
+AUG_CALLS = 8  # a warm-up, a capture and 6 replays
+F64_FLOP_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores (data sheet)
+
+
+def resize_content(content, n, h, w, seed):
+    """Flat NV12 staging of n frames: uniform random bytes, a flat field, a
+    0/255 checker or ramps. Flat and half-tone fields put the most outputs
+    on the rounding boundaries of the bicubic and AREA blends."""
+    if content == "random":
+        return seeded_nv12(n, h, w, seed)
+    i, j = np.mgrid[:h, :w]
+    ci, cj = np.mgrid[:h // 2, :w]
+    if content == "flat":
+        y, uv = np.full((h, w), 77), np.full((h // 2, w), 160)
+    elif content == "checker":
+        y, uv = (i + j) % 2 * 255, (ci + cj // 2) % 2 * 255
+    else:
+        y, uv = (i + j) % 256, (3 * cj + ci) % 256
+    y = np.broadcast_to(y.astype(np.uint8), (n, h, w))
+    uv = np.broadcast_to(uv.astype(np.uint8), (n, h // 2, w))
+    return np.concatenate([y.reshape(-1), uv.reshape(-1)])
+
+
+def check_resize(device, flat, n, h, w, crop, dw, dh, algo):
+    """One kernel launch against the plain version on the same CUDA
+    planes: (kernel, differing bytes, max abs difference)."""
+    y, uv = split(flat, n, h, w)
+    sw, sh = w, h
+    if crop is not None:
+        y, uv = crop_nv12(y, uv, *crop)
+        sw, sh = crop[2] - crop[0], crop[3] - crop[1]
+    r = resize_ops.NV12Resize(sw, sh, dw, dh, algo)
+    before = resize_ops.launches[r.kernel]
+    gy, guv = r(y, uv)
+    if resize_ops.launches[r.kernel] != before + 1:
+        raise AssertionError(f"{r.kernel} did not launch")
+    wy, wuv = r.plain(y, uv)
+    torch.cuda.synchronize()
+    bad = int((gy != wy).sum()) + int((guv != wuv).sum())
+    return r.kernel, bad, max(max_abs_err(gy, wy), max_abs_err(guv, wuv))
+
+
+def phase_resize_vs_plain(device):
+    """Each resize kernel against its plain version on the card, byte for
+    byte: the 19 CRC geometries (crops included) and the 4 fuzz
+    geometries in four contents, and the main path's batch (N=128,
+    1920x1080 -> 224²) in two; every algorithm at every geometry."""
+    worst = dict.fromkeys(resize_ops.KERNELS, 0.0)
+    cases = dict.fromkeys(resize_ops.KERNELS, 0)
+    failures = []
+
+    def run_all(flat, n, h, w, crop, dw, dh, label):
+        for algo in RESIZE_ALGOS:
+            kernel, bad, err = check_resize(device, flat, n, h, w, crop, dw,
+                                            dh, algo)
+            cases[kernel] += 1
+            worst[kernel] = max(worst[kernel], err)
+            if bad:
+                failures.append(f"{kernel} ({algo.name}) {label}: {bad} "
+                                "bytes differ")
+
+    sw, sh = RESIZE_SRC
+    for k, content in enumerate(RESIZE_CONTENTS):
+        flat = torch.from_numpy(resize_content(content, 1, sh, sw,
+                                               60 + k)).to(device)
+        for crop, dw, dh in RESIZE_CRC_GEOMETRIES:
+            run_all(flat, 1, sh, sw, crop, dw, dh,
+                    f"{content} {sw}x{sh} crop {crop} -> {dw}x{dh}")
+        for (fw, fh), (dw, dh) in RESIZE_FUZZ:
+            fflat = torch.from_numpy(resize_content(content, 2, fh, fw,
+                                                    70 + k)).to(device)
+            run_all(fflat, 2, fh, fw, None, dw, dh,
+                    f"{content} N=2 {fw}x{fh} -> {dw}x{dh}")
+    hw, hh = HEADLINE_SRC
+    for k, content in enumerate(("random", "flat")):
+        flat = torch.from_numpy(resize_content(content, BATCH, hh, hw,
+                                               80 + k)).to(device)
+        run_all(flat, BATCH, hh, hw, None, SIDE, SIDE,
+                f"{content} N={BATCH} {hw}x{hh} -> {SIDE}x{SIDE}")
+        del flat
+    emit({"phase": "resize_vs_plain", "cases": cases,
+          "geometries": {"crc": [list(g) for g in RESIZE_CRC_GEOMETRIES],
+                         "fuzz": [list(g) for g in RESIZE_FUZZ],
+                         "main_path": [BATCH, hw, hh, SIDE, SIDE]},
+          "contents": list(RESIZE_CONTENTS), "tolerance": "0 bytes",
+          "differing_cases": len(failures), "max_abs_err": worst})
+    if failures:
+        raise AssertionError("resize kernel != plain: "
+                             + "; ".join(failures[:8]))
+    return worst
+
+
+def resized_cfg(algo):
+    """The headline loader with the resize on the card."""
+    return FrameParameters(width=SIDE, height=SIDE, resize_type=algo,
+                           pixel_format=FourCC.RGB24,
+                           planes_pos=Planes.PLANAR,
+                           normalization=True).to_config(*HEADLINE_SRC)
+
+
+def resize_counts():
+    return {"nv12_rgb": nv12_rgb.launches, **resize_ops.launches}
+
+
+def reset_resize_counts():
+    nv12_rgb.reset_counts()
+    resize_ops.reset_counts()
+
+
+def phase_resized_main_path(device, smi, main):
+    """The headline loader with the resize moved onto the card:
+    SyntheticFrameLoader, seeded 1080p NV12, batches of 128, device
+    resize to 224², RGB24 planar normalized, once per algorithm. Each
+    batch is one resize launch and one NV12 launch; the first batch is
+    bit-equal to the plain versions on the card on the same staging
+    bytes."""
+    hw, hh = HEADLINE_SRC
+    runs = {}
+    for algo in RESIZE_ALGOS:
+        cfg = resized_cfg(algo)
+        kernel = resize_ops.NV12Resize(hw, hh, SIDE, SIDE, algo).kernel
+        loader = SyntheticFrameLoader(RESIZED_BATCHES * BATCH, BATCH, 3, cfg,
+                                      device, seed=13)
+        reset_resize_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        first = None
+        batches = frames = 0
+        for x, idx in loader:
+            check_batch(x, len(idx), device)
+            if first is None:
+                first = (x, idx)
+            batches += 1
+            frames += len(idx)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = resize_counts()
+        loader.close()
+        want = {"nv12_rgb": batches, **dict.fromkeys(resize_ops.KERNELS, 0),
+                kernel: batches}
+        if launches != want:
+            raise AssertionError(f"resized main path {algo.name}: launches "
+                                 f"{launches}, want {want}")
+        x, idx = first
+        staging = torch.from_numpy(loader.staging_bytes(idx[0],
+                                                        len(idx))).to(device)
+        y, uv = split(staging, BATCH, hh, hw)
+        py, puv = resize_ops.NV12Resize(hw, hh, SIDE, SIDE, algo).plain(y, uv)
+        plain = nv12_rgb.nv12_to_rgb_plain(py, puv, False, True, True, 0)
+        if not bitwise_equal(x, plain[:len(idx)]):
+            raise AssertionError(f"resized main path {algo.name}: first "
+                                 "batch differs from the plain versions")
+        vpp = build_vpp_batched_flat(cfg, BATCH, device)
+        dev_ms = time_ms(lambda: vpp(staging), device, iters=30, warmup=5)[0]
+        if not runs:
+            # Where a batch's time goes besides the VPP (the same for every
+            # algorithm): the synthetic fill of the pinned staging on the
+            # host and its copy to the card.
+            buf = staging_buffer(staging.numel(), device)
+            loader._cursor = 0
+            t0 = time.monotonic()
+            loader._fill_batch(buf)
+            fill_ms = (time.monotonic() - t0) * 1e3
+            copy_ms = time_ms(lambda: staging.copy_(buf, non_blocking=True),
+                              device, iters=10, warmup=2)[0]
+            del buf
+        runs[algo.name] = {
+            "kernel": kernel, "batches": batches, "frames": frames,
+            "seconds": seconds, "frames_per_s": frames / seconds,
+            "ms_per_batch": seconds / batches * 1e3,
+            "device_ms_per_batch": dev_ms,
+            "launches_per_batch": {k: v / batches
+                                   for k, v in launches.items()},
+            "launches": launches,
+            "first_batch": "bitwise equal to the plain versions"}
+        del loader, staging, y, uv, x, first
+    head_fps = main[1] / main[2]
+    emit({"phase": "resized_main_path", "card": smi,
+          "config": {"batch": BATCH, "source": list(HEADLINE_SRC),
+                     "target": [SIDE, SIDE], "host_resize": False,
+                     "output": "RGB24 planar f32"},
+          "runs": runs, "host_fill_ms_per_batch": fill_ms,
+          "h2d_copy_ms_per_batch": copy_ms,
+          "host_resize_headline_frames_per_s": head_fps,
+          "vs_host_resize_headline": {k: r["frames_per_s"] / head_fps
+                                      for k, r in runs.items()}})
+    return runs
+
+
+def aug_cfg(source):
+    """(a) bench_device_augment's 224² frames; (b) 1080p frames through
+    the device BILINEAR resize to 224², ClipLoader(host_resize=False)'s
+    VPP."""
+    kw = dict(fourcc=FourCC.RGB24, planes=Planes.PLANAR, normalization=True)
+    if source == "224":
+        return VPPConfig(src_width=SIDE, src_height=SIDE, **kw)
+    return VPPConfig(*HEADLINE_SRC, width=SIDE, height=SIDE,
+                     resize_type=ResizeType.BILINEAR, **kw)
+
+
+def aug_ids(k):
+    """Batch k's (epoch, clip identity) rows: clips 16k .. 16k+15."""
+    return np.stack([np.zeros(AUG_CLIPS, np.int64),
+                     np.arange(AUG_CLIPS) + AUG_CLIPS * k], axis=1)
+
+
+def repeated_frame_staging(n, h, w, clip_len, seed):
+    """Staging whose frames repeat within each clip of clip_len."""
+    y, uv = seeded_frames(seed, h, w, n // clip_len)
+    y, uv = np.repeat(y, clip_len, axis=0), np.repeat(uv, clip_len, axis=0)
+    return np.concatenate([y.reshape(-1), uv.reshape(-1)])
+
+
+def clip_augment_run(device, source):
+    cfg = aug_cfg(source)
+    n = AUG_CLIPS * AUG_CLIP_LEN
+    h, w = cfg.src_height, cfg.src_width
+    flat = torch.from_numpy(seeded_nv12(n, h, w, 41)).to(device)
+    fn = build_vpp_clip_augment(cfg, BENCH_AUG, AUG_CLIPS, AUG_CLIP_LEN, 0,
+                                device)
+    graph = fn.graphed
+    reset_resize_counts()
+    outs = [fn(flat, aug_ids(k)) for k in range(AUG_CALLS)]
+    torch.cuda.synchronize()
+    graphed_launches = resize_counts()
+    check_replays(graph, AUG_CALLS, f"clip_augment {source}")
+    want_shape = (AUG_CLIPS, AUG_CLIP_LEN, 3, SIDE, SIDE)
+    for o in outs:
+        if tuple(o.shape) != want_shape or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"clip_augment {source}: output "
+                                 f"{tuple(o.shape)} or non-finite values")
+    reset_resize_counts()
+    for k, o in enumerate(outs):
+        params = torch.from_numpy(sample_clip_params(
+            BENCH_AUG, SIDE, SIDE, 0, aug_ids(k))).to(device)
+        if not bitwise_equal(graph.fn(flat, params), o):
+            raise AssertionError(f"clip_augment {source}: batch {k}, "
+                                 "graphed != eager")
+    eager_launches = resize_counts()
+    if not bitwise_equal(fn(flat, aug_ids(0)), outs[0]):
+        raise AssertionError(f"clip_augment {source}: the same ids gave "
+                             "other bytes")
+    # The identity config is the plain VPP, bit for bit.
+    plain_vpp = build_vpp_batched_flat(cfg, n, device)
+    plain = plain_vpp(flat)
+    ident = build_vpp_clip_augment(cfg, AugmentConfig(), AUG_CLIPS,
+                                   AUG_CLIP_LEN, 0, device)(flat, aug_ids(0))
+    if not bitwise_equal(ident, plain.view(want_shape)):
+        raise AssertionError(f"clip_augment {source}: identity != plain VPP")
+    # One transform a clip: a clip of one repeated frame stays so.
+    rep = torch.from_numpy(repeated_frame_staging(n, h, w, AUG_CLIP_LEN,
+                                                  43)).to(device)
+    out = fn(rep, aug_ids(1))
+    if not all(bitwise_equal(out[:, t], out[:, 0])
+               for t in range(1, AUG_CLIP_LEN)):
+        raise AssertionError(f"clip_augment {source}: the frames of a "
+                             "repeated-frame clip differ")
+    aug_ms = time_ms(graph.graphs[0].replay, device, iters=50)[0]
+    plain_ms = time_ms(lambda: plain_vpp(flat), device, iters=50)[0]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for k in range(20):
+        fn(flat, aug_ids(k))
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) / 20
+    per_call = {k: v / AUG_CALLS for k, v in graphed_launches.items()}
+    return {"source": f"{w}x{h}", "config": "bench_device_augment",
+            "clips": AUG_CLIPS, "clip_len": AUG_CLIP_LEN,
+            "graphed_launches": graphed_launches,
+            "eager_launches": eager_launches, "launches_per_batch": per_call,
+            "captures": graph.captures, "replays": graph.replays,
+            "graphed_vs_eager": f"bitwise equal in all {AUG_CALLS} batches",
+            "device_ms_per_batch": aug_ms,
+            "device_frames_per_s": n / aug_ms * 1e3,
+            "plain_vpp_device_ms": plain_ms,
+            "augment_device_ms": aug_ms - plain_ms,
+            "wall_ms_per_call": wall * 1e3, "wall_frames_per_s": n / wall}
+
+
+def phase_clip_augment(device, smi):
+    """bench_device_augment's configuration, (a) on 224² frames and (b)
+    from 1080p through the device bilinear resize; graphed and eager
+    bit-equal; identity = plain VPP; one transform a clip; the same ids
+    the same bytes."""
+    runs = {src: clip_augment_run(device, src) for src in ("224", "1080p")}
+    emit({"phase": "clip_augment", "card": smi,
+          "augment": {k: v for k, v in BENCH_AUG.__dict__.items()},
+          "runs": runs})
+    return runs
+
+
+# The timed resizes: each kernel at the headline batch and at one frame of
+# the upscale 1080x608 -> 1920x1080 (AREA upscales through the bilinear
+# kernel, and its own kernel is timed at 1080x608 -> 480x360 instead).
+RESIZE_TIMED = (
+    (ResizeType.BILINEAR, BATCH, HEADLINE_SRC, (SIDE, SIDE)),
+    (ResizeType.BICUBIC, BATCH, HEADLINE_SRC, (SIDE, SIDE)),
+    (ResizeType.AREA, BATCH, HEADLINE_SRC, (SIDE, SIDE)),
+    (ResizeType.BILINEAR, 1, RESIZE_SRC, (1920, 1080)),
+    (ResizeType.BICUBIC, 1, RESIZE_SRC, (1920, 1080)),
+    (ResizeType.AREA, 1, RESIZE_SRC, (1920, 1080)),
+    (ResizeType.AREA, 1, RESIZE_SRC, (480, 360)))
+
+
+def resize_work(r, n):
+    """(bytes, operations, peak rate) of one launch: the output written once
+    plus every 32-byte sector of the source that the taps touch read once
+    (frames and planes start 32-byte aligned in the flat staging); float64
+    operations for bicubic, float32 otherwise."""
+    sw, sh = r.src
+    dw, dh = r.dst
+    sectors = 0
+    for plane, pitch in zip(r.planes, (sw, sw)):
+        rows = np.unique(plane["rows"])
+        cols = np.unique(plane["cols"])
+        addr = rows[:, None] * pitch + cols[None, :]
+        sectors += np.unique(addr // 32).size
+    outputs = dw * dh * 3 // 2
+    if r.kernel == "resize_bicubic_nv12":
+        ops, rate = 35, F64_FLOP_PER_S  # 4 x (4 mul + 3 add) + 4 + 3
+    elif r.kernel == "resize_bilinear_nv12":
+        ops, rate = 13, F32_FLOP_PER_S  # 2 sub, 6 mul, 3 fma (2 each)
+    else:
+        ops, rate = 4 * r.planes[0]["rows"].shape[1] * \
+            r.planes[0]["cols"].shape[1] + 1, F32_FLOP_PER_S
+    return n * (sectors * 32 + outputs), n * outputs * ops, rate
+
+
+def phase_resize_times(device, smi):
+    rows = []
+    for algo, n, (sw, sh), (dw, dh) in RESIZE_TIMED:
+        flat = torch.from_numpy(seeded_nv12(n, sh, sw, 90)).to(device)
+        y, uv = split(flat, n, sh, sw)
+        r = resize_ops.NV12Resize(sw, sh, dw, dh, algo)
+        ms, p10, p90 = time_ms(lambda: r(y, uv), device)
+        plain_ms = time_ms(lambda: r.plain(y, uv), device, iters=10,
+                           warmup=2)[0]
+        nbytes, ops, rate = resize_work(r, n)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        rows.append({"kernel": r.kernel, "algo": algo.name,
+                     "shape": [n, sw, sh, dw, dh], "ms": ms, "p10_ms": p10,
+                     "p90_ms": p90, "plain_ms": plain_ms, "bytes": nbytes,
+                     "ops": ops, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations", "share_of_bound": bound_ms / ms,
+                     "library_ms": None})
+        del flat, y, uv
+    emit({"phase": "resize_times", "card": smi, "rows": rows,
+          "library_note": "no PyTorch call computes the reference's "
+                          "NV12-domain resize"})
     return rows
 
 
@@ -2361,6 +2755,10 @@ def run(device):
     else:
         main = phase_main_path_synthetic(device, why)
     rows = phase_times(device, smi, main)
+    resize_worst = phase_resize_vs_plain(device)
+    resized = phase_resized_main_path(device, smi, main)
+    clip_aug = phase_clip_augment(device, smi)
+    resize_rows = phase_resize_times(device, smi)
     flash_worst = phase_flash_vs_plain()
     serving = phase_serving(device)
     pooled = phase_pooled(device, smi)
@@ -2394,10 +2792,32 @@ def run(device):
     # path's count taken from 0 just before it and read just after, a
     # graph replay counting what its capture recorded; every path's count
     # is beside it, the streaming twin's check among them.
+    resized_runs = {f"resized_main_path_{a.lower()}": r["launches"]
+                    for a, r in resized.items()}
+    aug_runs = {f"clip_augment_{src}{'' if g == 'graphed' else '_eager'}":
+                r[f"{g}_launches"] for src, r in clip_aug.items()
+                for g in ("graphed", "eager")}
     nv12_paths = {"main_path": main[3]["total"],
+                  **{k: v["nv12_rgb"] for k, v in resized_runs.items()},
+                  **{k: v["nv12_rgb"] for k, v in aug_runs.items()},
                   **{k: r["launches"]["nv12_rgb"]
                      for k, r in serve_runs.items()},
                   **pool_runs, **stream_runs}
+
+    def resize_entry(kernel, replaces, note):
+        paths = {k: v[kernel] for k, v in {**resized_runs,
+                                           **aug_runs}.items() if v[kernel]}
+        head = next(r for r in resize_rows if r["kernel"] == kernel
+                    and r["shape"][0] == BATCH)
+        return {"name": kernel, "route": "cuda",
+                "source": "tensor_stream_torch/csrc/resize_nv12.cu",
+                "replaces": replaces, "replaces_note": note,
+                "launches": sum(paths.values()), "launches_by_path": paths,
+                "max_abs_err": resize_worst[kernel],
+                "max_differing_bytes": 0, "shape": head["shape"],
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": None}
     fwd_paths = {**{k: r["launches"]["flash_fwd"]
                     for k, r in serve_runs.items()},
                  **{k: v["flash_fwd"] for k, v in train.items()}}
@@ -2443,7 +2863,18 @@ def run(device):
         "max_abs_err_by_design": bwd_worst, "ms": bwd["ms"],
         "split_ms": bwd["split_ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]})
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]},
+        resize_entry("resize_bilinear_nv12",
+                     "tensor_stream_tpu/ops/resize.py:187",
+                     "resize_bilinear, an XLA fusion (not a Pallas "
+                     "kernel); also AREA's upscale branch (:419-421)"),
+        resize_entry("resize_bicubic_nv12",
+                     "tensor_stream_tpu/ops/resize.py:278",
+                     "resize_bicubic, an XLA fusion (not a Pallas kernel)"),
+        resize_entry("resize_area_down_nv12",
+                     "tensor_stream_tpu/ops/resize.py:404",
+                     "resize_area's downscale branch, an XLA fusion (not a "
+                     "Pallas kernel)")]})
     print(smi, flush=True)
 
 

@@ -5,8 +5,11 @@ H100. H.264 files and streams are demuxed and decoded on the host by the
 same native runtime (csrc/, libtsingest.so over ctypes), kept in an NV12 ring, and
 converted on the card (crop -> NV12-domain resize -> colour conversion ->
 normalization -> planar/merged layout) into ``torch.Tensor``s on
-``cuda:N``. Full-frame NV12->RGB runs in a hand-written CUDA kernel
-(csrc/nv12_rgb.cu). ``StreamInferencer`` serves many streams through one
+``cuda:N``. NV12->RGB runs in a hand-written CUDA kernel
+(csrc/nv12_rgb.cu), and so do the BILINEAR, BICUBIC and AREA resizes
+(csrc/resize_nv12.cu). ``ClipLoader`` and ``ClipDataset`` sample
+shuffled clips for training, with on-card augmentation (``AugmentConfig``)
+and batch mixes (``mixup``, ``cutmix``, ``mix_labels``). ``StreamInferencer`` serves many streams through one
 model call a tick; ``models.VideoViT`` is the video transformer it serves
 and trains, whose attention runs hand-written CUDA flash-attention kernels
 (csrc/flash_fwd.cu, csrc/flash_bwd.cu). ``cuda_graph`` replays a tick or a
@@ -18,10 +21,13 @@ Entry points take ``device=None``, meaning ``cuda:<index>``; they raise
 when no CUDA device is present unless ``device="cpu"`` is passed.
 This package imports nothing of JAX or of the JAX package.
 """
-from .data import FrameLoader, MultiStreamLoader, PooledStreamLoader
+from .data import (ClipDataset, ClipLoader, FrameLoader, MultiStreamLoader,
+                   PooledStreamLoader)
 from .enums import (ColorStandard, FourCC, FrameRate, LogsLevel, LogsType,
                     Planes, ResizeType, StatusLevel, channels_by_fourcc)
 from .graphs import cuda_graph
+from .ops.augment import AugmentConfig
+from .ops.mix import cutmix, mix_labels, mixup
 from .ops.vpp import VPPConfig
 from .serving import StreamInferencer, StreamResult
 from .tensor_stream import FrameParameters, TensorStreamConverter
@@ -30,8 +36,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "TensorStreamConverter", "FrameParameters", "FrameLoader",
-    "MultiStreamLoader", "PooledStreamLoader", "StreamInferencer",
-    "StreamResult", "VPPConfig", "cuda_graph",
+    "ClipLoader", "ClipDataset", "MultiStreamLoader", "PooledStreamLoader",
+    "StreamInferencer", "StreamResult", "VPPConfig", "cuda_graph",
+    "AugmentConfig", "mixup", "cutmix", "mix_labels",
     "StatusLevel", "LogsLevel", "LogsType", "FourCC", "ResizeType", "Planes",
     "FrameRate", "ColorStandard", "channels_by_fourcc",
 ]

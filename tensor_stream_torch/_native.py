@@ -150,6 +150,22 @@ def load():
         sig("ts_pool_stream", c_void_p, [c_void_p, c_int])
         sig("ts_pool_stop", None, [c_void_p])
         sig("ts_pool_destroy", None, [c_void_p])
+        # Random-access clip reader (seekable files; csrc/clip_reader.h).
+        c_ll = ctypes.c_longlong
+        sig("ts_clip_create", c_void_p,
+            [c_char_p, c_int, c_int, c_int, c_int, c_int, c_int])
+        sig("ts_clip_get_batch", c_int,
+            [c_void_p, ctypes.POINTER(c_ll), c_int, c_int, c_int, c_void_p,
+             c_void_p])
+        for name in ("width", "height", "out_width", "out_height",
+                     "segments"):
+            sig(f"ts_clip_{name}", c_int, [c_void_p])
+        sig("ts_clip_total_frames", c_ll, [c_void_p])
+        sig("ts_clip_segment_table", c_int,
+            [c_void_p, ctypes.POINTER(c_ll), c_int])
+        sig("ts_clip_frames_decoded", c_ll, [c_void_p])
+        sig("ts_clip_release_decoders", None, [c_void_p])
+        sig("ts_clip_destroy", None, [c_void_p])
         # Host VPP (csrc/vpp_convert.cpp): the source-order reference the
         # tests hold the plain torch colour math to.
         sig("ts_vpp_convert_host", c_int,

@@ -1,9 +1,11 @@
 """FrameLoader: a prefetching iterator from a video stream to device batches;
-MultiStreamLoader: several FrameLoaders stacked into one batch a tick;
-PooledStreamLoader: many streams on one native worker pool, one flat
-staging buffer and one VPP dispatch a tick.
+ClipLoader and ClipDataset: shuffled fixed-length clips from one file or a
+corpus, for training video models; MultiStreamLoader: several
+FrameLoaders stacked into one batch a tick; PooledStreamLoader: many
+streams on one native worker pool, one flat staging buffer and one VPP
+dispatch a tick.
 
-Port of the JAX package's ``data.py:53-420`` and ``:1399-1679``. Decode
+Port of the JAX package's ``data.py:53-1130`` and ``:1399-1679``. Decode
 runs in native producer threads, the drain (plus the optional native host
 resize) in a loader thread, both outside the GIL; the caller's thread
 only ships each filled pinned staging buffer to the device in one
@@ -26,14 +28,16 @@ import ctypes
 import queue
 import threading
 import time
+import warnings
 
+import numpy as np
 import torch
 
 from . import _native
 from ._device import (record_event, resolve_device, ship, staging_buffer,
                       wait_event)
-from .enums import ColorStandard, FrameRate
-from .ops.vpp import build_vpp_batched_flat
+from .enums import ColorStandard, FourCC, FrameRate
+from .ops.vpp import build_vpp_batched_flat, build_vpp_clip_augment
 from .tensor_stream import (FrameParameters, TensorStreamConverter,
                             host_resize_algo)
 
@@ -53,11 +57,32 @@ def _wait_detected_standard(lib, handle, index_baseline, deadline):
     return None
 
 
+def _check_augment(params, augment):
+    """The checks of build_vpp_clip_augment, made before any native reader
+    exists, so that a bad config leaks no started pipeline."""
+    if augment is None:
+        return
+    if params.pixel_format not in (FourCC.RGB24, FourCC.BGR24):
+        raise ValueError(
+            "augment requires an RGB24/BGR24 pixel format (got "
+            f"{params.pixel_format}) — the transforms are defined on RGB "
+            "model inputs")
+    if augment.mean and not (params.normalization or params.dtype):
+        raise ValueError(
+            "mean/std normalization needs a float tensor; pass "
+            "normalization=True or dtype='bfloat16'/'float32'")
+
+
 class FrameLoader:
     """Iterates device-resident batches over a stream.
 
     `device=None` means ``cuda:<device_index>`` and raises when no CUDA
-    device is present; ``device="cpu"`` runs the plain CPU path."""
+    device is present; ``device="cpu"`` runs the plain CPU path.
+
+    ``augment`` (an ``AugmentConfig``) applies the training augmentation
+    to every frame after the VPP, each frame drawn from (aug_seed, 0,
+    its absolute frame index): a loader resumed with ``start_frame``
+    replays the same augmented bytes for the same frames."""
 
     def __init__(self,
                  stream_url,
@@ -76,10 +101,6 @@ class FrameLoader:
                  aug_seed=None,
                  device=None,
                  **frame_kwargs):
-        if augment is not None:
-            raise NotImplementedError(
-                "augment= is not ported yet (ROADMAP.md queue 1, clip and "
-                "augment path)")
         self.device = resolve_device(device, device_index)
         self.device_index = self.device.index or 0
         self.batch = int(batch)
@@ -87,7 +108,10 @@ class FrameLoader:
         self.host_resize = bool(host_resize)
         self.drop_partial = bool(drop_partial)
         self.stream_url = stream_url
+        self.augment = augment
+        self.aug_seed = 0 if aug_seed is None else int(aug_seed)
         self.params = FrameParameters(**frame_kwargs)
+        _check_augment(self.params, augment)
         if self.host_resize:
             self._algo = host_resize_algo(self.params)
         self.reader = None
@@ -151,7 +175,14 @@ class FrameLoader:
                                dtype=self.params.dtype)
 
     def _start_common(self):
-        self._vpp = build_vpp_batched_flat(self._cfg, self.batch, self.device)
+        if self.augment is not None:
+            # Frames are clips of one frame: [batch, 1, ...] out.
+            self._vpp = build_vpp_clip_augment(
+                self._cfg, self.augment, self.batch, 1, self.aug_seed,
+                self.device)
+        else:
+            self._vpp = build_vpp_batched_flat(self._cfg, self.batch,
+                                               self.device)
         # Rotating staging pool: one buffer per in-flight batch plus one
         # being filled, so the drain never writes a buffer still in use.
         n_bufs = self.prefetch + 2
@@ -262,7 +293,15 @@ class FrameLoader:
             if got < self.batch and self.drop_partial:
                 self._pool.put(buf)
                 continue
-            tensors = self._vpp(ship(buf, self.device))
+            flat = ship(buf, self.device)
+            if self.augment is not None:
+                # Each frame's draw is keyed by its absolute index (epoch
+                # 0): resume-exact under start_frame.
+                ids = np.zeros((self.batch, 2), np.int64)
+                ids[:, 1] = np.arange(first, first + self.batch)
+                tensors = self._vpp(flat, ids)[:, 0]
+            else:
+                tensors = self._vpp(flat)
             event = record_event(self.device)
             if got < self.batch:
                 tensors = tensors[:got]
@@ -346,6 +385,594 @@ class FrameLoader:
             return (self._seg_lib.ts_segmented_width(self._segmented),
                     self._seg_lib.ts_segmented_height(self._segmented))
         return self.reader.frame_size
+
+
+class _ClipLoaderBase:
+    """Shared scaffolding of the clip loaders: the native ClipReader, the
+    clip-start grid, the deterministic (seed + epoch) epoch order, the
+    fill thread, terminal-error latching, the device handoff and
+    shutdown. A subclass sets up its sources, fills a staging buffer
+    (``_fill``) and hands batches out (``__next__``)."""
+
+    def _init_clip_params(self, clip_len, frame_stride, shuffle, seed,
+                          prefetch, host_resize, frame_kwargs):
+        """Validates and stores the sampling scalars; returns the (dst_w,
+        dst_h, algo) of the native creates (zeros keep the native
+        geometry)."""
+        self._lib = _native.load()
+        self.params = FrameParameters(**frame_kwargs)
+        if self.params.color_standard is ColorStandard.AUTO:
+            raise ValueError(
+                f"{type(self).__name__} does not support "
+                "color_standard=AUTO (clips decode out of order; pass "
+                "the stream's standard explicitly)")
+        self.clip_len = int(clip_len)
+        self.frame_stride = max(1, int(frame_stride))
+        # shuffle: False = sequential epochs; True/"uniform" = a full
+        # permutation; "segment" = keyframe segments permuted, clips in
+        # stream order within each (each GOP decodes about once a batch).
+        if shuffle not in (True, False, 0, 1, "uniform", "segment"):
+            raise ValueError(
+                f"shuffle must be True/False/'uniform'/'segment': "
+                f"{shuffle!r}")
+        self.shuffle_mode = ("segment" if shuffle == "segment"
+                             else "uniform" if shuffle else None)
+        self.shuffle = self.shuffle_mode is not None
+        self._seg_keys = None
+        self.seed = int(seed)
+        self.prefetch = max(1, int(prefetch))
+        if host_resize:
+            return (self.params.width, self.params.height,
+                    host_resize_algo(self.params))
+        return 0, 0, 0
+
+    def _create_reader(self, stream_url, workers, dst_w, dst_h, algo,
+                       decode_threads, fast_decode):
+        """Opens and scans one source (keyframe table, no decode); returns
+        (handle, out_w, out_h, total_frames)."""
+        handle = self._lib.ts_clip_create(
+            str(stream_url).encode(), int(workers), dst_w, dst_h, algo,
+            decode_threads or 1, int(bool(fast_decode)))
+        if not handle:
+            raise RuntimeError(
+                f"{type(self).__name__}: cannot scan {stream_url} (not "
+                "a seekable file, or no decodable frames)")
+        return (handle,
+                self._lib.ts_clip_out_width(handle),
+                self._lib.ts_clip_out_height(handle),
+                self._lib.ts_clip_total_frames(handle))
+
+    def _starts_grid(self, total_frames, clip_step, label):
+        """The clip starts of one source (also sets self.clip_step)."""
+        span = (self.clip_len - 1) * self.frame_stride + 1
+        if span > total_frames:
+            raise ValueError(
+                f"clip span {span} exceeds {label} {total_frames} frames")
+        self.clip_step = int(clip_step) if clip_step else span
+        return np.arange(0, total_frames - span + 1, self.clip_step,
+                         dtype=np.int64)
+
+    def _init_augment(self, augment, aug_seed):
+        self.augment = augment
+        self.aug_seed = self.seed if aug_seed is None else int(aug_seed)
+
+    def _build_vpp(self, cfg, clips):
+        """The VPP for `clips` clips: the plain flat-batch VPP, or the VPP
+        with augmentation (one CUDA graph a batch on the card)."""
+        if self.augment is not None:
+            return build_vpp_clip_augment(cfg, self.augment, clips,
+                                          self.clip_len, self.aug_seed,
+                                          self.device)
+        return build_vpp_batched_flat(cfg, clips * self.clip_len,
+                                      self.device)
+
+    def _aug_ids(self, epoch, idents, capacity):
+        """[capacity, 2] (epoch, clip identity) rows for the augmentation's
+        draws; a short batch is padded with its last identity, like the
+        decode pad, and the pad rows are sliced off after conversion."""
+        ids = np.asarray(idents, np.int64)
+        out = np.empty((capacity, 2), np.int64)
+        out[:, 0] = epoch
+        out[:len(ids), 1] = ids
+        out[len(ids):, 1] = ids[-1]
+        return out
+
+    def _vpp_config(self, host_resize):
+        """The VPP config for the readers' output geometry: after a host
+        resize the frames arrive at the target size."""
+        if host_resize:
+            cfg_params = FrameParameters(
+                pixel_format=self.params.pixel_format,
+                planes_pos=self.params.planes_pos,
+                normalization=self.params.normalization,
+                color_standard=self.params.color_standard,
+                dtype=self.params.dtype)
+            return cfg_params.to_config(self._w, self._h)
+        return self.params.to_config(self._w, self._h)
+
+    def _check_batch_fits(self):
+        if self.drop_partial and self.batch > len(self.starts):
+            raise ValueError(
+                f"batch {self.batch} exceeds the {len(self.starts)} "
+                "clip starts per epoch — with drop_partial=True every "
+                "epoch would yield zero batches; lower batch/clip_step "
+                "or pass drop_partial=False")
+
+    def _init_clip_source(self, stream_url, clip_len, frame_stride,
+                          clip_step, shuffle, seed, workers, host_resize,
+                          decode_threads, fast_decode, prefetch,
+                          frame_kwargs):
+        """Opens and scans the native ClipReader and computes the start
+        grid; returns the VPP config. A failure after the native create
+        destroys the handle before it propagates."""
+        dst = self._init_clip_params(clip_len, frame_stride, shuffle, seed,
+                                     prefetch, host_resize, frame_kwargs)
+        self.stream_url = stream_url
+        self._handle, self._w, self._h, self.total_frames = \
+            self._create_reader(stream_url, workers, *dst, decode_threads,
+                                fast_decode)
+        try:
+            self.starts = self._starts_grid(self.total_frames, clip_step,
+                                            label="the stream's")
+            return self._vpp_config(host_resize)
+        except Exception:
+            self._destroy_handle()
+            raise
+
+    def _start(self, epoch, start_clip):
+        self._vpp = self._build_vpp(self._cfg, self.batch)
+        size = self.batch * self.clip_len * self._w * self._h * 3 // 2
+        self._closed = False
+        self.epoch = int(epoch)
+        self._cursor = int(start_clip)  # clip index within the epoch order
+        self._order = self._epoch_order(self.epoch)
+        # (epoch, next clip index) as of the last batch handed out: what
+        # state() reports (the fill thread runs ahead by `prefetch`).
+        self._consumed = (self.epoch, self._cursor)
+        self._pool = queue.Queue()
+        for _ in range(self.prefetch + 2):
+            self._pool.put(staging_buffer(size, self.device))
+        self._filled = queue.Queue(maxsize=self.prefetch)
+        self._pending = collections.deque()  # (buf, event) in flight
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _destroy_handle(self):
+        if self._handle is not None:
+            self._lib.ts_clip_destroy(self._handle)
+            self._handle = None
+
+    # ------------------------------------------------------------- sampling
+
+    def _segment_table(self, handle):
+        """First display frame of every cold-decoder entry point of one
+        reader, ascending int64."""
+        n = self._lib.ts_clip_segments(handle)
+        buf = np.empty(max(n, 1), np.int64)
+        self._lib.ts_clip_segment_table(
+            handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+            n)
+        return buf[:n]
+
+    def _segment_keys(self):
+        """The segment of each element of self.starts."""
+        if self._seg_keys is None:
+            firsts = self._segment_table(self._handle)
+            self._seg_keys = np.searchsorted(firsts, self.starts,
+                                             side="right") - 1
+        return self._seg_keys
+
+    def _epoch_order(self, epoch):
+        if self.shuffle_mode is None:
+            return self.starts
+        rng = np.random.default_rng(self.seed + epoch)
+        if self.shuffle_mode == "uniform":
+            return rng.permutation(self.starts)
+        # "segment": the segments permuted, clips in stream order within
+        # each, so a segment's run split across batches rides forward.
+        keys = self._segment_keys()
+        uniq, inv = np.unique(keys, return_inverse=True)
+        rank = rng.permutation(len(uniq))[inv]
+        return self.starts[np.argsort(rank, kind="stable")]
+
+    def _epoch_done(self):
+        """Fill-thread epoch boundary: when the cursor cannot make another
+        batch, advance to the next (reshuffled) epoch, queue the
+        StopIteration sentinel and return True."""
+        if self._cursor >= len(self._order) or \
+           (self.drop_partial and
+                self._cursor + self.batch > len(self._order)):
+            self.epoch += 1
+            self._cursor = 0
+            self._order = self._epoch_order(self.epoch)
+            self._filled.put(None)
+            return True
+        return False
+
+    def __len__(self):
+        """Batches per epoch."""
+        n = len(self.starts)
+        return n // self.batch if self.drop_partial else -(-n // self.batch)
+
+    # ------------------------------------------------------------ iteration
+
+    def __iter__(self):
+        return self
+
+    def _check_latched(self, item):
+        """Raises for the epoch-boundary sentinel and the latched terminal
+        items (renegotiation, decode error); passes batches through."""
+        if item is None:
+            raise StopIteration  # epoch boundary; the fill continues
+        if item is _RENEGOTIATED:
+            self._filled.put(item)
+            raise RuntimeError(
+                "stream resolution changed mid-stream; use "
+                f"{type(self).__name__}(host_resize=True, width=..., "
+                "height=...) to ride through switches")
+        if isinstance(item, Exception):
+            self._filled.put(item)
+            raise item
+
+    def state(self):
+        """Resumable position: pass epoch=.. start_clip=.. to a new loader
+        over the same stream (same seed) to continue; it counts batches
+        handed out, not prefetched ones. The JAX package's dict."""
+        epoch, cursor = self._consumed
+        return {"stream_url": self.stream_url, "epoch": epoch,
+                "start_clip": cursor, "seed": self.seed}
+
+    @property
+    def frames_decoded(self):
+        """Frames decoded natively (IDR warm-up included)."""
+        return self._lib.ts_clip_frames_decoded(self._handle)
+
+    def _to_device_batch(self, buf, got, aug_ids=None):
+        """One copy of the staging buffer to the device, the VPP (with the
+        augmentation, when set) as [batch, clip_len, ...], the partial
+        tail sliced off; the buffer rotates back to the pool once the
+        event recorded behind the VPP of a later batch has completed."""
+        flat = ship(buf, self.device)
+        if self.augment is not None:
+            tensors = self._vpp(flat, aug_ids)
+        else:
+            tensors = self._vpp(flat)
+            tensors = tensors.reshape((self.batch, self.clip_len)
+                                      + tuple(tensors.shape[1:]))
+        self._pending.append((buf, record_event(self.device)))
+        if got < self.batch:
+            tensors = tensors[:got]
+        if len(self._pending) > self.prefetch:
+            old_buf, old_event = self._pending.popleft()
+            wait_event(old_event)
+            self._pool.put(old_buf)
+        return tensors
+
+    def close(self):
+        if getattr(self, "_closed", True):
+            return  # never started, or already closed
+        self._closed = True
+        self._stop.set()
+        while self._pending:
+            buf, event = self._pending.popleft()
+            wait_event(event)
+            self._pool.put(buf)
+        try:
+            self._pool.put_nowait(None)  # wake a fill waiting for a buffer
+        except queue.Full:
+            pass
+        try:
+            self._filled.get_nowait()  # wake a fill on the bounded queue
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=10)
+        if self._thread.is_alive():
+            # A large native batch decode can outlast the first join on a
+            # loaded host; destroying the reader under the live call would
+            # be a use-after-free. Wait it out, or leak the handle.
+            self._thread.join(timeout=120)
+            if self._thread.is_alive():
+                warnings.warn(
+                    f"{type(self).__name__}.close(): fill thread still "
+                    "inside a native call; leaking the ClipReader handle")
+                return
+        self._destroy_handle()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class ClipLoader(_ClipLoaderBase):
+    """Shuffled fixed-length clip batches from one file, for video-model
+    training. Port of the JAX package's ``data.py:802-911``.
+
+    The native ClipReader (csrc/clip_reader.h) seeks each requested clip
+    to its nearest IDR entry point, decodes the warm-up and returns bytes
+    equal to the serial decode of the same frame indices.
+
+        loader = ClipLoader("video.mp4", clip_len=8, batch=4,
+                            host_resize=True, width=224, height=224,
+                            pixel_format=FourCC.RGB24,
+                            planes_pos=Planes.PLANAR, normalization=True,
+                            shuffle=True, seed=0, workers=2)
+        for clips, starts in loader:   # [4, 8, 3, 224, 224] f32 on cuda:0
+            train_step(clips)
+
+    One pass is one epoch over every clip start (``clip_step`` apart;
+    non-overlapping by default), in the order numpy ``default_rng(seed +
+    epoch)`` gives, so ``ClipLoader(..., epoch=e, start_clip=k)`` resumes
+    where ``state()`` left off. With ``host_resize=False`` and a target
+    size the resize runs on the card (ops/resize.py). ``augment`` (an
+    ``AugmentConfig``) augments each clip from (aug_seed, epoch, start).
+    `device=None` means ``cuda:<device_index>``."""
+
+    def __init__(self, stream_url, clip_len, batch=4, frame_stride=1,
+                 clip_step=None, shuffle=True, seed=0, workers=2,
+                 host_resize=False, decode_threads=0, fast_decode=False,
+                 device_index=0, drop_partial=True, prefetch=2,
+                 epoch=0, start_clip=0, augment=None, aug_seed=None,
+                 device=None, **frame_kwargs):
+        self.batch = int(batch)
+        self.drop_partial = bool(drop_partial)
+        self.device = resolve_device(device, device_index)
+        self.device_index = self.device.index or 0
+        self._cfg = self._init_clip_source(
+            stream_url, clip_len, frame_stride, clip_step, shuffle, seed,
+            workers, host_resize, decode_threads, fast_decode, prefetch,
+            frame_kwargs)
+        try:
+            self._init_augment(augment, aug_seed)
+            self._check_batch_fits()
+            self._start(epoch, start_clip)
+        except Exception:
+            self._destroy_handle()
+            raise
+
+    def _fill(self):
+        y_size = self.batch * self.clip_len * self._w * self._h
+        while not self._stop.is_set():
+            if self._epoch_done():
+                continue
+            batch_starts = self._order[self._cursor:self._cursor + self.batch]
+            self._cursor += len(batch_starts)
+            meta = (self.epoch, self._cursor)
+            got = len(batch_starts)
+            # The native call and the VPP are fixed-size: a trailing
+            # partial batch repeats its last start, sliced off afterwards.
+            padded = batch_starts if got == self.batch else np.concatenate(
+                [batch_starts,
+                 np.full(self.batch - got, batch_starts[-1], np.int64)])
+            padded = np.ascontiguousarray(padded, np.int64)
+            buf = self._pool.get()
+            if buf is None or self._stop.is_set():
+                break
+            rc = self._lib.ts_clip_get_batch(
+                self._handle,
+                padded.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+                self.batch, self.clip_len, self.frame_stride,
+                buf.data_ptr(), buf.data_ptr() + y_size)
+            if rc == _native.TS_RENEGOTIATE:
+                self._filled.put(_RENEGOTIATED)
+                break
+            if rc != 0:
+                self._filled.put(RuntimeError(
+                    f"clip decode failed (code {rc})"))
+                break
+            self._filled.put((buf, got, batch_starts, meta))
+
+    def __next__(self):
+        """(clips, starts): clips a [batch, clip_len, ...frame dims...]
+        tensor, starts the 0-based first frame of each clip. Raises
+        StopIteration at each epoch boundary; iterating again continues
+        into the next (reshuffled) epoch."""
+        item = self._filled.get()
+        self._check_latched(item)
+        buf, got, starts, self._consumed = item
+        aug_ids = None if self.augment is None else \
+            self._aug_ids(self._consumed[0], starts, self.batch)
+        return self._to_device_batch(buf, got, aug_ids), list(starts)
+
+
+class ClipDataset(_ClipLoaderBase):
+    """Globally shuffled clip batches across many files. Port of the JAX
+    package's ``data.py:913-1130``.
+
+    Every source is scanned once (keyframe tables, no decode), the
+    per-file start grids are concatenated into one global index, and that
+    index is shuffled with ``seed + epoch``: each clip of the corpus is
+    visited once an epoch. Decoders open lazily per file and at most
+    ``max_open`` files keep theirs (least recently used released between
+    batches).
+
+        ds = ClipDataset(["a.mp4", "b.mp4"], clip_len=8, batch=4,
+                         host_resize=True, width=224, height=224,
+                         pixel_format=FourCC.RGB24,
+                         planes_pos=Planes.PLANAR, normalization=True)
+        for clips, labels in ds:     # clips [4, 8, 3, 224, 224] on cuda:0
+            ...                      # labels [(file_idx, start), ...]
+
+    A batch keeps the shuffle's membership, regrouped file-contiguous (one
+    native call per touched file); ``labels`` gives every clip's (file
+    index, first frame) in yielded order. Without ``host_resize`` all
+    files must share one decoded geometry. Epochs, ``state()`` and resume
+    are ClipLoader's."""
+
+    def __init__(self, stream_urls, clip_len, batch=4, frame_stride=1,
+                 clip_step=None, shuffle=True, seed=0, workers=2,
+                 host_resize=False, decode_threads=0, fast_decode=False,
+                 device_index=0, drop_partial=True, prefetch=2,
+                 epoch=0, start_clip=0, max_open=4, augment=None,
+                 aug_seed=None, device=None, **frame_kwargs):
+        self.batch = int(batch)
+        self.drop_partial = bool(drop_partial)
+        self._handles = []
+        self.device = resolve_device(device, device_index)
+        self.device_index = self.device.index or 0
+        self._cfg = self._init_corpus(
+            stream_urls, clip_len, frame_stride, clip_step, shuffle, seed,
+            workers, host_resize, decode_threads, fast_decode, prefetch,
+            max_open, frame_kwargs)
+        try:
+            self._init_augment(augment, aug_seed)
+            self._check_batch_fits()
+            self._start(epoch, start_clip)
+        except Exception:
+            self._destroy_handle()
+            raise
+
+    def _init_corpus(self, stream_urls, clip_len, frame_stride, clip_step,
+                     shuffle, seed, workers, host_resize, decode_threads,
+                     fast_decode, prefetch, max_open, frame_kwargs):
+        """Scans every source and builds the global clip index; returns the
+        VPP config. Handles already created are destroyed before a
+        mid-scan failure propagates."""
+        self.stream_urls = [str(u) for u in stream_urls]
+        if not self.stream_urls:
+            raise ValueError(f"{type(self).__name__} needs >=1 source")
+        self.max_open = max(1, int(max_open))
+        dst = self._init_clip_params(clip_len, frame_stride, shuffle, seed,
+                                     prefetch, host_resize, frame_kwargs)
+        try:
+            file_of, start_of = [], []
+            self._w = self._h = 0
+            for fi, url in enumerate(self.stream_urls):
+                handle, w, h, total = self._create_reader(
+                    url, workers, *dst, decode_threads, fast_decode)
+                self._handles.append(handle)
+                if fi == 0:
+                    self._w, self._h = w, h
+                elif (w, h) != (self._w, self._h):
+                    raise ValueError(
+                        f"{url} decodes to {w}x{h} but "
+                        f"{self.stream_urls[0]} to {self._w}x{self._h}; "
+                        "pass host_resize=True with width/height to mix "
+                        "resolutions")
+                starts = self._starts_grid(total, clip_step,
+                                           label=f"{url}'s")
+                file_of.append(np.full(len(starts), fi, np.int64))
+                start_of.append(starts)
+            self._file_of = np.concatenate(file_of)
+            self._start_of = np.concatenate(start_of)
+            # The shuffled unit is the global clip id (a row of the
+            # file_of/start_of tables).
+            self.starts = np.arange(len(self._file_of), dtype=np.int64)
+            self._lru = collections.OrderedDict()  # files with open pools
+            return self._vpp_config(host_resize)
+        except Exception:
+            self._destroy_handle()
+            raise
+
+    @property
+    def files(self):
+        """Sources in label order: a label's file index points here."""
+        return list(self.stream_urls)
+
+    @property
+    def frames_decoded(self):
+        return sum(self._lib.ts_clip_frames_decoded(h)
+                   for h in self._handles)
+
+    def _segment_keys(self):
+        """shuffle='segment' groups of the global index: the unit is
+        (file, segment)."""
+        if self._seg_keys is None:
+            keys, base = [], 0
+            for fi, h in enumerate(self._handles):
+                firsts = self._segment_table(h)
+                local = self._start_of[self._file_of == fi]
+                keys.append(base + np.searchsorted(firsts, local,
+                                                   side="right") - 1)
+                base += len(firsts)
+            self._seg_keys = np.concatenate(keys)
+        return self._seg_keys
+
+    def state(self):
+        epoch, cursor = self._consumed
+        return {"stream_urls": self.files, "epoch": epoch,
+                "start_clip": cursor, "seed": self.seed}
+
+    def _destroy_handle(self):
+        for h in self._handles:
+            self._lib.ts_clip_destroy(h)
+        self._handles = []
+
+    def _touch(self, fi):
+        """Least-recently-used bookkeeping after a native call on file
+        `fi`: release the decoders (the keyframe scans stay) of the files
+        beyond max_open. Fill thread only."""
+        self._lru[fi] = True
+        self._lru.move_to_end(fi)
+        while len(self._lru) > self.max_open:
+            old, _ = self._lru.popitem(last=False)
+            self._lib.ts_clip_release_decoders(self._handles[old])
+
+    def _decode_ids_into(self, ids, buf, capacity):
+        """Decodes the clips of global ids into `buf` (laid out for
+        `capacity` clips), regrouped file-contiguous (stable) with one
+        native call per touched file; a short `ids` is padded by
+        repeating the last regrouped clip. Returns (regrouped ids, rc,
+        failed file index)."""
+        got = len(ids)
+        ids = ids[np.argsort(self._file_of[ids], kind="stable")]
+        padded = ids if got == capacity else np.concatenate(
+            [ids, np.repeat(ids[-1:], capacity - got)])
+        y_frame = self._w * self._h
+        uv_frame = (self._h // 2) * self._w
+        y_size = capacity * self.clip_len * y_frame
+        files = self._file_of[padded]
+        base = buf.data_ptr()
+        pos = 0
+        for fi in np.unique(files):
+            sub = np.ascontiguousarray(self._start_of[padded[files == fi]])
+            rc = self._lib.ts_clip_get_batch(
+                self._handles[fi],
+                sub.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+                len(sub), self.clip_len, self.frame_stride,
+                base + pos * self.clip_len * y_frame,
+                base + y_size + pos * self.clip_len * uv_frame)
+            self._touch(int(fi))
+            if rc != 0:
+                return ids, rc, int(fi)
+            pos += len(sub)
+        return ids, 0, -1
+
+    def _fill(self):
+        while not self._stop.is_set():
+            if self._epoch_done():
+                continue
+            ids = self._order[self._cursor:self._cursor + self.batch]
+            self._cursor += len(ids)
+            meta = (self.epoch, self._cursor)
+            got = len(ids)
+            buf = self._pool.get()
+            if buf is None or self._stop.is_set():
+                break
+            ids, rc, fi = self._decode_ids_into(ids, buf, self.batch)
+            if rc != 0:
+                self._filled.put(
+                    _RENEGOTIATED if rc == _native.TS_RENEGOTIATE
+                    else RuntimeError(f"clip decode failed (code {rc}, "
+                                      f"file {self.stream_urls[fi]})"))
+                break
+            self._filled.put((buf, got, ids, meta))
+
+    def __next__(self):
+        """(clips, labels): clips a [batch, clip_len, ...] tensor, labels
+        the (file index, first frame) of each clip in the same order.
+        Raises StopIteration at each epoch boundary."""
+        item = self._filled.get()
+        self._check_latched(item)
+        buf, got, ids, self._consumed = item
+        labels = [(int(self._file_of[i]), int(self._start_of[i]))
+                  for i in ids]
+        aug_ids = None if self.augment is None else \
+            self._aug_ids(self._consumed[0], ids, self.batch)
+        return self._to_device_batch(buf, got, aug_ids), labels
 
 
 class MultiStreamLoader:

@@ -36,7 +36,8 @@ stream is being captured (the outer graph records it, as ``jax.jit``
 inlines a jitted function). Nothing falls back: a capture or replay that
 fails raises.
 
-The kernels' launch counters (``ops/nv12_rgb.py``, ``ops/flash_attention.py``)
+The kernels' launch counters (``ops/nv12_rgb.py``, ``ops/resize.py``,
+``ops/flash_attention.py``)
 move only when Python calls a wrapper. A capture records what its
 wrappers added (``snapshot``, ``difference``), takes it back (nothing ran),
 and each replay adds it again (``add``).
@@ -45,12 +46,13 @@ from typing import Callable, Dict
 
 import torch
 
-from .ops import flash_attention, nv12_rgb
+from .ops import flash_attention, nv12_rgb, resize
 
 # The counters a replay must advance: (module, attribute) pairs, each an
 # int or a dict of ints.
 COUNTERS = tuple(
     [(nv12_rgb, name) for name in ("launches", "launches_by_variant")]
+    + [(resize, "launches")]
     + [(flash_attention, name) for name in (
         "launches", "launches_by_mode", "recompute_launches", "bwd_launches",
         "bwd_launches_by_design", "dout_copies")])

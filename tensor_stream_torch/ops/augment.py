@@ -1,0 +1,370 @@
+"""Training augmentations for clip and frame batches, on the device.
+
+Port of the JAX package's ``ops/augment.py``. The semantics are the JAX
+package's (torchvision ``RandomResizedCrop`` with a clamped rect and
+bilinear half-pixel sampling, ``hflip`` folded into the sampling grid,
+``ColorJitter`` factors with hue as a YIQ chroma rotation, applied in the
+order brightness, contrast, saturation, hue, one clamp, then mean/std,
+then ``RandomErasing`` of one rect a clip). One draw augments a whole
+clip: all its frames share the transform. Contrast blends against the
+mean gray of the whole clip.
+
+The JAX package draws inside its jitted program from
+``fold_in(fold_in(key(aug_seed), epoch), identity)``; the port cannot
+reproduce ``jax.random``, so the transform is split in two:
+
+- ``sample_clip_params`` draws each clip's parameters on the host with
+  numpy ``default_rng([aug_seed, epoch, identity])`` into a float32
+  [clips, K] array (the columns are ``PARAMS``). The same (aug_seed,
+  epoch, identity) always gives the same parameters, so a resumed loader
+  replays the same augmentation, and the device program reads no random
+  state and nothing on the host (a CUDA graph can capture it).
+- ``apply_clip_augment`` applies given parameters to a batch of clips in
+  float32 torch ops, on whatever device the clips lie.
+
+The distributions and clamps are the JAX package's (its ``_sample_rect``,
+``_factor`` and the erase draw); only the random bits differ.
+"""
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# ITU-R BT.601 luma weights (torchvision rgb_to_grayscale).
+_GRAY_RGB = (0.299, 0.587, 0.114)
+# RGB->YIQ / YIQ->RGB (NTSC), for the hue rotation.
+_RGB2YIQ = np.array([[0.299, 0.587, 0.114],
+                     [0.595716, -0.274453, -0.321263],
+                     [0.211456, -0.522591, 0.311135]], np.float32)
+_YIQ2RGB = np.linalg.inv(_RGB2YIQ).astype(np.float32)
+
+# The columns of a parameter row: the crop rect (y0, x0, h, w) in source
+# pixels, the flip (0 or 1), the brightness, contrast and saturation
+# factors, the hue angle in radians, the erase flag (0 or 1) and the erase
+# rect (y0, x0, h, w) in output pixels.
+PARAMS = ("y0", "x0", "rect_h", "rect_w", "flip", "brightness", "contrast",
+          "saturation", "theta", "erase", "erase_y0", "erase_x0", "erase_h",
+          "erase_w")
+_COL = {name: k for k, name in enumerate(PARAMS)}
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """Static augmentation parameters, the JAX package's fields.
+
+    All fields default to "off": the default config is the identity."""
+    # Spatial target. 0/0 = keep the source size (then only hflip and
+    # the photometric ops apply).
+    width: int = 0
+    height: int = 0
+    # RandomResizedCrop: crop area fraction range and aspect ratio (w/h)
+    # range. (1,1)/(1,1) = deterministic full-frame resize.
+    scale: tuple = (1.0, 1.0)
+    ratio: tuple = (1.0, 1.0)
+    # Probability of a horizontal flip.
+    hflip: float = 0.0
+    # ColorJitter half-ranges (0 = off): factor ~ U[max(0,1-x), 1+x].
+    brightness: float = 0.0
+    contrast: float = 0.0
+    saturation: float = 0.0
+    # Hue delta half-range in turns, applied as a YIQ chroma rotation.
+    hue: float = 0.0
+    # Per-channel normalization (in the tensor's value scale), applied
+    # after the final clamp. Both empty or both length-3.
+    mean: tuple = ()
+    std: tuple = ()
+    # RandomErasing, applied last (after mean/std; zero fill): probability,
+    # area-fraction range, aspect (w/h) range; one rect a clip.
+    erase: float = 0.0
+    erase_scale: tuple = (0.02, 0.33)
+    erase_ratio: tuple = (0.3, 3.3)
+
+    def __post_init__(self):
+        if (self.width > 0) != (self.height > 0):
+            raise ValueError("width/height must be set together "
+                             f"(got {self.width}x{self.height})")
+        for name, rng, lo_min in (("scale", self.scale, 0.0),
+                                  ("ratio", self.ratio, 0.0)):
+            if len(rng) != 2 or not (lo_min < rng[0] <= rng[1]):
+                raise ValueError(f"{name} must be (lo, hi) with "
+                                 f"0 < lo <= hi, got {rng}")
+        if self.scale[1] > 1.0:
+            raise ValueError(f"scale upper bound must be <= 1.0 "
+                             f"(a crop cannot exceed the frame), "
+                             f"got {self.scale}")
+        if self.samples_rect and not self.width:
+            raise ValueError("scale/ratio sampling needs a static "
+                             "output size; set width/height")
+        if not 0.0 <= self.hflip <= 1.0:
+            raise ValueError(f"hflip must be a probability, got "
+                             f"{self.hflip}")
+        for name, v in (("brightness", self.brightness),
+                        ("contrast", self.contrast),
+                        ("saturation", self.saturation)):
+            if v < 0:
+                raise ValueError(f"{name} must be >= 0, got {v}")
+        if not 0.0 <= self.hue <= 0.5:
+            raise ValueError(f"hue must be in [0, 0.5] turns, got "
+                             f"{self.hue}")
+        if not 0.0 <= self.erase <= 1.0:
+            raise ValueError(f"erase must be a probability, got "
+                             f"{self.erase}")
+        es, er = self.erase_scale, self.erase_ratio
+        if len(es) != 2 or not (0.0 < es[0] <= es[1] <= 1.0):
+            raise ValueError(f"erase_scale must be (lo, hi) within "
+                             f"(0, 1], got {es}")
+        if len(er) != 2 or not (0.0 < er[0] <= er[1]):
+            raise ValueError(f"erase_ratio must be (lo, hi) with "
+                             f"0 < lo <= hi, got {er}")
+        if bool(self.mean) != bool(self.std):
+            raise ValueError("mean/std must be set together")
+        if self.mean and (len(self.mean) != 3 or len(self.std) != 3
+                          or any(s == 0 for s in self.std)):
+            raise ValueError("mean/std must be length-3 with nonzero "
+                             f"std, got {self.mean}/{self.std}")
+
+    @property
+    def samples_rect(self):
+        return self.scale != (1.0, 1.0) or self.ratio != (1.0, 1.0)
+
+    @property
+    def identity(self):
+        """True when this config never changes any pixel."""
+        return (not self.width and not self.samples_rect and self.hflip == 0
+                and self.brightness == 0 and self.contrast == 0
+                and self.saturation == 0 and self.hue == 0
+                and not self.mean and self.erase == 0)
+
+    def output_size(self, src_w, src_h):
+        return (self.width or src_w, self.height or src_h)
+
+
+def _seed_word(x):
+    return int(x) % (1 << 64)
+
+
+def _draw(cfg, src_h, src_w, rng):
+    """One clip's parameter row (float64) from 14 uniforms drawn in a fixed
+    order, whatever the config, so a field that is off changes no other."""
+    u = rng.random(14)
+    out_w, out_h = cfg.output_size(src_w, src_h)
+    row = np.zeros(len(PARAMS))
+    row[_COL["rect_h"]], row[_COL["rect_w"]] = src_h, src_w
+    if cfg.width and cfg.samples_rect:
+        area = src_h * src_w * (cfg.scale[0] +
+                                u[0] * (cfg.scale[1] - cfg.scale[0]))
+        lo, hi = math.log(cfg.ratio[0]), math.log(cfg.ratio[1])
+        r = math.exp(lo + u[1] * (hi - lo))
+        w = min(max(math.sqrt(area * r), 1.0), float(src_w))
+        h = min(max(math.sqrt(area / r), 1.0), float(src_h))
+        row[_COL["x0"]] = u[2] * (src_w - w)
+        row[_COL["y0"]] = u[3] * (src_h - h)
+        row[_COL["rect_h"]], row[_COL["rect_w"]] = h, w
+    row[_COL["flip"]] = float(u[4] < cfg.hflip)
+    for k, name in ((5, "brightness"), (6, "contrast"), (7, "saturation")):
+        half = getattr(cfg, name)
+        lo = max(0.0, 1.0 - half)
+        row[_COL[name]] = lo + u[k] * (1.0 + half - lo) if half > 0 else 1.0
+    row[_COL["theta"]] = 2.0 * math.pi * cfg.hue * (2.0 * u[8] - 1.0)
+    if cfg.erase > 0:
+        area = out_h * out_w * (cfg.erase_scale[0] + u[10] *
+                                (cfg.erase_scale[1] - cfg.erase_scale[0]))
+        lo, hi = math.log(cfg.erase_ratio[0]), math.log(cfg.erase_ratio[1])
+        r = math.exp(lo + u[11] * (hi - lo))
+        ew = min(max(math.sqrt(area * r), 1.0), float(out_w))
+        eh = min(max(math.sqrt(area / r), 1.0), float(out_h))
+        row[_COL["erase"]] = float(u[9] < cfg.erase)
+        row[_COL["erase_y0"]] = u[12] * (out_h - eh)
+        row[_COL["erase_x0"]] = u[13] * (out_w - ew)
+        row[_COL["erase_h"]], row[_COL["erase_w"]] = eh, ew
+    return row
+
+
+def sample_clip_params(cfg: AugmentConfig, src_h: int, src_w: int,
+                       aug_seed: int, ids) -> np.ndarray:
+    """float32 [clips, len(PARAMS)]: one row a clip, drawn from
+    ``default_rng([aug_seed, epoch, identity])`` for each (epoch, identity)
+    row of `ids` ([clips, 2] integers). `src_h`/`src_w` are the size of
+    the frames the transform receives."""
+    ids = np.asarray(ids, np.int64).reshape(-1, 2)
+    rows = [_draw(cfg, src_h, src_w, np.random.default_rng(
+        [_seed_word(aug_seed), _seed_word(e), _seed_word(i)]))
+        for e, i in ids]
+    return np.asarray(rows, np.float64).reshape(-1, len(PARAMS)).astype(
+        np.float32)
+
+
+def _grid_1d(n_out, start, extent, flip=None):
+    """Half-pixel bilinear sampling coordinates of `n_out` points over
+    [start, start+extent) for each clip ([B, 1] each -> [B, n_out]); where
+    `flip` ([B, 1] bool) is set, the direction inside the rect reverses."""
+    j = torch.arange(n_out, dtype=torch.float32, device=extent.device)
+    u = (j + 0.5)[None, :] * (extent / n_out)
+    if flip is not None:
+        u = torch.where(flip, extent - u, u)
+    return start + u - 0.5
+
+
+def _gather_lerp(x, coords, axis, size):
+    """Bilinear 1-D resample of `x` ([B, ...]) along `axis` at each clip's
+    float coordinates ([B, n]), edge-replicated: both neighbour indices
+    clamp independently from the unclamped floor."""
+    lo = torch.floor(coords)
+    t = coords - lo
+    lo = lo.to(torch.int64)
+    i0 = lo.clamp(0, size - 1)
+    i1 = (lo + 1).clamp(0, size - 1)
+    shape = [x.shape[0]] + [1] * (x.dim() - 1)
+    shape[axis] = coords.shape[1]
+    full = list(x.shape)
+    full[axis] = coords.shape[1]
+    a = torch.gather(x, axis, i0.view(shape).expand(full))
+    b = torch.gather(x, axis, i1.view(shape).expand(full))
+    t = t.view(shape)
+    return a * (1.0 - t) + b * t
+
+
+def _dot3(t, w):
+    return (t[..., 0] * float(w[0]) + t[..., 1] * float(w[1])
+            + t[..., 2] * float(w[2]))
+
+
+def _per_clip(params, name, ndim):
+    """Column `name` of [B, K] params, shaped to broadcast over [B, ...]."""
+    return params[:, _COL[name]].reshape((-1,) + (1,) * (ndim - 1))
+
+
+def make_clip_augment_fn(cfg: AugmentConfig, src_h: int, src_w: int,
+                         planar: bool, unit: float = 1.0, bgr: bool = False,
+                         out_dtype=None):
+    """``fn(clips, params) -> clips`` for a batch of clips.
+
+    `clips` is ``[B, T, 3, H, W]`` (planar) or ``[B, T, H, W, 3]``
+    (merged) in any real dtype, `params` float32 ``[B, len(PARAMS)]`` on
+    the same device (``sample_clip_params``). Math runs in float32 and
+    the result is cast to `out_dtype` (default: the input dtype; uint8
+    gets round and clamp). `unit` is the value scale (1.0 for normalized
+    tensors, 255.0 for u8-valued ones)."""
+    h_axis, w_axis, c_axis = (3, 4, 2) if planar else (2, 3, 4)
+    out_w, out_h = cfg.output_size(src_w, src_h)
+    gray_w = np.asarray(_GRAY_RGB, np.float32)
+    yiq, yiq_inv = _RGB2YIQ, _YIQ2RGB
+    if bgr:
+        gray_w = gray_w[::-1].copy()
+        yiq = yiq[:, ::-1].copy()
+        yiq_inv = yiq_inv[::-1, :].copy()
+    spatial = bool(cfg.width) or cfg.hflip > 0
+    n_jitter = sum(x > 0 for x in (cfg.brightness, cfg.contrast,
+                                   cfg.saturation, cfg.hue))
+    # Per-device constants, made on the first (eager) call so that a CUDA
+    # graph's capture copies nothing from the host.
+    consts = {}
+
+    def constants(device):
+        key = str(device)
+        if key not in consts:
+            consts[key] = (
+                torch.tensor(cfg.mean or (0.0,) * 3, dtype=torch.float32,
+                             device=device),
+                torch.tensor(cfg.std or (1.0,) * 3, dtype=torch.float32,
+                             device=device),
+                torch.tensor([0.0, 0.0, float(src_h), float(src_w)],
+                             dtype=torch.float32, device=device))
+        return consts[key]
+
+    def fn(clips, params):
+        if (clips.shape[h_axis], clips.shape[w_axis]) != (src_h, src_w):
+            raise ValueError(f"clips {tuple(clips.shape)}: expected frames "
+                             f"of {src_h}x{src_w}")
+        mean, std, full_rect = constants(clips.device)
+        x = clips.to(torch.float32)
+        p = params.to(torch.float32)
+        if spatial:
+            if cfg.width and cfg.samples_rect:
+                rect = p[:, :4]
+            else:
+                rect = full_rect.expand(p.shape[0], 4)
+            y0, x0, rh, rw = (rect[:, k:k + 1] for k in range(4))
+            flip = (p[:, _COL["flip"]:_COL["flip"] + 1] > 0.5
+                    if cfg.hflip > 0 else None)
+            ys = _grid_1d(out_h, y0, rh)
+            xs = _grid_1d(out_w, x0, rw, flip)
+            x = _gather_lerp(x, ys, h_axis, src_h)
+            x = _gather_lerp(x, xs, w_axis, src_w)
+        if n_jitter or cfg.mean:
+            x = torch.movedim(x, c_axis, -1)  # [..., 3] for channel math
+            nd = x.dim()
+            # Channel mixes are written elementwise in float32, as the JAX
+            # package writes them.
+            if cfg.brightness > 0:
+                x = x * _per_clip(p, "brightness", nd)
+            if cfg.contrast > 0:
+                m = _dot3(x, gray_w).flatten(1).mean(dim=1)
+                m = m.reshape((-1,) + (1,) * (nd - 1))
+                x = (x - m) * _per_clip(p, "contrast", nd) + m
+            if cfg.saturation > 0:
+                g = _dot3(x, gray_w)[..., None]
+                x = g + (x - g) * _per_clip(p, "saturation", nd)
+            if cfg.hue > 0:
+                theta = _per_clip(p, "theta", nd - 1)
+                c, s = torch.cos(theta), torch.sin(theta)
+                lum = _dot3(x, yiq[0])
+                i0, q0 = _dot3(x, yiq[1]), _dot3(x, yiq[2])
+                i1 = c * i0 - s * q0
+                q1 = s * i0 + c * q0
+                x = torch.stack(
+                    [lum * float(yiq_inv[ch, 0]) + i1 * float(yiq_inv[ch, 1])
+                     + q1 * float(yiq_inv[ch, 2]) for ch in range(3)],
+                    dim=-1)
+            if n_jitter:
+                x = x.clamp(0.0, unit)
+            if cfg.mean:
+                x = (x - mean) / std
+            x = torch.movedim(x, -1, c_axis)
+        if cfg.erase > 0:
+            nd = x.dim()
+            e = {k: p[:, _COL[k]:_COL[k] + 1] for k in (
+                "erase_y0", "erase_x0", "erase_h", "erase_w")}
+            rows = torch.arange(out_h, dtype=torch.float32, device=x.device)
+            cols = torch.arange(out_w, dtype=torch.float32, device=x.device)
+            in_y = (rows >= e["erase_y0"]) & (
+                rows < e["erase_y0"] + e["erase_h"])
+            in_x = (cols >= e["erase_x0"]) & (
+                cols < e["erase_x0"] + e["erase_w"])
+            shape_y = [x.shape[0]] + [1] * (nd - 1)
+            shape_y[h_axis] = out_h
+            shape_x = [x.shape[0]] + [1] * (nd - 1)
+            shape_x[w_axis] = out_w
+            do = _per_clip(p, "erase", nd) > 0.5
+            inside = in_y.view(shape_y) & in_x.view(shape_x)
+            x = torch.where(do & inside, 0.0, x)
+        dt = out_dtype if out_dtype is not None else clips.dtype
+        if dt == torch.uint8:
+            return torch.round(x).clamp(0.0, 255.0).to(torch.uint8)
+        return x.to(dt)
+
+    return fn
+
+
+def apply_clip_augment(cfg: AugmentConfig, clips, params, planar: bool,
+                       unit: float = 1.0, bgr: bool = False, out_dtype=None):
+    """Applies `cfg` with per-clip `params` to ``clips`` ([B, T, ...])."""
+    h_axis = 3 if planar else 2
+    src_h, src_w = clips.shape[h_axis], clips.shape[h_axis + 1]
+    return make_clip_augment_fn(cfg, src_h, src_w, planar, unit, bgr,
+                                out_dtype)(clips, params)
+
+
+def make_frame_augment_fn(cfg: AugmentConfig, src_h: int, src_w: int,
+                          planar: bool, unit: float = 1.0, bgr: bool = False,
+                          out_dtype=None):
+    """Frame variant: ``fn(frames [B, ...], params [B, K])``, each frame a
+    clip of length 1."""
+    clip_fn = make_clip_augment_fn(cfg, src_h, src_w, planar, unit, bgr,
+                                   out_dtype)
+
+    def fn(frames, params):
+        return clip_fn(frames[:, None], params)[:, 0]
+
+    return fn

@@ -6,10 +6,17 @@ src/Wrappers/WrapperPython.cpp:315-343). PyTorch runs eagerly, so a
 "built" VPP is a plain function over tensors with its index tables made
 once; it runs on the device its input lies on.
 
-Full-frame RGB24/BGR24 (no crop, no resize), planar or merged, goes
-through the hand-written CUDA kernel for CUDA tensors (ops/nv12_rgb.py);
-every other config, and every config on the CPU, runs the plain torch ops.
+On CUDA tensors, RGB24/BGR24 (planar or merged, after any crop and
+resize) goes through the hand-written NV12 kernel (ops/nv12_rgb.py), and
+BILINEAR, BICUBIC and AREA resizes through their kernels (ops/resize.py);
+a crop is a strided view that the resize kernels read in place. The other
+colour formats and NEAREST run torch ops, and every config on the CPU
+runs the plain torch versions.
+
+``build_vpp_clip_augment`` adds the training augmentation of
+ops/augment.py after the VPP, one CUDA graph a batch.
 """
+import dataclasses
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -20,6 +27,7 @@ from .._device import resolve_device
 from ..enums import (ColorStandard, FourCC, Planes, ResizeType,
                      channels_by_fourcc)
 from ..graphs import cuda_graph
+from . import augment
 from . import color as color_ops
 from . import nv12_rgb
 from .crop import crop_nv12
@@ -113,20 +121,16 @@ def make_vpp_fn(cfg: VPPConfig):
     planar = cfg.planes == Planes.PLANAR
 
     def base_fn(y, uv):
-        if not (do_crop or do_resize) and rgb:
-            # Full frame: the CUDA kernel for CUDA tensors, plain on CPU.
-            return nv12_rgb.nv12_to_rgb(y, uv, swap_rb, planar,
-                                        cfg.normalization,
-                                        cfg.standard.value)
         if do_crop:
             y, uv = crop_nv12(y, uv, *cfg.crop)
         if do_resize:
             y, uv = resize(y, uv)
         if rgb:
-            return color_ops.nv12_to_rgb(y, uv, swap_rb=swap_rb,
-                                         planar=planar,
-                                         normalization=cfg.normalization,
-                                         standard=cfg.standard.value)
+            # The NV12 kernel for CUDA tensors (it takes contiguous planes:
+            # a crop that is not resized is copied first), plain on the CPU.
+            return nv12_rgb.nv12_to_rgb(y.contiguous(), uv.contiguous(),
+                                        swap_rb, planar, cfg.normalization,
+                                        cfg.standard.value)
         if four == FourCC.Y800:
             return color_ops.nv12_to_y800(y, cfg.normalization)
         if four == FourCC.UYVY:
@@ -214,6 +218,58 @@ def build_vpp_batched_flat(cfg: VPPConfig, batch: int, device=None,
 
     def flat_fn(flat):
         return graphed(_on(device, flat))
+
+    flat_fn.graphed = graphed
+    return flat_fn
+
+
+def build_vpp_clip_augment(cfg: VPPConfig, aug, clips: int, clip_len: int,
+                           aug_seed: int, device=None, device_index: int = 0):
+    """Batched VPP + per-clip training augmentation over one flat staging
+    buffer (the layout of ``build_vpp_batched_flat``).
+
+    Returns ``fn(flat, ids) -> [clips, clip_len, ...]``, where `ids` is an
+    integer [clips, 2] array of (epoch, clip identity). The VPP runs
+    without the dtype override, the augmentation (ops/augment.py) on its
+    contract values, and one final cast gives cfg's dtype. Each clip's
+    parameters are drawn on the host from (aug_seed, epoch, identity)
+    (``augment.sample_clip_params``), so a resumed loader replays the same
+    bytes for the same clips. On CUDA the VPP and the augmentation are one
+    CUDA graph; the flat buffer and the parameters are its inputs, copied
+    into its static buffers before each replay (graphs.cuda_graph). Each
+    call builds a new graph, which lives as long as the returned
+    function."""
+    if cfg.fourcc not in (FourCC.RGB24, FourCC.BGR24):
+        raise ValueError("augment requires an RGB24/BGR24 pixel format "
+                         f"(got {cfg.fourcc}) — the transforms are "
+                         "defined on RGB model inputs")
+    if aug.mean and cfg.output_dtype() == torch.uint8:
+        raise ValueError("mean/std normalization needs a float tensor; "
+                         "pass normalization=True or dtype='bfloat16'/"
+                         "'float32'")
+    device = resolve_device(device, device_index)
+    fn = make_vpp_fn(dataclasses.replace(cfg, dtype=""))
+    h, w = cfg.src_height, cfg.src_width
+    out_w, out_h = cfg.output_size()
+    clip_fn = augment.make_clip_augment_fn(
+        aug, out_h, out_w, planar=(cfg.planes == Planes.PLANAR),
+        unit=1.0 if cfg.normalization else 255.0,
+        bgr=(cfg.fourcc == FourCC.BGR24), out_dtype=cfg.output_dtype())
+    batch = clips * clip_len
+    y_size = batch * h * w
+
+    def convert(flat, params):
+        ys = flat[:y_size].view(batch, h, w)
+        uvs = flat[y_size:].view(batch, h // 2, w)
+        t = fn(ys, uvs)
+        return clip_fn(t.reshape((clips, clip_len) + t.shape[1:]), params)
+
+    graphed = cuda_graph(convert)
+
+    def flat_fn(flat, ids):
+        params = torch.from_numpy(augment.sample_clip_params(
+            aug, out_h, out_w, aug_seed, ids))
+        return graphed(_on(device, flat), _on(device, params))
 
     flat_fn.graphed = graphed
     return flat_fn

@@ -27,7 +27,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "tensor_stream_torch.utils.crc, tensor_stream_torch.serving, "
             "tensor_stream_torch.models, "
             "tensor_stream_torch.ops.flash_attention, "
-            "tensor_stream_torch.graphs; "
+            "tensor_stream_torch.ops.resize, tensor_stream_torch.ops.augment, "
+            "tensor_stream_torch.ops.mix, tensor_stream_torch.graphs; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'tensor_stream_tpu'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -69,7 +70,8 @@ def test_channels_by_fourcc_matches_jax_copy():
 def test_entry_points_without_device_take_cuda():
     """device=None means cuda:N: without a CUDA device every entry point
     raises instead of dropping to the CPU on its own."""
-    from tensor_stream_torch import FrameLoader, TensorStreamConverter
+    from tensor_stream_torch import (ClipDataset, ClipLoader, FrameLoader,
+                                     TensorStreamConverter)
     cfg = VPPConfig(64, 32)
     if torch.cuda.is_available():
         assert _device.resolve_device() == torch.device("cuda", 0)
@@ -80,6 +82,8 @@ def test_entry_points_without_device_take_cuda():
     from tensor_stream_torch.serving import StreamInferencer
     for call in (lambda: TensorStreamConverter(FIXTURE),
                  lambda: FrameLoader(FIXTURE, batch=2),
+                 lambda: ClipLoader(FIXTURE, clip_len=2),
+                 lambda: ClipDataset([FIXTURE], clip_len=2),
                  lambda: StreamInferencer([FIXTURE], lambda x: x),
                  lambda: VideoViT(10, depth=1, dim=32, num_heads=1, patch=8,
                                   frames=2, size=16),
@@ -124,10 +128,12 @@ def test_cuda_build_flags_pin_rounding():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in _build.SOURCE_FLAGS["nv12_rgb"]
+    assert "-fmad=false" in _build.SOURCE_FLAGS["resize_nv12"]
     for extra in _build.SOURCE_FLAGS.values():
         flags += " " + " ".join(extra)
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert _build.SOURCES == ("nv12_rgb", "flash_fwd", "flash_bwd")
+    assert _build.SOURCES == ("nv12_rgb", "flash_fwd", "flash_bwd",
+                              "resize_nv12")
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.SRC_DIR, f"{name}.cu"))
 

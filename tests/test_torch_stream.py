@@ -230,5 +230,19 @@ def test_dump_and_processed_tap_write_tensor_bytes(tmp_path, monkeypatch):
 
 
 def test_augment_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.FrameLoader(BBB, augment=object(), device="cpu")
+    """augment= is ported (tests/test_torch_clip_loader.py holds it): a
+    FrameLoader takes an AugmentConfig and refuses, before it opens the
+    stream, what the JAX loader refuses."""
+    with pytest.raises(ValueError, match="RGB24/BGR24"):
+        pts.FrameLoader(BBB, augment=pts.AugmentConfig(hflip=1.0),
+                        pixel_format=pts.FourCC.NV12, device="cpu")
+    with jts.FrameLoader(BBB, batch=2, augment=jts.AugmentConfig(hflip=1.0),
+                         pixel_format=jts.FourCC.RGB24) as theirs, \
+            pts.FrameLoader(BBB, batch=2, augment=pts.AugmentConfig(
+                hflip=1.0), device="cpu") as ours:
+        want, want_idx = next(theirs)
+        got, got_idx = next(ours)
+    # hflip=1.0 mirrors every frame whatever the draw, so the two agree
+    # within the packages' colour rule.
+    assert got_idx == want_idx
+    assert_rgb_close(got.numpy(), np.asarray(want))

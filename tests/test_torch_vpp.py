@@ -14,7 +14,7 @@ import torch
 
 from tensor_stream_tpu import enums as jenums
 from tensor_stream_tpu.ops import vpp as jvpp
-from tensor_stream_torch.enums import ColorStandard, FourCC, Planes, ResizeType
+from tensor_stream_torch.enums import ColorStandard, FourCC, Planes
 from tensor_stream_torch.ops import vpp
 
 from test_torch_color import assert_rgb_close
@@ -144,16 +144,6 @@ def test_batched_flat_with_post_fn_matches_jax(name, kw):
     batched = vpp.build_vpp_batched(cfg, "cpu")(torch.from_numpy(ys),
                                                 torch.from_numpy(uvs))
     assert torch.equal(batched.flip(0), got.to(batched.dtype))
-
-
-@pytest.mark.parametrize("rt", [ResizeType.BILINEAR, ResizeType.BICUBIC,
-                                ResizeType.AREA])
-def test_device_resize_other_than_nearest_is_not_ported(rt):
-    cfg = vpp.VPPConfig(W, H, width=64, height=24, resize_type=rt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vpp.make_vpp_fn(cfg)
-    # No resize stage (target equals the source): nothing to refuse.
-    vpp.make_vpp_fn(vpp.VPPConfig(W, H, width=W, height=H, resize_type=rt))
 
 
 def test_auto_standard_must_be_resolved():
