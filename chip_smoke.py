@@ -13,7 +13,9 @@ kernels:
   f32 on the card (the nv12_rgb kernel); and the same loader with the
   resize on the card (1080p NV12 -> BILINEAR, BICUBIC or AREA -> 224²:
   the resize_nv12 kernels, each first held byte for byte against its
-  plain version at the reference's CRC geometries, crops included);
+  plain version at the reference's CRC geometries, crops included, and
+  AREA-down at geometries that exercise its plan, whose candidate plans
+  are also timed against each other);
 * clip augmentation: bench.py::bench_device_augment's configuration
   (16 clips of 8 frames of 224², RandomResizedCrop, flip, ColorJitter,
   normalize), from 224² frames and from 1080p through the device
@@ -67,8 +69,15 @@ in alternating processes:
     python3 -c "import chip_smoke as c; c.nv12_ab('dist/parent')"
     python3 -c "import chip_smoke as c; c.flash_ab('dist/parent')"
     python3 -c "import chip_smoke as c; c.flash_bwd_ab('dist/parent')"
+    python3 -c "import chip_smoke as c; c.resize_ab('dist/parent')"
+
+and the AREA-down kernel whole and in parts (staging only, blend only,
+the launch floor), each a copy of its source with one part cut out:
+
+    python3 -c "import chip_smoke as c; c.area_split()"
 """
 import contextlib
+import ctypes
 import inspect
 import json
 import os
@@ -594,6 +603,15 @@ RESIZE_FUZZ = (((64, 48), (52, 36)), ((64, 48), (100, 76)),
                ((100, 76), (64, 18)), ((56, 34), (146, 108)))
 RESIZE_CONTENTS = ("random", "flat", "checker", "ramp")
 HEADLINE_SRC = (1920, 1080)
+# AREA-down geometries that exercise its plan (ops/resize.py area_plan), as
+# (frames, source, crop, target): the table variant (30 column taps), a crop
+# whose rows start off 16-byte alignment, a width that is no multiple of
+# the column tile (two tiles of 160), and a batch of crops read through
+# the batch stride.
+AREA_PLAN_GEOMETRIES = ((1, HEADLINE_SRC, None, (64, 36)),
+                        (1, RESIZE_SRC, (6, 2, 966, 542), (200, 120)),
+                        (1, RESIZE_SRC, None, (300, 170)),
+                        (3, RESIZE_SRC, (100, 50, 1000, 590), (224, 224)))
 RESIZED_BATCHES = 6
 # bench.py::bench_device_augment (bench.py:284-320): 16 clips of 8 frames of
 # 224² RGB24 planar, normalized, with this AugmentConfig.
@@ -625,9 +643,17 @@ def resize_content(content, n, h, w, seed):
     return np.concatenate([y.reshape(-1), uv.reshape(-1)])
 
 
+def area_variant_launched(before):
+    """The AREA-down variant launched since the counts were `before`."""
+    ran = [k for k, v in resize_ops.area_launches_by_variant.items()
+           if v != before[k]]
+    return ran[0] if len(ran) == 1 else None
+
+
 def check_resize(device, flat, n, h, w, crop, dw, dh, algo):
     """One kernel launch against the plain version on the same CUDA
-    planes: (kernel, differing bytes, max abs difference)."""
+    planes: (kernel, AREA-down variant or None, differing bytes, max abs
+    difference)."""
     y, uv = split(flat, n, h, w)
     sw, sh = w, h
     if crop is not None:
@@ -635,33 +661,44 @@ def check_resize(device, flat, n, h, w, crop, dw, dh, algo):
         sw, sh = crop[2] - crop[0], crop[3] - crop[1]
     r = resize_ops.NV12Resize(sw, sh, dw, dh, algo)
     before = resize_ops.launches[r.kernel]
+    variants = dict(resize_ops.area_launches_by_variant)
     gy, guv = r(y, uv)
     if resize_ops.launches[r.kernel] != before + 1:
         raise AssertionError(f"{r.kernel} did not launch")
+    variant = area_variant_launched(variants)
+    if (variant is None) != (r.kernel != "resize_area_down_nv12"):
+        raise AssertionError(f"{r.kernel}: AREA variants launched "
+                             f"{resize_ops.area_launches_by_variant}")
     wy, wuv = r.plain(y, uv)
     torch.cuda.synchronize()
     bad = int((gy != wy).sum()) + int((guv != wuv).sum())
-    return r.kernel, bad, max(max_abs_err(gy, wy), max_abs_err(guv, wuv))
+    return (r.kernel, variant, bad,
+            max(max_abs_err(gy, wy), max_abs_err(guv, wuv)))
 
 
 def phase_resize_vs_plain(device):
     """Each resize kernel against its plain version on the card, byte for
     byte: the 19 CRC geometries (crops included) and the 4 fuzz
     geometries in four contents, and the main path's batch (N=128,
-    1920x1080 -> 224²) in two; every algorithm at every geometry."""
+    1920x1080 -> 224²) in two; every algorithm at every geometry. AREA
+    also at AREA_PLAN_GEOMETRIES in four contents; both of its variants
+    must run."""
     worst = dict.fromkeys(resize_ops.KERNELS, 0.0)
     cases = dict.fromkeys(resize_ops.KERNELS, 0)
+    area_cases = dict.fromkeys(resize_ops.AREA_VARIANTS, 0)
     failures = []
 
-    def run_all(flat, n, h, w, crop, dw, dh, label):
-        for algo in RESIZE_ALGOS:
-            kernel, bad, err = check_resize(device, flat, n, h, w, crop, dw,
-                                            dh, algo)
+    def run_all(flat, n, h, w, crop, dw, dh, label, algos=RESIZE_ALGOS):
+        for algo in algos:
+            kernel, variant, bad, err = check_resize(device, flat, n, h, w,
+                                                     crop, dw, dh, algo)
             cases[kernel] += 1
+            if variant is not None:
+                area_cases[variant] += 1
             worst[kernel] = max(worst[kernel], err)
             if bad:
-                failures.append(f"{kernel} ({algo.name}) {label}: {bad} "
-                                "bytes differ")
+                failures.append(f"{kernel} ({algo.name}, {variant}) {label}: "
+                                f"{bad} bytes differ")
 
     sw, sh = RESIZE_SRC
     for k, content in enumerate(RESIZE_CONTENTS):
@@ -675,6 +712,12 @@ def phase_resize_vs_plain(device):
                                                     70 + k)).to(device)
             run_all(fflat, 2, fh, fw, None, dw, dh,
                     f"{content} N=2 {fw}x{fh} -> {dw}x{dh}")
+        for frames, (aw, ah), crop, (dw, dh) in AREA_PLAN_GEOMETRIES:
+            aflat = torch.from_numpy(resize_content(content, frames, ah, aw,
+                                                    75 + k)).to(device)
+            run_all(aflat, frames, ah, aw, crop, dw, dh,
+                    f"{content} N={frames} {aw}x{ah} crop {crop} -> "
+                    f"{dw}x{dh}", algos=(ResizeType.AREA,))
     hw, hh = HEADLINE_SRC
     for k, content in enumerate(("random", "flat")):
         flat = torch.from_numpy(resize_content(content, BATCH, hh, hw,
@@ -685,12 +728,18 @@ def phase_resize_vs_plain(device):
     emit({"phase": "resize_vs_plain", "cases": cases,
           "geometries": {"crc": [list(g) for g in RESIZE_CRC_GEOMETRIES],
                          "fuzz": [list(g) for g in RESIZE_FUZZ],
+                         "area_plan": [[f, list(src), crop, list(dst)]
+                                       for f, src, crop, dst in
+                                       AREA_PLAN_GEOMETRIES],
                          "main_path": [BATCH, hw, hh, SIDE, SIDE]},
+          "area_cases_by_variant": area_cases,
           "contents": list(RESIZE_CONTENTS), "tolerance": "0 bytes",
           "differing_cases": len(failures), "max_abs_err": worst})
     if failures:
         raise AssertionError("resize kernel != plain: "
                              + "; ".join(failures[:8]))
+    if not all(area_cases.values()):
+        raise AssertionError(f"an AREA-down variant never ran: {area_cases}")
     return worst
 
 
@@ -739,6 +788,7 @@ def phase_resized_main_path(device, smi, main):
         torch.cuda.synchronize()
         seconds = time.monotonic() - t0
         launches = resize_counts()
+        by_variant = dict(resize_ops.area_launches_by_variant)
         loader.close()
         want = {"nv12_rgb": batches, **dict.fromkeys(resize_ops.KERNELS, 0),
                 kernel: batches}
@@ -775,7 +825,7 @@ def phase_resized_main_path(device, smi, main):
             "device_ms_per_batch": dev_ms,
             "launches_per_batch": {k: v / batches
                                    for k, v in launches.items()},
-            "launches": launches,
+            "launches": launches, "area_launches_by_variant": by_variant,
             "first_batch": "bitwise equal to the plain versions"}
         del loader, staging, y, uv, x, first
     head_fps = main[1] / main[2]
@@ -930,7 +980,25 @@ def resize_work(r, n):
     return n * (sectors * 32 + outputs), n * outputs * ops, rate
 
 
+def sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def area_plan_row(r, n, device):
+    """The AREA-down plan a launch of `n` frames takes, for a result row."""
+    return plan_row(r.area_plan(n, sm_count(device)), n)
+
+
+def plan_row(plan, n):
+    return {"variant": plan.variant, "band": plan.band,
+            "frames": plan.frames, "tile": plan.tile, "smem": plan.smem,
+            "blocks": resize_ops.area_launch_blocks(plan, n)}
+
+
 def phase_resize_times(device, smi):
+    """Each kernel at RESIZE_TIMED beside its bound and its plain version;
+    AREA rows name the plan they launched, and at the headline batch the
+    time a torch reduction takes to read the same source once."""
     rows = []
     for algo, n, (sw, sh), (dw, dh) in RESIZE_TIMED:
         flat = torch.from_numpy(seeded_nv12(n, sh, sw, 90)).to(device)
@@ -950,10 +1018,67 @@ def phase_resize_times(device, smi):
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations", "share_of_bound": bound_ms / ms,
                      "library_ms": None})
+        if r.kernel == "resize_area_down_nv12":
+            rows[-1].update(area_plan_row(r, n, device))
+            if n == BATCH:
+                words = flat.view(torch.int32)
+                rows[-1]["read_floor_ms"] = time_ms(
+                    lambda: torch.amax(words), device)[0]
         del flat, y, uv
     emit({"phase": "resize_times", "card": smi, "rows": rows,
           "library_note": "no PyTorch call computes the reference's "
                           "NV12-domain resize"})
+    return rows
+
+
+# The AREA-down plans timed against each other: the registers variant at
+# the three widest column tiles, each band of output rows, one frame a
+# block and two, and the table variant, at the headline batch and at one
+# frame.
+AREA_VARIANT_SHAPES = ((BATCH, HEADLINE_SRC, (SIDE, SIDE)),
+                       (1, RESIZE_SRC, (480, 360)))
+
+
+def phase_area_variants(device, smi):
+    """resize_area_down_nv12 under each plan of AREA_VARIANT_SHAPES: the
+    time of each, its staged bytes and blocks, each held byte for byte to
+    the plain version. Evidence for what bounds the kernel (ncu cannot run
+    on the card's machine): how its time moves with the band, and against
+    the read floor of phase_resize_times."""
+    rows = []
+    for n, (sw, sh), (dw, dh) in AREA_VARIANT_SHAPES:
+        flat = torch.from_numpy(seeded_nv12(n, sh, sw, 90)).to(device)
+        y, uv = split(flat, n, sh, sw)
+        r = resize_ops.NV12Resize(sw, sh, dw, dh, ResizeType.AREA)
+        want = r.plain(y, uv)
+        key = (n, sm_count(device))
+        chosen = r.area_plan(*key)
+        plans = [resize_ops.area_blocks(r.planes, sw, sh, dw, dh, band,
+                                        tile, "registers", frames)
+                 for tile in resize_ops.area_tiles(dw)[:3]
+                 for band in resize_ops.AREA_BANDS
+                 for frames in sorted({1, min(2, n)})]
+        plans.append(resize_ops.area_blocks(r.planes, sw, sh, dw, dh, 1,
+                                            chosen.tile, "table"))
+        for plan in plans:
+            if plan.smem > resize_ops.AREA_SMEM_LIMIT:
+                continue
+            r._plans[key] = plan
+            got = r(y, uv)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"AREA plan {plan.variant} band "
+                                     f"{plan.band}: bytes differ")
+            ms, p10, p90 = time_ms(lambda: r(y, uv), device)
+            rows.append({"shape": [n, sw, sh, dw, dh], **plan_row(plan, n),
+                         "chosen": plan_row(plan, n) == plan_row(chosen, n),
+                         "ms": ms,
+                         "p10_ms": p10, "p90_ms": p90})
+        r._plans[key] = chosen
+        del flat, y, uv, want
+    emit({"phase": "area_variants", "card": smi, "rows": rows,
+          "tolerance": "0 bytes"})
     return rows
 
 
@@ -2678,6 +2803,101 @@ print(json.dumps(rows))
 """
 
 
+# Seeds as phase_resize_times (seeded_nv12, seed 90); needs nothing of the
+# other checkout but its NV12Resize.
+RESIZE_AB_SNIPPET = """
+import json, numpy as np, torch
+from tensor_stream_torch.enums import ResizeType
+from tensor_stream_torch.ops import resize
+HOLD_CYCLES = {hold}
+{timer}
+dev = torch.device("cuda", 0)
+rows = []
+for algo, n, (sw, sh), (dw, dh) in {shapes}:
+    rng = np.random.default_rng(90)
+    flat = torch.from_numpy(rng.integers(0, 256, n * sh * sw * 3 // 2,
+                                         dtype=np.uint8)).to(dev)
+    y = flat[:n * sh * sw].view(n, sh, sw)
+    uv = flat[n * sh * sw:].view(n, sh // 2, sw)
+    r = resize.NV12Resize(sw, sh, dw, dh, ResizeType[algo])
+    rows.append(time_ms(lambda: r(y, uv), dev))
+    del flat, y, uv
+print(json.dumps(rows))
+"""
+
+
+# The parts of resize_area_down_nv12 timed apart (area_split): the kernel
+# as it is, then copies of its source with one part cut out, each one
+# replacement in csrc/resize_nv12.cu.
+AREA_SPLIT = {
+    "kernel": None,
+    "staging_only": ("  if (b.j < 0) return;\n",
+                     "  if (b.j < 0 || b.j >= 0) return;\n"),
+    "blend_only": ("Stage(smem + a.taps_bytes + f * a.rows_bytes,\n"
+                   "                                b.src + f * b.batch, b, "
+                   "b.row_lo, b.nrows)",
+                   "Mod16(b.src + f * b.batch, b.pitch, b.row_lo, "
+                   "b.col_lo)"),
+    "launch_floor": ("  if (b.ncols == 0) return;",
+                     "  if (b.ncols >= 0) return;"),
+}
+
+
+def area_split(device=None):
+    """resize_area_down_nv12 at AREA_VARIANT_SHAPES under its chosen plan,
+    whole and in parts: staging only (every block stages its bands, then
+    stops), blend only (no source copied: the taps blend whatever the
+    shared memory holds) and the launch floor (each block locates itself
+    and stops). ncu cannot run on the card's machine; these times say
+    which part bounds the kernel. Builds each cut copy with nvcc under
+    build/; the kernel's bytes are checked in phase_resize_vs_plain."""
+    device = device or torch.device("cuda", 0)
+    src = open(os.path.join(_build.SRC_DIR, "resize_nv12.cu")).read()
+    out_dir = os.path.join(_build.BUILD_DIR, "area_split")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, cut in AREA_SPLIT.items():
+        text = src
+        if cut is not None:
+            if text.count(cut[0]) != 1:
+                raise AssertionError(f"area_split {name}: the line to cut "
+                                     "is not in resize_nv12.cu")
+            text = text.replace(cut[0], cut[1])
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(out_dir, f"lib{name}.so")
+        procs[name] = (so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS,
+             *_build.SOURCE_FLAGS["resize_nv12"], "-I", _build.SRC_DIR,
+             "-o", so, cu], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"area_split {name}: nvcc failed:\n{log}")
+        fns[name] = resize_ops.bind(ctypes.CDLL(so))
+    rows = []
+    kept = resize_ops._lib()
+    try:
+        for n, (sw, sh), (dw, dh) in AREA_VARIANT_SHAPES:
+            flat = torch.from_numpy(seeded_nv12(n, sh, sw, 90)).to(device)
+            y, uv = split(flat, n, sh, sw)
+            r = resize_ops.NV12Resize(sw, sh, dw, dh, ResizeType.AREA)
+            for name in AREA_SPLIT:
+                resize_ops._FNS = fns[name]
+                ms, p10, p90 = time_ms(lambda: r(y, uv), device)
+                rows.append({"shape": [n, sw, sh, dw, dh], "part": name,
+                             **area_plan_row(r, n, device), "ms": ms,
+                             "p10_ms": p10, "p90_ms": p90})
+            del flat, y, uv
+    finally:
+        resize_ops._FNS = kept
+    emit({"phase": "area_split", "card": nvidia_smi(), "rows": rows})
+    return rows
+
+
 def ab_turns(other_root, code, blocks):
     """Runs `code` in the checkout at `other_root` (for example the parent
     commit, unpacked with git archive) and in this one, on one card in
@@ -2742,6 +2962,33 @@ def nv12_ab(other_root, blocks=1):
     return got
 
 
+def resize_ab(other_root, blocks=1):
+    """Each RESIZE_TIMED shape in the checkout at `other_root` against
+    this one's (ab_turns), with the AREA-down plan this checkout launches
+    there. Prints and returns {"other": [...], "this": [...]}: a list a
+    turn of (median, p10, p90) ms a shape."""
+    shapes = [(a.name, n, src, dst) for a, n, src, dst in RESIZE_TIMED]
+    code = RESIZE_AB_SNIPPET.format(hold=HOLD_CYCLES,
+                                    timer=inspect.getsource(time_ms),
+                                    shapes=shapes)
+    got, order, roots = ab_turns(other_root, code, blocks)
+    device = torch.device("cuda", 0)
+    plans = []
+    for a, n, (sw, sh), (dw, dh) in RESIZE_TIMED:
+        r = resize_ops.NV12Resize(sw, sh, dw, dh, a)
+        plans.append(area_plan_row(r, n, device)["variant"]
+                     if r.kernel == "resize_area_down_nv12" else None)
+    median = {k: [float(np.median([turn[i][0] for turn in v]))
+                  for i in range(len(shapes))] for k, v in got.items()}
+    emit({"phase": "resize_ab", "card": nvidia_smi(),
+          "shapes": [list(s) for s in shapes], "area_variants": plans,
+          "order": order, **got, "median_ms": median,
+          "other_over_this": [o / t for o, t in zip(median["other"],
+                                                    median["this"])],
+          "roots": roots})
+    return got
+
+
 def run(device):
     smi = phase_env()
     worst = phase_kernel_vs_plain(device)
@@ -2759,6 +3006,7 @@ def run(device):
     resized = phase_resized_main_path(device, smi, main)
     clip_aug = phase_clip_augment(device, smi)
     resize_rows = phase_resize_times(device, smi)
+    phase_area_variants(device, smi)
     flash_worst = phase_flash_vs_plain()
     serving = phase_serving(device)
     pooled = phase_pooled(device, smi)
@@ -2809,15 +3057,22 @@ def run(device):
                                            **aug_runs}.items() if v[kernel]}
         head = next(r for r in resize_rows if r["kernel"] == kernel
                     and r["shape"][0] == BATCH)
-        return {"name": kernel, "route": "cuda",
-                "source": "tensor_stream_torch/csrc/resize_nv12.cu",
-                "replaces": replaces, "replaces_note": note,
-                "launches": sum(paths.values()), "launches_by_path": paths,
-                "max_abs_err": resize_worst[kernel],
-                "max_differing_bytes": 0, "shape": head["shape"],
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": None}
+        entry = {"name": kernel, "route": "cuda",
+                 "source": "tensor_stream_torch/csrc/resize_nv12.cu",
+                 "replaces": replaces, "replaces_note": note,
+                 "launches": sum(paths.values()), "launches_by_path": paths,
+                 "max_abs_err": resize_worst[kernel],
+                 "max_differing_bytes": 0, "shape": head["shape"],
+                 "ms": head["ms"], "plain_ms": head["plain_ms"],
+                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                 "library_ms": None}
+        if kernel == "resize_area_down_nv12":
+            entry["variant"] = head["variant"]  # at the headline batch
+            entry["launches_by_variant"] = {
+                v: sum(r["area_launches_by_variant"][v]
+                       for r in resized.values())
+                for v in resize_ops.AREA_VARIANTS}
+        return entry
     fwd_paths = {**{k: r["launches"]["flash_fwd"]
                     for k, r in serve_runs.items()},
                  **{k: v["flash_fwd"] for k, v in train.items()}}

@@ -52,7 +52,7 @@ from .ops import flash_attention, nv12_rgb, resize
 # int or a dict of ints.
 COUNTERS = tuple(
     [(nv12_rgb, name) for name in ("launches", "launches_by_variant")]
-    + [(resize, "launches")]
+    + [(resize, name) for name in ("launches", "area_launches_by_variant")]
     + [(flash_attention, name) for name in (
         "launches", "launches_by_mode", "recompute_launches", "bwd_launches",
         "bwd_launches_by_design", "dout_copies")])

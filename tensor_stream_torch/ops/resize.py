@@ -30,6 +30,7 @@ launch adds one to its kernel's entry of ``launches``.
 """
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +45,10 @@ _ENTRY = {"resize_bilinear_nv12": "ts_resize_bilinear_nv12",
           "resize_area_down_nv12": "ts_resize_area_down_nv12"}
 
 launches = dict.fromkeys(KERNELS, 0)
+# resize_area_down_nv12's launches by variant (area_plan): "registers" keeps
+# a column's weights in registers, "table" in shared memory.
+AREA_VARIANTS = ("registers", "table")
+area_launches_by_variant = dict.fromkeys(AREA_VARIANTS, 0)
 
 _FNS = None
 _EPS32 = np.float32(np.finfo(np.float32).eps)
@@ -52,21 +57,30 @@ _EPS32 = np.float32(np.finfo(np.float32).eps)
 def reset_counts():
     for k in KERNELS:
         launches[k] = 0
+    for k in AREA_VARIANTS:
+        area_launches_by_variant[k] = 0
+
+
+def bind(lib):
+    """{kernel name: entry point} of a built resize_nv12 library, with
+    their argument types."""
+    v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fns = {}
+    for name, entry in _ENTRY.items():
+        fn = getattr(lib, entry)
+        fn.restype = i
+        fn.argtypes = [v, ll, ll, v, ll, ll, v, v, i, i, i,
+                       v, v, v, v, i, i, v]
+        if name == "resize_area_down_nv12":
+            fn.argtypes += [v, v, v] + [i] * (len(AREA_ARGS) - 3)
+        fns[name] = fn
+    return fns
 
 
 def _lib():
     global _FNS
     if _FNS is None:
-        lib = _build.load("resize_nv12")
-        v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fns = {}
-        for name, entry in _ENTRY.items():
-            fn = getattr(lib, entry)
-            fn.restype = i
-            fn.argtypes = [v, ll, ll, v, ll, ll, v, v, i, i, i,
-                           v, v, v, v, i, i, v]
-            fns[name] = fn
-        _FNS = fns
+        _FNS = bind(_build.load("resize_nv12"))
     return _FNS
 
 
@@ -317,6 +331,194 @@ def plane_tables(src_w, src_h, dst_w, dst_h, resize_type: ResizeType):
     raise ValueError(f"unsupported resize type {resize_type}")
 
 
+# ------------------------------------------------------- the AREA plan
+
+AREA_REGISTER_TAPS = 16  # csrc/resize_nv12.cu kRegisterTaps
+AREA_THREADS = 256       # most threads (output columns) a block
+AREA_BANDS = (4, 2, 1)   # csrc/resize_nv12.cu kMaxBand is the first
+AREA_FRAMES = (2, 1)
+AREA_SMEM_TARGET = 48 * 1024   # a block's shared bytes, to keep ~4 an SM
+AREA_SMEM_LIMIT = 232448       # the most a block may have on Hopper
+AREA_MIN_BLOCKS = 2            # blocks an SM that a launch should have
+
+
+class AreaPlan(NamedTuple):
+    """How resize_area_down_nv12 cuts a launch into blocks. A block owns
+    one plane of `frames` frames, a band of `band` output rows and a tile
+    of `tile` output columns (a thread each). For each frame it stages the
+    source bytes its taps read in shared memory: up to `rows` rows, row k
+    holding its source row's columns from the tile's first at k * (pitch
+    + source pitch mod 16) + (the first row's first byte's address mod
+    16), the row's last byte repeated past its end. The frames of a block
+    share their weights' products."""
+    variant: str   # "registers" or "table"
+    band: int      # output rows a block (1 in the table variant)
+    tile: int      # output columns a block
+    frames: int    # frames a block (1 in the table variant)
+    tiles: int
+    bands: tuple   # (Y bands, UV bands)
+    pitch: int     # shared bytes a staged row
+    rows: int      # staged rows (the table variant: rows a chunk)
+    smem: int      # dynamic shared bytes a block
+    spans: np.ndarray  # int32: [bands][2] (first source row, rows), Y
+    #                    then UV; then [2][tiles][2] (first source column,
+    #                    columns), Y then UV
+    taps: np.ndarray   # int32: [bands][band * ty][2] (source row - the
+    #                    band's first, weight bits) of each row tap
+
+
+def area_steps(planes, src_w):
+    """Each plane's first column tap c0 and tap step S (1 on Y, 2 on the
+    interleaved UV plane), after checking that every tap is
+    min(c0 + S*t, src_w - 1): the kernel reads c0 + S*t from the staged
+    row, whose bytes past src_w - 1 repeat the last one."""
+    out = []
+    for step, plane in zip((1, 2), planes):
+        cols = np.asarray(plane["cols"])
+        c0 = cols[:, 0]
+        taps = np.minimum(c0[:, None] + step * np.arange(cols.shape[1]),
+                          src_w - 1)
+        if not np.array_equal(cols, taps) or (c0 >= src_w).any():
+            raise ValueError("AREA column taps do not step from their "
+                             "first")
+        out.append((c0.astype(np.int64), step))
+    return out
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def area_blocks(planes, src_w, src_h, dw, dh, band, tile, variant,
+                frames=1):
+    """The AreaPlan of one band, tile, variant and frame count, whatever
+    its size."""
+    ty = np.asarray(planes[0]["rows"]).shape[1]
+    tx = np.asarray(planes[0]["cols"]).shape[1]
+    if variant == "registers" and tx > AREA_REGISTER_TAPS:
+        raise ValueError(f"{tx} column taps exceed the registers variant")
+    if band > AREA_BANDS[0]:
+        raise ValueError(f"a band of {band} rows exceeds {AREA_BANDS[0]}")
+    if variant == "table" and (band, frames) != (1, 1):
+        raise ValueError("the table variant takes one output row a block")
+    tiles = -(-dw // tile)
+    row_spans, col_spans, taps = [], [], []
+    for plane in planes:
+        rows = np.asarray(plane["rows"])
+        wy = np.asarray(plane["row_w"], np.float32).view(np.int32)
+        for r0 in range(0, rows.shape[0], band):
+            blk = rows[r0:r0 + band]
+            row_spans.append((blk.min(), blk.max() - blk.min() + 1))
+            tap = np.zeros((band, ty, 2), np.int32)
+            tap[:len(blk), :, 0] = blk - blk.min()
+            tap[:len(blk), :, 1] = wy[r0:r0 + band]
+            taps.append(tap)
+    for c0, step in area_steps(planes, src_w):
+        for t in range(tiles):
+            blk = c0[t * tile:(t + 1) * tile]
+            if blk.size == 0:  # past the UV plane's last column
+                col_spans.append((0, 0))
+            else:
+                col_spans.append((blk.min(), blk.max() + step * (tx - 1)
+                                  - blk.min() + 1))
+    # A staged row holds its 16-byte chunks: up to 15 bytes before its
+    # first column and 15 after its last.
+    pitch = _round_up(max(c for _, c in col_spans) + 31, 16)
+    need = max(n for _, n in row_spans)
+
+    def rows_bytes(rows):  # steps of up to pitch + 15, from up to 15 in
+        return rows * (pitch + 16) + 16
+
+    if variant == "registers":
+        # The band's row taps, then each frame's rows.
+        rows = need
+        smem = _round_up(band * ty * 8, 16) + frames * rows_bytes(rows)
+    else:
+        wbytes = _round_up(tx * tile * 4, 16)
+        rows = max(1, min(need, (AREA_SMEM_LIMIT - wbytes - 16)
+                          // (pitch + 16)))
+        smem = wbytes + rows_bytes(rows)
+    spans = np.asarray(row_spans + col_spans, np.int32).reshape(-1)
+    return AreaPlan(variant, band, tile, frames, tiles,
+                    (-(-dh // band), -(-(dh // 2) // band)), pitch, rows,
+                    int(smem), spans, np.concatenate(taps).reshape(-1))
+
+
+# What resize_area_down_nv12 takes after the tables and the stream.
+AREA_ARGS = ("div", "spans", "taps", "sw", "sh", "uvw", "band", "tile",
+             "frames", "pitch", "rows", "smem", "variant")
+
+
+def area_args(plan, div_ptr, spans_ptr, taps_ptr, src_w, src_h, uv_cols):
+    """The values of AREA_ARGS for a launch under `plan`."""
+    return (div_ptr, spans_ptr, taps_ptr, src_w, src_h, uv_cols, plan.band,
+            plan.tile, plan.frames, plan.pitch, plan.rows, plan.smem,
+            AREA_VARIANTS.index(plan.variant))
+
+
+def area_div(planes):
+    """Each output's sum of w2d = wy*wx over its taps, y outer and x
+    inner, in float32 as the blend sums it: the Y plane's [dh, dw] then
+    the UV plane's, flat. It depends on the weights alone, so the
+    registers variant reads it instead of summing it in every frame."""
+    out = []
+    for plane in planes:
+        wy = np.asarray(plane["row_w"], np.float32)
+        wx = np.asarray(plane["col_w"], np.float32)
+        div = np.zeros((wy.shape[0], wx.shape[0]), np.float32)
+        for ti in range(wy.shape[1]):
+            for tj in range(wx.shape[1]):
+                div = div + wy[:, ti, None] * wx[None, :, tj]
+        out.append(div.reshape(-1))
+    return np.concatenate(out)
+
+
+def area_launch_blocks(plan, n):
+    """The blocks of a launch of `n` frames under `plan`."""
+    return plan.tiles * -(-n // plan.frames) * sum(plan.bands)
+
+
+def area_tiles(dw):
+    """Column tiles to try, widest first: the fewest tiles of at most
+    AREA_THREADS columns, then narrower ones down to one column."""
+    tile = _round_up(-(-dw // -(-dw // AREA_THREADS)), 32)
+    out = [tile]
+    while tile > 1:
+        tile = _round_up(tile // 2, 32) if tile > 32 else tile // 2
+        out.append(tile)
+    return out
+
+
+def area_plan(planes, src_w, src_h, dw, dh, n=1, sms=132):
+    """The plan resize_area_down_nv12 launches with for a batch of `n` on
+    a card of `sms` SMs. The registers variant where the column taps fit
+    (tx <= AREA_REGISTER_TAPS): the widest tile, then the most frames and
+    the tallest band that leave AREA_MIN_BLOCKS blocks an SM with the
+    shared bytes within AREA_SMEM_TARGET, else within the card's limit;
+    the table variant otherwise (many taps, or a band too tall for any
+    tile)."""
+    tx = np.asarray(planes[0]["cols"]).shape[1]
+    blocks = AREA_MIN_BLOCKS * sms
+    if tx <= AREA_REGISTER_TAPS:
+        for target in (AREA_SMEM_TARGET, AREA_SMEM_LIMIT):
+            for tile in area_tiles(dw):
+                for frames in AREA_FRAMES:
+                    for band in AREA_BANDS:
+                        plan = area_blocks(planes, src_w, src_h, dw, dh,
+                                           band, tile, "registers",
+                                           min(frames, n))
+                        if plan.smem <= target and (
+                                area_launch_blocks(plan, n) >= blocks
+                                or band == plan.frames == 1):
+                            return plan
+    for tile in area_tiles(dw):
+        plan = area_blocks(planes, src_w, src_h, dw, dh, 1, tile, "table")
+        if plan.smem <= AREA_SMEM_LIMIT:
+            return plan
+    raise ValueError(f"no AREA plan fits {src_w}x{src_h} -> {dw}x{dh} in "
+                     "shared memory")
+
+
 # ------------------------------------------------------- plain versions
 
 def _fmaf(x, y, z):
@@ -432,6 +634,16 @@ class NV12Resize:
         self.kernel, self.planes = plane_tables(src_w, src_h, dst_w, dst_h,
                                                 resize_type)
         self._on = {}
+        self._plans = {}
+        self._area_on = {}
+
+    def area_plan(self, n, sms=132):
+        """resize_area_down_nv12's plan for a batch of `n` (area_plan)."""
+        key = (n, sms)
+        if key not in self._plans:
+            self._plans[key] = area_plan(self.planes, *self.src, *self.dst,
+                                         n=n, sms=sms)
+        return self._plans[key]
 
     def _tables(self, device):
         key = str(device)
@@ -494,6 +706,14 @@ class NV12Resize:
         _, (rows, cols, row_w, col_w) = self._tables(y.device)
         batch_y = y.stride(0) if lead else 0
         batch_uv = uv.stride(0) if lead else 0
+        extra, plan = (), None
+        if self.kernel == "resize_area_down_nv12":
+            plan = self.area_plan(n, torch.cuda.get_device_properties(
+                y.device).multi_processor_count)
+            div, spans, taps = self._area_tables(plan, y.device)
+            extra = area_args(plan, div.data_ptr(), spans.data_ptr(),
+                              taps.data_ptr(), sw, sh,
+                              self.planes[1]["cols"].shape[0])
         with torch.cuda.device(y.device):
             rc = _lib()[self.kernel](
                 y.data_ptr(), y.stride(-2), batch_y,
@@ -501,12 +721,27 @@ class NV12Resize:
                 out_y.data_ptr(), out_uv.data_ptr(), n, dw, dh,
                 rows.data_ptr(), cols.data_ptr(), row_w.data_ptr(),
                 col_w.data_ptr(), rows.shape[1], cols.shape[1],
-                torch.cuda.current_stream(y.device).cuda_stream)
+                torch.cuda.current_stream(y.device).cuda_stream, *extra)
         if rc != 0:
             raise RuntimeError(f"{_ENTRY[self.kernel]} launch failed: "
                                f"cudaError {rc}")
         launches[self.kernel] += 1
+        if plan is not None:
+            area_launches_by_variant[plan.variant] += 1
         return out_y, out_uv
+
+    def _area_tables(self, plan, device):
+        """(div, spans, taps) of `plan` on `device` (area_div; AreaPlan)."""
+        key = (str(device), plan.band, plan.tile)
+        if key not in self._area_on:
+            div = self._area_on.get(str(device))
+            if div is None:
+                div = self._area_on[str(device)] = torch.as_tensor(
+                    area_div(self.planes), device=device)
+            self._area_on[key] = (div,
+                                  torch.as_tensor(plan.spans, device=device),
+                                  torch.as_tensor(plan.taps, device=device))
+        return self._area_on[key]
 
 
 def make_resize_fn(src_w, src_h, dst_w, dst_h, resize_type: ResizeType):

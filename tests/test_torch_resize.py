@@ -252,13 +252,18 @@ def test_kernels_match_plain_on_the_card():
     for kwargs in ({"width": 480, "height": 360},
                    {"width": 1920, "height": 1080},
                    {"crop": (120, 60, 960, 540), "width": 320,
-                    "height": 240}):
+                    "height": 240},
+                   # AREA-down's table variant (30 x 17 taps) and a crop
+                   # whose rows start off 16-byte alignment.
+                   {"width": 36, "height": 36},
+                   {"crop": (6, 2, 966, 542), "width": 200, "height": 120}):
         for algo in (ResizeType.BILINEAR, ResizeType.BICUBIC,
                      ResizeType.AREA):
             a, b, w, h = y, uv, W, H
             if "crop" in kwargs:
                 a, b = crop_nv12(y, uv, *kwargs["crop"])
-                w, h = 840, 480
+                x0, y0, x1, y1 = kwargs["crop"]
+                w, h = x1 - x0, y1 - y0
             r = resize.NV12Resize(w, h, kwargs["width"], kwargs["height"],
                                   algo)
             before = resize.launches[r.kernel]
