@@ -44,7 +44,17 @@ kernels:
   make_vit_train_step with SGD, flash and materialized attention, every
   flash attention's gradient from the flash_bwd kernel; the step replayed
   as a CUDA graph, bit-equal to the eager step in every loss and
-  parameter.
+  parameter;
+* the model layer: latent_video_generation.py's pipeline (seeded 1080p
+  NV12 through the clip path's device program, the BILINEAR resize
+  kernel and NV12->RGB, to 4 clips of 8 frames of 256²; VideoVAE and
+  VideoDiT at their module defaults trained with Adam through their
+  graphed steps, the DiT unconditionally and class-conditionally; DDIM
+  sampling of 25 steps, with guidance, as one CUDA graph; the decoder),
+  VideoMoE's graphed training step, TransformerNet styling two streams
+  through MultiStreamLoader, and the ViT-B serving model with int8
+  weights dequantized inside its graph. Every graphed step and sampler
+  is bit-equal to its eager twin.
 
 A graph replay adds to the kernels' launch counts what its capture
 recorded (tensor_stream_torch/graphs.py), so every path's counts stay
@@ -88,6 +98,7 @@ from functools import partial
 
 import numpy as np
 import torch
+from torch.func import functional_call
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from tensor_stream_torch import _build, _native, serving
@@ -96,14 +107,20 @@ from tensor_stream_torch.data import (FrameLoader, MultiStreamLoader,
                                       PooledStreamLoader)
 from tensor_stream_torch.enums import FourCC, FrameRate, Planes, ResizeType
 from tensor_stream_torch.graphs import CudaGraph, cuda_graph
-from tensor_stream_torch.models import (VideoViT, clone_cache,
-                                        init_stream_cache, init_vit,
-                                        make_vit_train_step, stream_step)
+from tensor_stream_torch.models import (
+    DiffusionSchedule, TransformerNet, VideoDiT, VideoMoE, VideoVAE, VideoViT,
+    clone_cache, dequantize_weights, init_stream_cache, init_vit,
+    make_conditional_diffusion_train_step, make_ddim_sampler,
+    make_diffusion_train_step, make_moe_train_step, make_vae_train_step,
+    make_vit_train_step, moe_loss, quantization_error, quantize_weights,
+    quantized_bytes, stream_step)
+from tensor_stream_torch.models.moe import MoEMLP
 from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
 from tensor_stream_torch.ops import resize as resize_ops
 from tensor_stream_torch.ops.augment import AugmentConfig, sample_clip_params
 from tensor_stream_torch.ops.crop import crop_nv12
+from tensor_stream_torch.ops.metrics import psnr, ssim
 from tensor_stream_torch.serving import StreamInferencer
 from tensor_stream_torch.ops.vpp import (VPPConfig, build_vpp,
                                          build_vpp_batched_flat,
@@ -2989,6 +3006,523 @@ def resize_ab(other_root, blocks=1):
     return got
 
 
+# --------------------------------------------------------- the model layer
+# python_examples/latent_video_generation.py's pipeline: 1080p NV12 through
+# the clip path's device program (the BILINEAR resize kernel and NV12->RGB,
+# merged, normalized, no augmentation) to its batch of 4 clips of 8 frames,
+# at 256² (multi_stream_inference.py's default size); the module defaults
+# VideoVAE(base=32, latent=8) and VideoDiT(depth=4, dim=192, num_heads=3),
+# bf16, trained with Adam. The DiT takes the example's lr, 2e-4. The VAE
+# takes 1e-4: at base 32 the example's 1e-3 (set for base 16 at 64²)
+# diverges in the first Adam steps, in the JAX package as in the port
+# (tests/test_torch_video_vae.py::
+# test_adam_trajectory_matches_jax_where_both_diverge).
+GEN_CLIPS, GEN_CLIP_LEN, GEN_SIDE = 4, 8, 256
+GEN_VAE = dict(base=32, latent=8)
+GEN_DIT = dict(depth=4, dim=192, num_heads=3)
+GEN_VAE_LR, GEN_DIT_LR = 1e-4, 2e-4
+GEN_CLASSES, GEN_LABEL_DROPOUT = 10, 0.1
+GEN_TIMESTEPS, GEN_DDIM_STEPS, GEN_GUIDANCE = 1000, 25, 3.0
+MODEL_WARMUP, MODEL_STEPS = 2, 8
+# A card forward in bf16 against the port's own f32 forward on the CPU from
+# the same weights, as a relative L2 norm of the outputs. Each bf16 layer
+# on the path rounds its input and its weights (2^-8 relative each), and
+# independent roundings add in quadrature: the VAE's encode and decode
+# chain 16 convs, sqrt(2 * 16) * 2^-8 = 2.2e-2 (a CPU run at base 8 lands
+# at 1.7e-2); the bound is about twice that. The DiT's sublayers add into
+# an f32 residual behind gates, and sits far below it.
+MODEL_F32_REL = 5e-2
+# VideoMoE at its defaults (4 experts, depth 4, dim 192, 3 heads, patch 16,
+# tubelet 2), bf16, B=4 clips of 16 x 224²: 1568 tokens a group, capacity
+# 490; the arrow-of-time task on the ramp batch, Adam as the JAX package's
+# test_moe_train_step_descends.
+MOE_BATCH, MOE_LR = 4, 3e-3
+# multi_stream_inference.py: two streams, 4 frames a stream a tick at 256²,
+# planar and normalized, x255 NHWC into TransformerNet.
+STYLE_PER_STREAM, STYLE_SIDE = 4, 256
+STYLE_WARMUP, STYLE_TICKS = 2, 24
+# serving_inference.py's int8 serving: top-1 against the f32 weights'
+# logits and the relative max logit error of tests/test_quantize.py:53-70.
+QUANT_REL = 0.05
+
+
+def expect_launches(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}: the "
+                             "path bypassed a kernel")
+
+
+@contextlib.contextmanager
+def cudnn_flags(**flags):
+    """torch.backends.cudnn's `flags` (deterministic, allow_tf32) for the
+    block's duration. The conv phases compare graphed and eager steps bit
+    for bit, which needs cuDNN's deterministic algorithms (a weight
+    gradient summed with atomics differs by run)."""
+    before = {k: getattr(torch.backends.cudnn, k) for k in flags}
+    for k, v in flags.items():
+        setattr(torch.backends.cudnn, k, v)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            setattr(torch.backends.cudnn, k, v)
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def outputs_equal(a, b):
+    return all(bitwise_equal(x, y) for x, y in zip(as_tuple(a),
+                                                   as_tuple(b)))
+
+
+def profile_call(fn, args, top=6):
+    """The device's records (kernel_ms) of one call of `fn` under
+    torch.profiler: their sum, by kernel_group ("gemm" takes cuDNN's
+    implicit-GEMM convolutions too) and the `top` kernels, in ms."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    kernels = kernel_ms(prof)
+    groups = {}
+    for key, ms in kernels.items():
+        groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + ms
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ms": sum(kernels.values()), "groups_ms": groups,
+            "kernels": len(kernels), "top_ms": dict(ranked)}
+
+
+def train_twins(label, build, make_step, args, device):
+    """MODEL_WARMUP + MODEL_STEPS steps of a model's train step through its
+    CUDA graph, then as many of the same step eagerly on a twin built
+    alike (`build()` -> (model, optimizer); `make_step(model, optimizer,
+    generator)`; both generators seeded 1). Gates: every output of every
+    step and every parameter after the steps bit-equal, one capture and a
+    replay for every call but the first, finite losses. One more eager
+    step of the twin runs under the profiler. Returns (the row, the
+    graphed model, its step)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    calls = MODEL_WARMUP + MODEL_STEPS
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(1)
+    model, opt = build()
+    step = make_step(model, opt, gen())
+    out = [step(*args) for _ in range(MODEL_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out += [step(*args) for _ in range(MODEL_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    check_replays(step.graphed, calls, label)
+    enqueue = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(*args)
+        enqueue.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    device_ms = time_ms(step.graphed.graphs[0].replay, device, iters=5,
+                        warmup=1)[0]
+    twin, twin_opt = build()
+    eager = make_step(twin, twin_opt, gen()).graphed.fn
+    twin_out = [eager(*args) for _ in range(calls)]
+    steps_equal = [outputs_equal(a, b) for a, b in zip(out, twin_out)]
+    differing = params_equal({n: p.detach() for n, p in
+                              twin.named_parameters()}, params)
+    profile = profile_call(eager, args)
+    del twin, twin_opt, eager, twin_out, params
+    losses = [float(as_tuple(o)[0]) for o in out]
+    step_ms = seconds / MODEL_STEPS * 1e3
+    row = {"steps": calls, "loss": losses, "step_ms": step_ms,
+           "host_ms_a_call": float(np.median(enqueue)),
+           "step_device_ms": device_ms,
+           "device_time_source": "cuda_graph_replay",
+           "idle_share": 1 - device_ms / step_ms,
+           "peak_memory_gib": peak / 2 ** 30,
+           "captures": step.graphed.captures,
+           "replays": step.graphed.replays,
+           "graphed_vs_eager": {"steps_bit_equal": all(steps_equal),
+                                "params_differing": differing,
+                                "params": len(list(model.parameters()))},
+           "finite": bool(np.isfinite(losses).all()),
+           "descends": float(np.mean(losses[-4:])) < losses[0],
+           "eager_step_profile": profile}
+    if not all(steps_equal) or differing:
+        raise AssertionError(f"{label}: graphed steps differ from eager "
+                             f"ones: steps {steps_equal}, params "
+                             f"{differing[:5]}")
+    if not row["finite"]:
+        raise AssertionError(f"{label}: losses {losses}")
+    return row, model, step
+
+
+def adam_build(make_model, lr):
+    def build():
+        model = make_model()
+        return model, torch.optim.Adam(model.parameters(), lr=lr)
+    return build
+
+
+def generation_clips(device):
+    """4 clips of 8 frames of 256² RGB merged f32 from seeded 1080p NV12,
+    through build_vpp_clip_augment with no augmentation (the clip path's
+    device program: the BILINEAR resize kernel, then NV12->RGB)."""
+    cfg = VPPConfig(*HEADLINE_SRC, width=GEN_SIDE, height=GEN_SIDE,
+                    resize_type=ResizeType.BILINEAR, fourcc=FourCC.RGB24,
+                    planes=Planes.MERGED, normalization=True)
+    n = GEN_CLIPS * GEN_CLIP_LEN
+    flat = torch.from_numpy(seeded_nv12(n, HEADLINE_SRC[1], HEADLINE_SRC[0],
+                                        47)).to(device)
+    fn = build_vpp_clip_augment(cfg, AugmentConfig(), GEN_CLIPS,
+                                GEN_CLIP_LEN, 0, device)
+    ids = np.stack([np.zeros(GEN_CLIPS, np.int64),
+                    np.arange(GEN_CLIPS)], axis=1)
+    clips = fn(flat, ids)
+    want = (GEN_CLIPS, GEN_CLIP_LEN, GEN_SIDE, GEN_SIDE, 3)
+    if tuple(clips.shape) != want or not bool(torch.isfinite(clips).all()):
+        raise AssertionError(f"generation: clips {tuple(clips.shape)}")
+    return clips
+
+
+def f32_cpu_check(label, model, cpu_model, fn):
+    """`fn(model, on)` on the card (bf16) against `fn(cpu_model, "cpu")`
+    with the card model's weights in f32 on the CPU."""
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    with torch.no_grad():
+        got = fn(model, model.device).float()
+        want = fn(cpu_model, torch.device("cpu"))
+    err = _rel_norm(got.cpu(), want)
+    row = {"rel_norm": err, "bound": MODEL_F32_REL,
+           "max_abs_err": max_abs_err(got.cpu(), want),
+           "max_abs": float(want.abs().max())}
+    if not err <= MODEL_F32_REL:
+        raise AssertionError(f"{label}: bf16 card forward against the f32 "
+                             f"CPU forward: {row}")
+    return row
+
+
+def sample_run(label, sampler, noise, y, device):
+    """The graphed DDIM sampler: its warm-up and its first replay against
+    the eager sampler, bit for bit; ms a batch (graph replay) and one
+    graphed call's wall ms."""
+    args = (noise,) if y is None else (noise, y)
+    eager = sampler.fn(*args)
+    warm = sampler(*args)
+    got = sampler(*args)
+    check_replays(sampler, 2, label)
+    if not (bitwise_equal(got, eager) and bitwise_equal(warm, eager)):
+        raise AssertionError(f"{label}: graphed sampler != eager sampler")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite samples")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    sampler(*args)
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) * 1e3
+    ms = time_ms(sampler.graphs[0].replay, device, iters=3, warmup=1)[0]
+    return got, {"steps": GEN_DDIM_STEPS, "ms_a_batch": ms,
+                 "wall_ms_a_call": wall, "graphed_vs_eager": "bitwise equal"}
+
+
+@cudnn_flags(deterministic=True)
+def phase_generation(device, smi):
+    """latent_video_generation.py on the card: clips from 1080p NV12
+    through the clip path's device program; the VAE trained (2 + 8 graphed
+    Adam steps), its frozen encoder to latents; the DiT trained
+    unconditionally and class-conditionally (2 + 8 graphed Adam steps
+    each); DDIM (25 steps) unconditional and with guidance w = 3; the
+    decoder. Gates: every graphed step and sampler bit-equal to eager,
+    finite and falling losses, the bf16 VAE and DiT forwards against the
+    port's f32 CPU forwards from the same weights, finite decoded clips
+    of the input's shape."""
+    reset_resize_counts()
+    clips = generation_clips(device)
+    torch.cuda.synchronize()
+    launches = resize_counts()
+    expect_launches("generation", {k: launches[k] for k in (
+        "nv12_rgb", "resize_bilinear_nv12")}, {"nv12_rgb": 1,
+                                               "resize_bilinear_nv12": 1})
+    failures = []
+    rows = {}
+
+    def vae_model(dtype=torch.bfloat16, on=device):
+        return VideoVAE(**GEN_VAE, compute_dtype=dtype, device=on,
+                        generator=torch.Generator().manual_seed(0))
+    rows["vae"], vae, vae_step = train_twins(
+        "generation vae", adam_build(vae_model, GEN_VAE_LR),
+        lambda m, o, g: make_vae_train_step(m, o, generator=g), (clips,),
+        device)
+    del vae_step
+    rows["vae"]["f32_cpu"] = f32_cpu_check(
+        "generation vae", vae, vae_model(torch.float32, "cpu"),
+        lambda m, on: m.decode(m.encode(clips[:1].to(on))[0]))
+    with torch.no_grad():
+        latents, _ = vae.encode(clips)
+        recon = vae.decode(latents)
+    rows["vae"]["psnr_db"] = float(psnr(recon, clips).mean())
+    rows["vae"]["ssim"] = float(ssim(recon, clips).mean())
+    lat_shape = tuple(latents.shape)
+    if lat_shape != (GEN_CLIPS, GEN_CLIP_LEN // 2, GEN_SIDE // 4,
+                     GEN_SIDE // 4, GEN_VAE["latent"]):
+        raise AssertionError(f"generation: latents {lat_shape}")
+    sched = DiffusionSchedule(GEN_TIMESTEPS, device=device)
+    labels = torch.from_numpy(np.random.default_rng(5).integers(
+        0, GEN_CLASSES, GEN_CLIPS)).to(device)
+    samples = {}
+    for name, classes in (("dit", 0), ("dit_conditional", GEN_CLASSES)):
+        def dit_model(dtype=torch.bfloat16, on=device, classes=classes):
+            return VideoDiT(lat_shape[1:], **GEN_DIT, num_classes=classes,
+                            compute_dtype=dtype, device=on,
+                            generator=torch.Generator().manual_seed(0))
+        if classes:
+            args = (latents, labels)
+
+            def make(m, o, g):
+                return make_conditional_diffusion_train_step(
+                    m, sched, o, GEN_LABEL_DROPOUT, generator=g)
+        else:
+            args = (latents,)
+
+            def make(m, o, g):
+                return make_diffusion_train_step(m, sched, o, generator=g)
+        rows[name], dit, dit_step = train_twins(
+            f"generation {name}", adam_build(dit_model, GEN_DIT_LR), make,
+            args, device)
+        del dit_step
+        t_check = torch.full((1,), GEN_TIMESTEPS // 2, device=device)
+        y_check = labels[:1] if classes else None
+        rows[name]["f32_cpu"] = f32_cpu_check(
+            f"generation {name}", dit, dit_model(torch.float32, "cpu"),
+            lambda m, on: m(latents[:1].to(on), t_check.to(on),
+                            None if y_check is None else y_check.to(on)))
+        noise = torch.randn(lat_shape, device=device, generator=torch.
+                            Generator(device=device).manual_seed(3))
+        w = GEN_GUIDANCE if classes else 0.0
+        sampler = make_ddim_sampler(dit, sched, GEN_DDIM_STEPS, w)
+        samples[name], rows[name]["ddim"] = sample_run(
+            f"generation {name} ddim", sampler, noise,
+            labels if classes else None, device)
+        rows[name]["ddim"]["guidance_scale"] = w
+        del sampler, dit
+    # Falls: the mean of the last 4 losses under the first (a diffusion
+    # step's loss moves with its t, drawn anew every step).
+    for name in ("vae", "dit", "dit_conditional"):
+        if not rows[name]["descends"]:
+            failures.append(f"{name}: loss did not fall over "
+                            f"{rows[name]['steps']} steps "
+                            f"{rows[name]['loss']}")
+    decoded = {}
+    with torch.no_grad():
+        for name, z in samples.items():
+            out = vae.decode(z)
+            decoded[name] = tuple(out.shape)
+            if (out.shape != clips.shape
+                    or not bool(torch.isfinite(out).all())):
+                failures.append(f"{name}: decoded {tuple(out.shape)} or "
+                                "non-finite")
+    out = {"phase": "generation", "card": smi,
+           "clips": list(clips.shape), "latents": list(lat_shape),
+           "input_launches": {"nv12_rgb": launches["nv12_rgb"],
+                              "resize_bilinear_nv12":
+                              launches["resize_bilinear_nv12"]},
+           "vae": {**GEN_VAE, "adam_lr": GEN_VAE_LR},
+           "dit": {**GEN_DIT, "adam_lr": GEN_DIT_LR,
+                   "tokens_a_frame": lat_shape[2] * lat_shape[3],
+                   "num_classes": GEN_CLASSES,
+                   "label_dropout": GEN_LABEL_DROPOUT},
+           "compute": "bf16", "cudnn_deterministic": True,
+           "runs": rows, "decoded": decoded, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"generation phase failed: {failures}")
+    return out
+
+
+def dropped_share(model, clips):
+    """Each MoE layer's share of routed tokens dropped at capacity, from
+    one forward of `model` on `clips` (its own routing, recomputed in a
+    pre-hook)."""
+    shares = []
+
+    def hook(mod, inputs):
+        _, _, mask, keep, _ = mod.route(inputs[0])
+        shares.append(1.0 - float(keep.sum() / mask.sum()))
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, MoEMLP)]
+    try:
+        with torch.no_grad():
+            model(clips)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shares
+
+
+def phase_moe_training(device, smi):
+    """VideoMoE at its defaults, bf16, through make_moe_train_step with
+    Adam on the ramp batch: 2 + 8 graphed steps against an eager twin (bit
+    for bit); step ms, tokens/s, the aux loss, the dropped share."""
+    clips, mask = ramp_clips(MOE_BATCH, SIDE, device)
+
+    def model():
+        return VideoMoE(2, frames=TRAIN_VIT["frames"], size=SIDE,
+                        device=device,
+                        generator=torch.Generator().manual_seed(0))
+    row, moe, step = train_twins(
+        "moe_training", adam_build(model, MOE_LR),
+        lambda m, o, g: make_moe_train_step(m, o), (clips, mask), device)
+    del step
+    layer = moe.blocks[0].moe
+    tokens = (TRAIN_VIT["frames"] // moe.tubelet_t) * (SIDE // moe.patch) ** 2
+    with torch.no_grad():
+        aux = float(moe_loss(moe, clips, mask)[2])
+    row.update(tokens_a_group=tokens, capacity=layer.capacity(tokens),
+               tokens_per_s=MOE_BATCH * tokens / (row["step_ms"] / 1e3),
+               aux_after=aux, dropped_share=dropped_share(moe, clips))
+    out = {"phase": "moe_training", "card": smi, "batch": MOE_BATCH,
+           "experts": layer.num_experts, "adam_lr": MOE_LR,
+           "compute": "bf16", **row}
+    emit(out)
+    return out
+
+
+def style_cfg():
+    return FrameParameters(pixel_format=FourCC.RGB24,
+                           planes_pos=Planes.PLANAR,
+                           normalization=True).to_config(STYLE_SIDE,
+                                                         STYLE_SIDE)
+
+
+def style_run(device, net, graphed):
+    ticks = STYLE_WARMUP + STYLE_TICKS
+
+    def stylize(batch):   # [8, 3, 256, 256] in [0, 1] -> NHWC in [0, 255]
+        return net(batch.permute(0, 2, 3, 1) * 255.0)
+    loader = SyntheticStreams(STREAMS, STYLE_PER_STREAM,
+                              ticks * STYLE_PER_STREAM, device, style_cfg())
+    graph = cuda_graph(stylize) if graphed else None
+    eng = StreamInferencer(synthetic_urls(), graph or stylize,
+                           per_stream=STYLE_PER_STREAM, loader=loader)
+    label = f"style{' graphed' if graphed else ''}"
+    try:
+        with torch.no_grad():
+            results, seconds, launches, _, lat = drive_engine(
+                eng, STYLE_WARMUP, STYLE_TICKS)
+        device_ms = (time_ms(graph.graphs[0].replay, device, iters=10,
+                             warmup=2)[0] if graph is not None else None)
+    finally:
+        eng.close()
+        loader.close()
+    check_replays(graph, ticks, label)
+    expect_launches(label, launches, {"nv12_rgb": ticks * STREAMS,
+                                      "flash_fwd": 0})
+    check_clocks(results, ticks, STYLE_PER_STREAM, label)
+    outs = by_tick(results, STREAMS)
+    if (outs.shape[2:] != (STYLE_PER_STREAM, STYLE_SIDE, STYLE_SIDE, 3)
+            or not bool(torch.isfinite(outs).all())):
+        raise AssertionError(f"{label}: outputs {tuple(outs.shape)}")
+    frames = STYLE_TICKS * STREAMS * STYLE_PER_STREAM
+    return outs, {"graphed": graphed, "launches": launches,
+                  "frames_per_s": frames / seconds,
+                  **pace(seconds, STYLE_TICKS, lat, device_ms, graph)}
+
+
+def phase_style(device, smi):
+    """multi_stream_inference.py: two seeded NV12 streams through
+    MultiStreamLoader, 4 frames of 256² a stream a tick, into
+    TransformerNet, eagerly and through cuda_graph, bit-equal at every
+    tick; frames/s and ms a tick."""
+    net = TransformerNet(device=device,
+                         generator=torch.Generator().manual_seed(0)).eval()
+    # The model is f32, as the reference's: its convolutions run without
+    # TF32 (as after phase training, whatever ran before).
+    with cudnn_flags(deterministic=True, allow_tf32=False):
+        eager, eager_row = style_run(device, net, False)
+        graphed, graphed_row = style_run(device, net, True)
+    same = bit_equal_ticks(graphed, eager)
+    out = {"phase": "style", "card": smi, "streams": STREAMS,
+           "frames_a_stream_a_tick": STYLE_PER_STREAM, "side": STYLE_SIDE,
+           "compute": "f32, no TF32",
+           "eager": eager_row, "graphed": graphed_row,
+           "graphed_vs_eager": f"bitwise equal in {sum(same)} of "
+                               f"{len(same)} ticks"}
+    emit(out)
+    if not all(same):
+        raise AssertionError(f"style: graphed != eager at ticks "
+                             f"{[k for k, s in enumerate(same) if not s]}")
+    return out
+
+
+def quant_run(device, infer, label):
+    ticks = WARMUP_TICKS + TIMED_TICKS
+
+    def serve(batch):
+        return infer(batch.view(-1, CLIP, SIDE, SIDE, 3))
+    loader = SyntheticStreams(STREAMS, CLIP, ticks * CLIP, device)
+    graph = cuda_graph(serve)
+    eng = StreamInferencer(synthetic_urls(), graph, per_stream=CLIP,
+                           loader=loader)
+    try:
+        with torch.no_grad():
+            results, seconds, launches, _, lat = drive_engine(
+                eng, WARMUP_TICKS, TIMED_TICKS)
+        device_ms = time_ms(graph.graphs[0].replay, device, iters=10,
+                            warmup=2)[0]
+    finally:
+        eng.close()
+        loader.close()
+    check_replays(graph, ticks, label)
+    expect_launches(label, launches, {"nv12_rgb": ticks * STREAMS,
+                                      "flash_fwd": ticks * VIT["depth"]})
+    check_clocks(results, ticks, CLIP, label)
+    frames = TIMED_TICKS * STREAMS * CLIP
+    return by_tick(results, STREAMS), {
+        "launches": launches, "frames_per_s": frames / seconds,
+        **pace(seconds, TIMED_TICKS, lat, device_ms, graph)}
+
+
+def phase_quantized_serving(device, smi):
+    """serving_inference.py's int8 path: the ViT-B joint serving model
+    with quantize_weights's int8 state, dequantized inside the graphed
+    forward (functional_call), served as phase serving serves it, against
+    the same model with its f32 weights: the same top-1 on every row, and
+    the logit rule at QUANT_REL (max abs error within 5% of the largest
+    logit); the weight bytes of both forms and ms a tick."""
+    model = vit(device, torch.bfloat16)
+    qstate = quantize_weights(model)
+
+    def int8(clips):
+        return functional_call(model, dequantize_weights(qstate), (clips,))
+    want, f32_row = quant_run(device, model, "quantized_serving f32")
+    got, int8_row = quant_run(device, int8, "quantized_serving int8")
+    rule = logit_rule(got, want, QUANT_REL)
+    top1 = (got.reshape(-1, got.shape[-1]).argmax(-1)
+            == want.reshape(-1, want.shape[-1]).argmax(-1))
+    out = {"phase": "quantized_serving", "card": smi,
+           "model": "ViT-B joint (phase serving's)",
+           "weight_bytes": {"f32": quantized_bytes(model.state_dict()),
+                            "int8": quantized_bytes(qstate)},
+           "quantization_error": quantization_error(model.state_dict(),
+                                                    qstate),
+           "f32_weights": f32_row, "int8_weights": int8_row,
+           "top1_agreement": float(top1.float().mean()),
+           "logit_rule": rule}
+    emit(out)
+    if not rule["ok"] or not bool(top1.all()):
+        raise AssertionError(f"quantized_serving: int8 logits against the "
+                             f"f32 weights': {rule}, top-1 {top1.tolist()}")
+    return out
+
+
 def run(device):
     smi = phase_env()
     worst = phase_kernel_vs_plain(device)
@@ -3016,6 +3550,10 @@ def run(device):
     training = phase_training(device, smi)
     phase_train_profile(device, training)
     bwd = phase_flash_bwd_times(device, smi)
+    generation = phase_generation(device, smi)
+    phase_moe_training(device, smi)
+    style = phase_style(device, smi)
+    quant = phase_quantized_serving(device, smi)
     head = rows[0]
     band = next(r for r in flash["cases"] if r["case"] == "twin_temporal")
     twin = streaming["flash_launches"]
@@ -3045,16 +3583,24 @@ def run(device):
     aug_runs = {f"clip_augment_{src}{'' if g == 'graphed' else '_eager'}":
                 r[f"{g}_launches"] for src, r in clip_aug.items()
                 for g in ("graphed", "eager")}
+    model_runs = {"generation": generation["input_launches"],
+                  "style": style["eager"]["launches"],
+                  "style_graphed": style["graphed"]["launches"],
+                  "quantized_serving_f32": quant["f32_weights"]["launches"],
+                  "quantized_serving_int8":
+                  quant["int8_weights"]["launches"]}
     nv12_paths = {"main_path": main[3]["total"],
                   **{k: v["nv12_rgb"] for k, v in resized_runs.items()},
                   **{k: v["nv12_rgb"] for k, v in aug_runs.items()},
                   **{k: r["launches"]["nv12_rgb"]
                      for k, r in serve_runs.items()},
-                  **pool_runs, **stream_runs}
+                  **pool_runs, **stream_runs,
+                  **{k: v["nv12_rgb"] for k, v in model_runs.items()}}
 
     def resize_entry(kernel, replaces, note):
-        paths = {k: v[kernel] for k, v in {**resized_runs,
-                                           **aug_runs}.items() if v[kernel]}
+        paths = {k: v.get(kernel, 0) for k, v in {
+            **resized_runs, **aug_runs, **model_runs}.items()
+            if v.get(kernel, 0)}
         head = next(r for r in resize_rows if r["kernel"] == kernel
                     and r["shape"][0] == BATCH)
         entry = {"name": kernel, "route": "cuda",
@@ -3075,7 +3621,9 @@ def run(device):
         return entry
     fwd_paths = {**{k: r["launches"]["flash_fwd"]
                     for k, r in serve_runs.items()},
-                 **{k: v["flash_fwd"] for k, v in train.items()}}
+                 **{k: v["flash_fwd"] for k, v in train.items()},
+                 **{k: v["flash_fwd"] for k, v in model_runs.items()
+                    if k.startswith("quantized")}}
     emit({"kernels": [{
         "name": "nv12_rgb", "route": "cuda",
         "source": "tensor_stream_torch/csrc/nv12_rgb.cu",

@@ -31,6 +31,12 @@ tensors (same ``data_ptr``) as the carry passed in; a carry with other
 storage (a clone, or an evicted row) is another signature, with a capture
 of its own.
 
+``generators``: CUDA ``torch.Generator``s that ``fn`` draws from. Each is
+registered with every graph captured, so that a replay draws the numbers
+an eager call would draw from the generator's state at that time, and
+advances it as the call would (the default CUDA generator needs no
+registration). A generator left out would replay the capture's draws.
+
 CPU inputs call ``fn`` directly, and so does a call made while the current
 stream is being captured (the outer graph records it, as ``jax.jit``
 inlines a jitted function). Nothing falls back: a capture or replay that
@@ -157,9 +163,10 @@ class CudaGraph:
     docstring). ``captures`` and ``replays`` count what it did;
     ``graphs`` holds the captured graphs in order, to time a replay."""
 
-    def __init__(self, fn: Callable, carry: bool = False):
+    def __init__(self, fn: Callable, carry: bool = False, generators=()):
         self.fn = fn
         self.carry = bool(carry)
+        self.generators = tuple(generators)
         self.captures = 0
         self.replays = 0
         self.graphs = []
@@ -218,6 +225,8 @@ class CudaGraph:
             static = tree_map(torch.empty_like, args)
         _copy_in(static, args)
         graph = torch.cuda.CUDAGraph()
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         before = snapshot()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -243,5 +252,6 @@ class CudaGraph:
 
 
 # The entry point: ``cuda_graph(fn)``, or ``cuda_graph(fn, carry=True)``
-# for ``fn(carry, x) -> (carry, out)`` with the carry updated in place.
+# for ``fn(carry, x) -> (carry, out)`` with the carry updated in place;
+# ``generators=`` names the generators ``fn`` draws from.
 cuda_graph = CudaGraph

@@ -40,8 +40,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..graphs import cuda_graph
 from ..ops.flash_attention import band_mask, flash_attention, recomputing
+from ._train import _GraphedStep, graphed_train_step  # noqa: F401
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -63,22 +63,42 @@ class _Init:
                                        device=self.device))
 
 
+def draw_params(generator: torch.Generator, model: nn.Module) -> None:
+    """Re-draws the parameters of a convolutional model from `generator`
+    (on the CPU, in registration order): every ``weight`` of two or more
+    dims normal with std fan_in**-0.5 (fan_in: its size over its output
+    axis 0), every 1-D ``weight`` (a norm's scale) 1, every ``bias`` 0."""
+    with torch.no_grad():
+        for mod in model.modules():
+            for name, p in mod.named_parameters(recurse=False):
+                if name == "weight" and p.ndim >= 2:
+                    w = torch.empty(p.shape)
+                    w.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+                    p.copy_(w)
+                else:
+                    p.fill_(1.0 if name == "weight" else 0.0)
+
+
 class Dense(nn.Module):
     """flax ``Dense``/``DenseGeneral`` with f32 parameters: the input and
     the kernel cast to ``compute_dtype``, the bias added after the product
     in that dtype. ``weight`` is [out, in] (kernel-init at lecun-normal
-    scale, bias zero)."""
+    scale, or zero where ``zero_init``; bias zero, or none where not
+    ``use_bias``)."""
 
-    def __init__(self, in_features, out_features, compute_dtype, init: _Init):
+    def __init__(self, in_features, out_features, compute_dtype, init: _Init,
+                 use_bias=True, zero_init=False):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.weight = init.normal((out_features, in_features),
-                                  in_features ** -0.5)
-        self.bias = init.const((out_features,), 0.0)
+        shape = (out_features, in_features)
+        self.weight = (init.const(shape, 0.0) if zero_init
+                       else init.normal(shape, in_features ** -0.5))
+        self.bias = init.const((out_features,), 0.0) if use_bias else None
 
     def forward(self, x):
         cd = self.compute_dtype
-        return F.linear(x.to(cd), self.weight.to(cd)) + self.bias.to(cd)
+        y = F.linear(x.to(cd), self.weight.to(cd))
+        return y if self.bias is None else y + self.bias.to(cd)
 
 
 class LayerNorm(nn.Module):
@@ -403,50 +423,15 @@ def make_vit_train_step(model: VideoViT, optimizer: torch.optim.Optimizer):
     gradients, updating `model` and `optimizer` in place. Nothing in it
     waits for the device: loss and acc come back as 0-d device tensors.
 
-    On CUDA the step is served through a CUDA graph (``graphs.cuda_graph``,
-    the counterpart of the JAX step's ``jax.jit``): the first call is a
-    real eager step, which also makes the optimizer's lazy state (SGD's
-    momentum buffers); the second captures forward, backward,
-    ``optimizer.step()`` and ``zero_grad`` over static clips and mask,
-    with the gradients in the graph's memory, and replays it; later calls
-    replay. Loss and acc come back as copies. The optimizer's
-    hyperparameters (lr, momentum, ...) are baked into the graph: a call
-    after one of them changed raises. On the CPU the step runs eagerly;
-    on CUDA ``step.graphed.fn`` is the same step, eager."""
+    On CUDA the step is replayed as a CUDA graph (``_train.py``: the
+    counterpart of the JAX step's ``jax.jit``; the optimizer is made
+    capturable, a float hyperparameter changed after the capture raises,
+    a tensor lr may be scheduled); on the CPU it runs eagerly. On CUDA
+    ``step.graphed.fn`` is the same step, eager."""
     def step(clips, flip_mask):
         loss, acc = vit_loss(model, clips, flip_mask)
         loss.backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return loss.detach(), acc
-    if resolve_device(model.device).type != "cuda":
-        return step
-    return _GraphedStep(step, optimizer)
-
-
-def _hyperparameters(optimizer):
-    return [{k: v for k, v in group.items() if k != "params"}
-            for group in optimizer.param_groups]
-
-
-class _GraphedStep:
-    """A train step behind ``cuda_graph``, refusing to replay a graph
-    whose baked hyperparameters are no longer the optimizer's.
-    ``graphed`` is the CudaGraph (its replays and graphs)."""
-
-    def __init__(self, step, optimizer):
-        self.graphed = cuda_graph(step)
-        self.optimizer = optimizer
-        self._captured = None
-
-    def __call__(self, clips, flip_mask):
-        now = _hyperparameters(self.optimizer)
-        if self._captured is not None and now != self._captured:
-            raise ValueError(
-                f"optimizer hyperparameters changed from {self._captured} "
-                f"to {now} after the step was captured; build a new step")
-        captures = self.graphed.captures
-        out = self.graphed(clips, flip_mask)
-        if self.graphed.captures != captures:
-            self._captured = now
-        return out
+    return graphed_train_step(step, optimizer, model.device)

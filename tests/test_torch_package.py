@@ -26,6 +26,13 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, tensor_stream_torch, tensor_stream_torch.data, "
             "tensor_stream_torch.utils.crc, tensor_stream_torch.serving, "
             "tensor_stream_torch.models, "
+            "tensor_stream_torch.models.video_vae, "
+            "tensor_stream_torch.models.latent_diffusion, "
+            "tensor_stream_torch.models.moe, "
+            "tensor_stream_torch.models.quantize, "
+            "tensor_stream_torch.models.transformer_net, "
+            "tensor_stream_torch.models._train, "
+            "tensor_stream_torch.ops.metrics, "
             "tensor_stream_torch.ops.flash_attention, "
             "tensor_stream_torch.ops.resize, tensor_stream_torch.ops.augment, "
             "tensor_stream_torch.ops.mix, tensor_stream_torch.graphs; "
@@ -78,7 +85,9 @@ def test_entry_points_without_device_take_cuda():
         return
     y = np.zeros((32, 64), np.uint8)
     uv = np.zeros((16, 64), np.uint8)
-    from tensor_stream_torch.models import VideoViT
+    from tensor_stream_torch.models import (DiffusionSchedule,
+                                            TransformerNet, VideoDiT,
+                                            VideoMoE, VideoVAE, VideoViT)
     from tensor_stream_torch.serving import StreamInferencer
     for call in (lambda: TensorStreamConverter(FIXTURE),
                  lambda: FrameLoader(FIXTURE, batch=2),
@@ -87,6 +96,13 @@ def test_entry_points_without_device_take_cuda():
                  lambda: StreamInferencer([FIXTURE], lambda x: x),
                  lambda: VideoViT(10, depth=1, dim=32, num_heads=1, patch=8,
                                   frames=2, size=16),
+                 lambda: VideoVAE(base=8, latent=4),
+                 lambda: VideoDiT((2, 4, 4, 4), depth=1, dim=32,
+                                  num_heads=1),
+                 lambda: VideoMoE(2, depth=1, dim=32, num_heads=1, patch=8,
+                                  frames=2, size=16),
+                 lambda: TransformerNet(),
+                 lambda: DiffusionSchedule(10),
                  lambda: build_vpp(cfg),
                  lambda: vpp_numpy(cfg, y, uv),
                  lambda: _device.resolve_device("cuda:0")):
