@@ -54,7 +54,32 @@ kernels:
   VideoMoE's graphed training step, TransformerNet styling two streams
   through MultiStreamLoader, and the ViT-B serving model with int8
   weights dequantized inside its graph. Every graphed step and sampler
-  is bit-equal to its eager twin.
+  is bit-equal to its eager twin;
+* the infrastructure: export_serving (phase serving's ViT-B exported
+  with a symbolic batch by export_inference and reloaded by
+  load_inference, bit-equal to the module at batches 1, 2 and 5 and
+  served graphed and fused as StreamInferencer's model; the resized
+  headline VPP program exported traced on the CPU and on the card, both
+  launching the NV12 and BILINEAR kernels on the card), resume
+  (TrainCheckpointer: the ViT-B step with Adam and the conditional DiT
+  step with its generator, saved, then kept running, restored into a
+  fresh model and optimizer, and restored into the live captured step,
+  all three bit-equal), accum (parallel.accumulate_gradients at an
+  effective batch of 8 clips in 1, 2 and 4 microbatches, one CUDA graph
+  a step, against the full batch's gradients and its eager twin), and
+  video_writer (VideoWriter on phase style's frames, read back through
+  FrameLoader; "unavailable" where libtsingest.so cannot be built, as on
+  a machine without FFmpeg's development libraries: the encoder is
+  libavcodec's, inside that library).
+
+Each kernel is a dispatcher operator of the ts library
+(tensor_stream_torch/ops/_library.py: ts::nv12_to_rgb, ts::flash_fwd,
+ts::flash_bwd, ts::resize_bilinear_nv12, ts::resize_bicubic_nv12,
+ts::resize_area_down_nv12) whose CUDA kernel launches the hand-written
+kernel, whose CPU kernel is the plain version and whose fake gives the
+outputs' shapes and strides: a program that torch.export traces, on the
+CPU or on the card, holds the operators, and on CUDA tensors they launch
+the kernels.
 
 A graph replay adds to the kernels' launch counts what its capture
 recorded (tensor_stream_torch/graphs.py), so every path's counts stay
@@ -81,6 +106,17 @@ in alternating processes:
     python3 -c "import chip_smoke as c; c.flash_bwd_ab('dist/parent')"
     python3 -c "import chip_smoke as c; c.resize_ab('dist/parent')"
 
+and the host's enqueue time of eager calls (ViT-B's forward, a streaming
+step, one NV12 and one flash call), which the dispatcher's operators
+lengthen:
+
+    python3 -c "import chip_smoke as c; c.dispatch_ab('dist/parent')"
+
+and the operators' own cost in one process (each operator against its
+CUDA body called directly, interleaved):
+
+    python3 -c "import chip_smoke as c; c.phase_env(); c.dispatch_cost()"
+
 and the AREA-down kernel whole and in parts (staging only, blend only,
 the launch floor), each a copy of its source with one part cut out:
 
@@ -91,8 +127,10 @@ import ctypes
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -101,7 +139,9 @@ import torch
 from torch.func import functional_call
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from tensor_stream_torch import _build, _native, serving
+from tensor_stream_torch import (TrainCheckpointer, VideoWriter, _build,
+                                 _native, export_inference, load_inference,
+                                 serving)
 from tensor_stream_torch._device import staging_buffer
 from tensor_stream_torch.data import (FrameLoader, MultiStreamLoader,
                                       PooledStreamLoader)
@@ -114,7 +154,9 @@ from tensor_stream_torch.models import (
     make_diffusion_train_step, make_moe_train_step, make_vae_train_step,
     make_vit_train_step, moe_loss, quantization_error, quantize_weights,
     quantized_bytes, stream_step)
+from tensor_stream_torch.models._train import graphed_train_step
 from tensor_stream_torch.models.moe import MoEMLP
+from tensor_stream_torch.models.video_vit import vit_loss
 from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
 from tensor_stream_torch.ops import resize as resize_ops
@@ -124,7 +166,8 @@ from tensor_stream_torch.ops.metrics import psnr, ssim
 from tensor_stream_torch.serving import StreamInferencer
 from tensor_stream_torch.ops.vpp import (VPPConfig, build_vpp,
                                          build_vpp_batched_flat,
-                                         build_vpp_clip_augment)
+                                         build_vpp_clip_augment, make_vpp_fn)
+from tensor_stream_torch.parallel import accumulate_gradients
 from tensor_stream_torch.tensor_stream import (FrameParameters,
                                                TensorStreamConverter)
 
@@ -1077,22 +1120,33 @@ def phase_area_variants(device, smi):
                  for frames in sorted({1, min(2, n)})]
         plans.append(resize_ops.area_blocks(r.planes, sw, sh, dw, dh, 1,
                                             chosen.tile, "table"))
-        for plan in plans:
-            if plan.smem > resize_ops.AREA_SMEM_LIMIT:
-                continue
-            r._plans[key] = plan
-            got = r(y, uv)
-            torch.cuda.synchronize()
-            if not (torch.equal(got[0], want[0])
-                    and torch.equal(got[1], want[1])):
-                raise AssertionError(f"AREA plan {plan.variant} band "
-                                     f"{plan.band}: bytes differ")
-            ms, p10, p90 = time_ms(lambda: r(y, uv), device)
-            rows.append({"shape": [n, sw, sh, dw, dh], **plan_row(plan, n),
-                         "chosen": plan_row(plan, n) == plan_row(chosen, n),
-                         "ms": ms,
-                         "p10_ms": p10, "p90_ms": p90})
-        r._plans[key] = chosen
+        try:
+            for plan in plans:
+                if plan.smem > resize_ops.AREA_SMEM_LIMIT:
+                    continue
+                # The operator looks its geometry up in NV12Resize's
+                # registry: it must find r, and launch r's plan.
+                r._plans[key] = plan
+                before = dict(resize_ops.area_launches_by_variant)
+                got = r(y, uv)
+                torch.cuda.synchronize()
+                if (area_variant_launched(before) != plan.variant
+                        or resize_ops._geometry(y, dw, dh, ResizeType.AREA)
+                        is not r):
+                    raise AssertionError(f"AREA plan {plan_row(plan, n)} "
+                                         "was not the one launched")
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"AREA plan {plan.variant} band "
+                                         f"{plan.band}: bytes differ")
+                ms, p10, p90 = time_ms(lambda: r(y, uv), device)
+                rows.append({"shape": [n, sw, sh, dw, dh],
+                             **plan_row(plan, n),
+                             "chosen": plan_row(plan, n) == plan_row(chosen,
+                                                                     n),
+                             "ms": ms, "p10_ms": p10, "p90_ms": p90})
+        finally:
+            r._plans[key] = chosen
         del flat, y, uv, want
     emit({"phase": "area_variants", "card": smi, "rows": rows,
           "tolerance": "0 bytes"})
@@ -1707,6 +1761,7 @@ def phase_serving(device):
            "forward_device_p90_ms": graph_ms[2],
            "logits_bf16": bf16, "logits_f32": f32}
     emit(out)
+    out["graphed_logits"] = got_graphed  # phase export_serving's reference
     if not (bf16["ok"] and f32["ok"]):
         raise AssertionError("serving logits disagree with the plain path")
     if not all(graphed["bit_equal_to_eager"]):
@@ -3456,6 +3511,7 @@ def phase_style(device, smi):
            "graphed_vs_eager": f"bitwise equal in {sum(same)} of "
                                f"{len(same)} ticks"}
     emit(out)
+    out["frames"] = graphed[:, 0, 0]  # phase video_writer's frames
     if not all(same):
         raise AssertionError(f"style: graphed != eager at ticks "
                              f"{[k for k, s in enumerate(same) if not s]}")
@@ -3523,6 +3579,590 @@ def phase_quantized_serving(device, smi):
     return out
 
 
+# ------------------------------------------- infrastructure (export, resume)
+
+# export_serving: phase serving's model exported with a symbolic batch and
+# held against the module at these batches; the headline VPP program with
+# the resize on the card (1080p -> 224² BILINEAR, planar f32, N=128),
+# exported once traced on the CPU and once on the card.
+EXPORT_BATCHES = (1, 2, 5)
+
+
+def export_clips(b, device):
+    gen = torch.Generator().manual_seed(40 + b)
+    return torch.rand((b, CLIP, SIDE, SIDE, 3), generator=gen).to(device)
+
+
+def artifact(fn, args, batch_poly, device):
+    """fn exported (batch_poly as asked) to a .pt2 in a temporary
+    directory and loaded back onto `device`: (the loaded module, the
+    artifact's bytes, export seconds, load seconds)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "artifact.pt2")
+        t0 = time.monotonic()
+        export_inference(fn, args, path, batch_poly=batch_poly)
+        t1 = time.monotonic()
+        loaded = load_inference(path, device)
+        t2 = time.monotonic()
+        nbytes = os.path.getsize(path)
+    return loaded, nbytes, t1 - t0, t2 - t1
+
+
+def graph_ops(module):
+    """The ts:: custom ops a loaded artifact's graph calls, with counts."""
+    ops = {}
+    for node in module.graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith("ts."):
+            name = str(node.target).split(".")[1]
+            ops[name] = ops.get(name, 0) + 1
+    return ops
+
+
+def vpp_export_run(device, serve, y, uv, want, label):
+    """One call of an exported VPP program with the counts at 0 just
+    before: the bytes against build_vpp's, one NV12 and one BILINEAR
+    launch."""
+    reset_resize_counts()
+    got = serve(y, uv)
+    torch.cuda.synchronize()
+    launches = resize_counts()
+    expect_launches(label, {k: launches[k] for k in (
+        "nv12_rgb", "resize_bilinear_nv12")}, {"nv12_rgb": 1,
+                                               "resize_bilinear_nv12": 1})
+    if not bitwise_equal(got, want):
+        raise AssertionError(f"{label}: bytes differ from build_vpp's "
+                             f"(max abs err {max_abs_err(got, want)})")
+    return launches
+
+
+def phase_export_serving(device, smi, serving):
+    """export_inference / load_inference on the card: phase serving's
+    ViT-B (bf16, flash) exported with batch_poly from CUDA tensors and
+    loaded back, its logits bit-equal to the module's at batches 1, 2 and
+    5, then served 2 + 24 ticks through StreamInferencer graphed and fused
+    with the artifact as the model, bit-equal to phase serving's graphed
+    logits with 12 flash launches a tick; the resized headline VPP
+    program exported traced on the CPU and on the card, each loaded on
+    the card and bit-equal to build_vpp's output with one NV12 and one
+    BILINEAR launch a call."""
+    model = vit(device, torch.bfloat16)
+    loaded, nbytes, export_s, load_s = artifact(
+        model, (export_clips(2, device),), True, device)
+    ops = graph_ops(loaded)
+    if ops != {"flash_fwd": VIT["depth"]}:
+        raise AssertionError(f"export_serving: the artifact calls {ops}, "
+                             "not 12 ts::flash_fwd")
+    batches = {}
+    launches = {"nv12_rgb": 0, "flash_fwd": 0}
+    for b in EXPORT_BATCHES:
+        clips = export_clips(b, device)
+        fa.reset_counts()
+        with torch.no_grad():
+            got = loaded(clips)
+            launched = fa.launches
+            want = model(clips)
+        if launched != VIT["depth"]:
+            raise AssertionError(f"export_serving: batch {b} launched "
+                                 f"{launched} flash kernels, not 12")
+        launches["flash_fwd"] += launched
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        batches[b] = {"shape": list(got.shape), "bit_equal": same,
+                      "max_abs_err": max_abs_err(got, want)}
+        if not same:
+            raise AssertionError(f"export_serving: batch {b} logits differ "
+                                 f"from the module's: {batches[b]}")
+    del model
+    runs = {}
+    for pipeline in ("per-stream", "fused"):
+        logits, row, _ = serve_vit(device, loaded, True, pipeline)
+        row["bit_equal_to_serving_graphed"] = bit_equal_ticks(
+            logits, serving["graphed_logits"])
+        runs[pipeline] = row
+        for k in launches:
+            launches[k] += row["launches"][k]
+        if not all(row["bit_equal_to_serving_graphed"]):
+            raise AssertionError(f"export_serving {pipeline}: logits differ "
+                                 "from phase serving's graphed ones")
+    del loaded
+    torch.cuda.empty_cache()
+    cfg = resized_cfg(ResizeType.BILINEAR)
+    flat = seeded_nv12(BATCH, HEADLINE_SRC[1], HEADLINE_SRC[0], 95)
+    y_cpu, uv_cpu = split(torch.from_numpy(flat), BATCH, HEADLINE_SRC[1],
+                          HEADLINE_SRC[0])
+    y, uv = y_cpu.to(device), uv_cpu.to(device)
+    want = build_vpp(cfg, device)(y, uv)
+    vpp = {}
+    for name, args in (("cpu_traced", (y_cpu, uv_cpu)),
+                       ("card_traced", (y, uv))):
+        serve, size, ex_s, ld_s = artifact(make_vpp_fn(cfg), args, False,
+                                           device)
+        counts = vpp_export_run(device, serve, y, uv, want,
+                                f"export_vpp {name}")
+        vpp[name] = {"artifact_bytes": size, "export_s": ex_s, "load_s": ld_s,
+                     "ops": graph_ops(serve), "launches": counts,
+                     "ms": time_ms(lambda: serve(y, uv), device, iters=20,
+                                   warmup=3)[0]}
+    out = {"phase": "export_serving", "card": smi, "model": VIT,
+           "compute": "bf16", "artifact_bytes": nbytes,
+           "export_s": export_s, "load_s": load_s, "ops": ops,
+           "batches": batches, "runs": runs, "launches": launches,
+           "serving_graphed_ms_per_tick": serving["graphed_run"][
+               "ms_per_tick"],
+           "serving_fused_ms_per_tick": serving["fused_run"]["ms_per_tick"],
+           "vpp": {"config": "1080p -> 224² BILINEAR, RGB planar f32",
+                   "batch": BATCH, "build_vpp_ms": time_ms(
+                       lambda: build_vpp(cfg, device)(y, uv), device,
+                       iters=20, warmup=3)[0], **vpp}}
+    emit(out)
+    return out
+
+
+# resume: phase training's joint configuration with Adam and phase
+# generation's conditional DiT, each saved after RESUME_STEPS graphed
+# steps and resumed three ways (kept running, restored into a fresh
+# model and optimizer, restored into the live captured step).
+RESUME_STEPS = 2
+RESUME_LR = 1e-4
+# Shaped like ClipDataset.state().
+RESUME_CURSOR = {"stream_urls": ["a.mp4", "b.mp4"], "epoch": 1,
+                 "start_clip": 12, "seed": 0}
+
+
+def optimizer_tensors(opt):
+    """Every state tensor of `opt`, in parameter order."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return [t for p in params for t in opt.state[p].values()
+            if isinstance(t, torch.Tensor)]
+
+
+def train_state(model, opt):
+    """Copies of the parameters and the optimizer's state tensors."""
+    return ([p.detach().clone() for p in model.parameters()],
+            [t.detach().clone() for t in optimizer_tensors(opt)])
+
+
+def states_equal(a, b):
+    return all(bitwise_equal(x, y) if x.dtype != torch.bfloat16 else
+               torch.equal(x.view(torch.int16), y.view(torch.int16))
+               for x, y in zip(a[0] + a[1], b[0] + b[1])) and \
+        len(a[0]) == len(b[0]) and len(a[1]) == len(b[1])
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def resume_runs(label, build, make_step, args):
+    """`build(seed)` -> (model, optimizer, generator or None); the step of
+    `make_step(model, optimizer, generator)` is graphed. Run A takes
+    RESUME_STEPS steps, saves (with RESUME_CURSOR), takes RESUME_STEPS
+    more; run C restores into A's live, captured step and replays those
+    steps; run B restores into a fresh model, optimizer and generator
+    (other seeds) under a new step and takes them. Gates: A, B and C
+    bit-equal in every output, parameter and optimizer state tensor;
+    restores in place (the state tensors' pointers kept); the cursor
+    round-trips."""
+    def template(model, opt, gen):
+        tree = {"model": model, "optimizer": opt}
+        if gen is not None:
+            tree["generator"] = gen
+        return tree
+    tmp = tempfile.mkdtemp(prefix="resume_")
+    try:
+        model, opt, gen = build(0)
+        step = make_step(model, opt, gen)
+        for _ in range(RESUME_STEPS):
+            step(*args)
+        torch.cuda.synchronize()
+        with TrainCheckpointer(tmp) as ckpt:
+            t0 = time.monotonic()
+            if not ckpt.save(RESUME_STEPS, template(model, opt, gen),
+                             loader_state=RESUME_CURSOR):
+                raise AssertionError(f"{label}: save refused")
+            save_s = time.monotonic() - t0
+            nbytes = dir_bytes(tmp)
+            out_a = [step(*args) for _ in range(RESUME_STEPS)]
+            state_a = train_state(model, opt)
+            ptrs = [t.data_ptr() for t in optimizer_tensors(opt)]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            ckpt.restore(template=template(model, opt, gen))
+            torch.cuda.synchronize()
+            restore_live_s = time.monotonic() - t0
+            if ptrs != [t.data_ptr() for t in optimizer_tensors(opt)]:
+                raise AssertionError(f"{label}: restore swapped storage")
+            out_c = [step(*args) for _ in range(RESUME_STEPS)]
+            state_c = train_state(model, opt)
+            check_replays(step.graphed, 3 * RESUME_STEPS, f"{label} A+C")
+            del model, opt, gen, step
+            torch.cuda.empty_cache()
+            model, opt, gen = build(1)
+            step = make_step(model, opt, gen)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            restored_step, _, cursor = ckpt.restore(
+                template=template(model, opt, gen))
+            torch.cuda.synchronize()
+            restore_fresh_s = time.monotonic() - t0
+            out_b = [step(*args) for _ in range(RESUME_STEPS)]
+            state_b = train_state(model, opt)
+            check_replays(step.graphed, RESUME_STEPS, f"{label} B")
+            del model, opt, gen, step
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"steps_saved_at": RESUME_STEPS, "checkpoint_bytes": nbytes,
+           "save_s": save_s, "restore_live_s": restore_live_s,
+           "restore_fresh_s": restore_fresh_s,
+           "cursor_round_trip": cursor == RESUME_CURSOR,
+           "restored_step": restored_step,
+           "losses": {"A": [float(as_tuple(o)[0]) for o in out_a],
+                      "B": [float(as_tuple(o)[0]) for o in out_b],
+                      "C": [float(as_tuple(o)[0]) for o in out_c]},
+           "outputs_bit_equal": {
+               "B": all(outputs_equal(a, b) for a, b in zip(out_a, out_b)),
+               "C": all(outputs_equal(a, c) for a, c in zip(out_a, out_c))},
+           "state_bit_equal": {"B": states_equal(state_a, state_b),
+                               "C": states_equal(state_a, state_c)},
+           "state_tensors": len(state_a[0]) + len(state_a[1])}
+    if not (row["cursor_round_trip"] and restored_step == RESUME_STEPS
+            and all(row["outputs_bit_equal"].values())
+            and all(row["state_bit_equal"].values())):
+        raise AssertionError(f"{label}: resume differs: {row}")
+    return row
+
+
+def phase_resume(device, smi):
+    """TrainCheckpointer on the card (resume_runs): the ViT-B joint step
+    (B=4 16 x 224², bf16, flash, Adam) and the class-conditional DiT step
+    of phase generation (its generator draws t, the noise and the label
+    dropout), each A, B and C bit-equal; the checkpoint's bytes and the
+    save and restore seconds."""
+    clips, mask = ramp_clips(4, SIDE, device)
+
+    def vit_build(seed):
+        model = VideoViT(compute_dtype=torch.bfloat16,
+                         residual_dtype=torch.bfloat16, use_flash=True,
+                         size=SIDE, device=device, **TRAIN_VIT)
+        init_vit(torch.Generator().manual_seed(seed), model,
+                 tuple(clips.shape))
+        return model, torch.optim.Adam(model.parameters(), lr=RESUME_LR), None
+    fa.reset_counts()
+    rows = {"vit": resume_runs(
+        "resume vit", vit_build,
+        lambda m, o, g: make_vit_train_step(m, o), (clips, mask))}
+    vit_launches = {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+    calls = 4 * RESUME_STEPS
+    expect_launches("resume vit", vit_launches,
+                    {"flash_fwd": calls * TRAIN_VIT["depth"],
+                     "flash_bwd": calls * TRAIN_VIT["depth"]})
+    lat_shape = (GEN_CLIPS, GEN_CLIP_LEN // 2, GEN_SIDE // 4, GEN_SIDE // 4,
+                 GEN_VAE["latent"])
+    latents = torch.randn(lat_shape, generator=torch.Generator().manual_seed(
+        6)).to(device)
+    labels = torch.from_numpy(np.random.default_rng(5).integers(
+        0, GEN_CLASSES, GEN_CLIPS)).to(device)
+    sched = DiffusionSchedule(GEN_TIMESTEPS, device=device)
+
+    def dit_build(seed):
+        model = VideoDiT(lat_shape[1:], **GEN_DIT, num_classes=GEN_CLASSES,
+                         compute_dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator(device=device).manual_seed(1 + seed)
+        return (model, torch.optim.Adam(model.parameters(), lr=GEN_DIT_LR),
+                gen)
+    fa.reset_counts()
+    with cudnn_flags(deterministic=True):
+        rows["dit_conditional"] = resume_runs(
+            "resume dit", dit_build,
+            lambda m, o, g: make_conditional_diffusion_train_step(
+                m, sched, o, GEN_LABEL_DROPOUT, generator=g),
+            (latents, labels))
+    dit_launches = {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+    out = {"phase": "resume", "card": smi, "lr": RESUME_LR,
+           "vit": {"config": "joint B=4 16x224² bf16 flash, Adam",
+                   **rows["vit"], "launches": vit_launches},
+           "dit_conditional": {**GEN_DIT, "latents": list(lat_shape),
+                               **rows["dit_conditional"],
+                               "launches": dit_launches}}
+    emit(out)
+    return out
+
+
+# accum: ViT-B joint at an effective batch of ACCUM_BATCH clips of 16 x
+# 224², the gradients accumulated over n microbatches.
+ACCUM_BATCH, ACCUM_N, ACCUM_STEPS, ACCUM_TIMED = 8, (1, 2, 4), 4, 5
+ACCUM_LR = 1e-4
+
+
+def accum_batch(device):
+    """ACCUM_BATCH ramp clips (ramp_clips's task) and an alternating
+    flip mask."""
+    frames = TRAIN_VIT["frames"]
+    rng = np.random.default_rng(3)
+    ramp = np.linspace(0, 1, frames, dtype=np.float32)
+    clips = (rng.uniform(0, .25, (ACCUM_BATCH, frames, SIDE, SIDE, 3))
+             .astype(np.float32) + ramp[None, :, None, None, None])
+    mask = np.arange(ACCUM_BATCH) % 2 == 0
+    return (torch.from_numpy(clips).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def accum_model(device, clips):
+    model = VideoViT(compute_dtype=torch.bfloat16,
+                     residual_dtype=torch.bfloat16, use_flash=True,
+                     size=SIDE, device=device, **TRAIN_VIT)
+    init_vit(torch.Generator().manual_seed(0), model, tuple(clips.shape))
+    return model, torch.optim.Adam(model.parameters(), lr=ACCUM_LR)
+
+
+def accum_step(model, opt, n_accum):
+    """A train step over accumulate_gradients(vit_loss, n_accum): the
+    accumulated gradients into .grad, then Adam; behind its CUDA graph."""
+    grad_fn = accumulate_gradients(vit_loss, n_accum)
+    params = dict(model.named_parameters())
+
+    def step(clips, mask):
+        (loss, acc), grads = grad_fn(model, clips, mask)
+        for name, g in grads.items():
+            params[name].grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss, acc
+    return graphed_train_step(step, opt, model.device)
+
+
+def phase_accum(device, smi):
+    """parallel.accumulate_gradients on the card: for n_accum in ACCUM_N,
+    the first step's gradients against the full batch's (one backward of
+    vit_loss over all ACCUM_BATCH clips) under phase training's
+    grad_rule bounds; the graphed accumulated step (n microbatches'
+    forward and backward, Adam, one CUDA graph) bit-equal to its eager
+    twin over ACCUM_STEPS steps; peak memory, ms a step, tokens/s and
+    12·n flash forward and backward launches a step."""
+    clips, mask = accum_batch(device)
+    model, _ = accum_model(device, clips)
+    vit_loss(model, clips, mask)[0].backward()
+    full = {n: p.grad.detach().float().cpu()
+            for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    _, n_tok, _ = train_flops(ACCUM_BATCH, SIDE)
+    runs = {}
+    for n in ACCUM_N:
+        model, opt = accum_model(device, clips)
+        step = accum_step(model, opt, n)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        out = [step(clips, mask) for _ in range(ACCUM_STEPS)]
+        torch.cuda.synchronize()
+        launches = {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+        peak = torch.cuda.max_memory_allocated()
+        params = {k: p.detach().clone() for k, p in model.named_parameters()}
+        check_replays(step.graphed, ACCUM_STEPS, f"accum n={n}")
+        t0 = time.monotonic()
+        for _ in range(ACCUM_TIMED):
+            step(clips, mask)
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t0) / ACCUM_TIMED * 1e3
+        del model, opt, step
+        torch.cuda.empty_cache()
+        twin, twin_opt = accum_model(device, clips)
+        eager = accum_step(twin, twin_opt, n).graphed.fn
+        grads = first_step_grads(twin, twin_opt)
+        twin_out = [eager(clips, mask) for _ in range(ACCUM_STEPS)]
+        same = [outputs_equal(a, b) for a, b in zip(out, twin_out)]
+        differing = params_equal({k: p.detach() for k, p in
+                                  twin.named_parameters()}, params)
+        del twin, twin_opt, eager, params
+        torch.cuda.empty_cache()
+        want = ACCUM_STEPS * TRAIN_VIT["depth"] * n
+        runs[f"n{n}"] = {
+            "n_accum": n, "microbatch": ACCUM_BATCH // n,
+            "grads_vs_full_batch": grad_summary(grads, full, torch.bfloat16),
+            "loss": [float(l) for l, _ in out],
+            "graphed_vs_eager": {"steps_bit_equal": all(same),
+                                 "params_differing": differing},
+            "peak_memory_gib": peak / 2 ** 30, "step_ms": step_ms,
+            "tokens_per_s": n_tok / (step_ms / 1e3), "launches": launches}
+        expect_launches(f"accum n={n}", launches,
+                        {"flash_fwd": want, "flash_bwd": want})
+        if not runs[f"n{n}"]["grads_vs_full_batch"]["ok"]:
+            raise AssertionError(f"accum n={n}: gradients leave the rule: "
+                                 f"{runs[f'n{n}']['grads_vs_full_batch']}")
+        if not all(same) or differing:
+            raise AssertionError(f"accum n={n}: graphed differs from eager: "
+                                 f"{same}, {differing[:5]}")
+    peaks = [runs[f"n{n}"]["peak_memory_gib"] for n in ACCUM_N]
+    out = {"phase": "accum", "card": smi, "batch": ACCUM_BATCH,
+           "clip": [TRAIN_VIT["frames"], SIDE, SIDE, 3], "adam_lr": ACCUM_LR,
+           "runs": runs, "peak_falls": peaks == sorted(peaks, reverse=True)
+           and len(set(peaks)) == len(peaks)}
+    emit(out)
+    if not out["peak_falls"]:
+        raise AssertionError(f"accum: peak memory {peaks} does not fall with "
+                             "n_accum")
+    return out
+
+
+def phase_video_writer(device, smi, style):
+    """VideoWriter on the card's frames: phase style's graphed frames
+    (stream 0's first frame of each of its 26 ticks, on the card) encoded
+    to H.264, then read back through FrameLoader: 26 frames of 256². Needs
+    libtsingest.so; where the machine cannot build it (no FFmpeg), the
+    phase says "unavailable" with the build's error."""
+    try:
+        _native.load()
+    except _native.NativeBuildError as e:  # the machine cannot build it
+        out = {"phase": "video_writer", "card": smi, "status": "unavailable",
+               "why": str(e)[-400:]}
+        emit(out)
+        return out
+    frames = style["frames"].clamp(0, 255).to(torch.uint8)
+    h, w = frames.shape[1:3]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "styled.mp4")
+        t0 = time.monotonic()
+        with VideoWriter(path, (w, h), fps=25) as wr:
+            for f in frames:
+                wr.write(f)
+            written = wr.frames_written
+        seconds = time.monotonic() - t0
+        nbytes = os.path.getsize(path)
+        decoded, shapes = 0, set()
+        with FrameLoader(path, batch=1, pixel_format=FourCC.RGB24,
+                         planes_pos=Planes.MERGED, device=device) as loader:
+            for t, _ in loader:
+                decoded += t.shape[0]
+                shapes.add(tuple(t.shape[1:]))
+    out = {"phase": "video_writer", "card": smi, "status": "ran",
+           "frames": len(frames), "written": written, "decoded": decoded,
+           "shapes": sorted(shapes), "bytes": nbytes, "encode_s": seconds}
+    emit(out)
+    if not (written == decoded == len(frames) and shapes == {(h, w, 3)}):
+        raise AssertionError(f"video_writer: {out}")
+    return out
+
+
+# The host's cost of a kernel called through its operator: the enqueue time
+# of eager calls in this checkout and another (for example a commit whose
+# wrappers called the kernels through ctypes directly), in turns
+# (ab_turns). Needs nothing of the other checkout but its models and
+# wrappers.
+DISPATCH_AB_SNIPPET = """
+import json, time, numpy as np, torch
+from tensor_stream_torch.models import (VideoViT, init_stream_cache,
+                                        stream_step)
+from tensor_stream_torch.ops import flash_attention as fa, nv12_rgb
+dev = torch.device("cuda", 0)
+def host_ms(fn, n):
+    fn(); fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+gen = torch.Generator().manual_seed(1)
+with torch.no_grad():
+    m = VideoViT(compute_dtype=torch.bfloat16, residual_dtype=torch.bfloat16,
+                 device=dev, generator=torch.Generator().manual_seed(0),
+                 **{vit}).eval()
+    clips = torch.rand((2, {clip}, {side}, {side}, 3), generator=gen).to(dev)
+    vit_ms = host_ms(lambda: m(clips), 30)
+    del m
+    s = VideoViT(compute_dtype=torch.bfloat16, device=dev,
+                 generator=torch.Generator().manual_seed(0),
+                 **{stream_vit}).eval()
+    cache = init_stream_cache(s, 2, {ring})
+    frames = torch.rand((2, {tubelet}, {side}, {side}, 3),
+                        generator=gen).to(dev)
+    stream_ms = host_ms(lambda: stream_step(s, cache, frames), 60)
+    y = torch.randint(0, 256, (2, {side}, {side}), dtype=torch.uint8,
+                      generator=gen).to(dev)
+    uv = torch.randint(0, 256, (2, {side} // 2, {side}), dtype=torch.uint8,
+                       generator=gen).to(dev)
+    nv12_us = host_ms(lambda: [nv12_rgb.nv12_to_rgb(y, uv, False, False,
+                                                    True, 0)
+                               for _ in range(100)], 20) * 10
+    q = torch.randn((2, 6, 64, 64), generator=gen).to(dev, torch.bfloat16)
+    flash_us = host_ms(lambda: [fa.flash_attention(q, q, q)
+                                for _ in range(100)], 20) * 10
+    del s, cache
+import chip_smoke as c  # the checkout's own engines
+_, vit_row, _ = c.serve_vit(dev, c.vit(dev, torch.bfloat16), False)
+_, _, stream_row, _ = c.serve_stream(
+    dev, "mha", c.stream_vit(dev, torch.bfloat16, None), False)
+print(json.dumps({{"vit_b_forward_ms": vit_ms, "stream_step_ms": stream_ms,
+                  "nv12_call_us": nv12_us, "flash_call_us": flash_us,
+                  "vit_b_eager_host_ms_a_tick": vit_row["host_ms_a_tick"],
+                  "vit_b_eager_ms_per_tick": vit_row["ms_per_tick"],
+                  "streaming_eager_host_ms_a_tick":
+                      stream_row["host_ms_a_tick"],
+                  "streaming_eager_ms_per_tick": stream_row["ms_per_tick"]}}))
+"""
+
+
+def dispatch_cost(device=None, rounds=20, calls=100):
+    """The dispatcher's own host cost in one process: `rounds` turns of
+    `calls` eager calls through each operator (ts::nv12_to_rgb at N=2 224²
+    merged f32, ts::flash_fwd at [2,6,64,64] bf16) and of the same CUDA
+    body called directly, interleaved, each turn from an idle device.
+    Prints and returns the median µs a call of each."""
+    device = device or torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(1)
+    y = torch.randint(0, 256, (2, SIDE, SIDE), dtype=torch.uint8,
+                      generator=gen).to(device)
+    uv = torch.randint(0, 256, (2, SIDE // 2, SIDE), dtype=torch.uint8,
+                       generator=gen).to(device)
+    q = torch.randn((2, 6, 64, 64), generator=gen).to(device, torch.bfloat16)
+    scale = 64 ** -0.5
+    fns = {"nv12_op": lambda: nv12_rgb.nv12_to_rgb(y, uv, False, False,
+                                                   True, 0),
+           "nv12_body": lambda: nv12_rgb._nv12_to_rgb_cuda(
+               y, uv, False, False, True, 0),
+           "flash_op": lambda: fa.flash_attention(q, q, q),
+           "flash_body": lambda: fa._flash_fwd_cuda(q, q, q, False, 0, scale,
+                                                    False)}
+    times = {k: [] for k in fns}
+    for _ in range(rounds + 2):  # the first two turns warm up
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    out = {k: float(np.median(v[2:])) for k, v in times.items()}
+    emit({"phase": "dispatch_cost", "card": nvidia_smi(), "rounds": rounds,
+          "calls": calls, "median_us_a_call": out,
+          "dispatcher_us": {"nv12": out["nv12_op"] - out["nv12_body"],
+                            "flash": out["flash_op"] - out["flash_body"]}})
+    return out
+
+
+def dispatch_ab(other_root, blocks=2):
+    """The host's enqueue time of eager calls in the checkout at
+    `other_root` against this one's (ab_turns): the ViT-B serving forward
+    (phase serving's model, 2 clips of 16 x 224²), one streaming step
+    (phase streaming's MHA model, ring of 16), and one call of the NV12
+    wrapper (N=2 224² merged f32) and of the flash wrapper ([2,6,64,64]
+    bf16), each with the device idle at its start; then each checkout's
+    own eager serving and streaming runs (serve_vit, serve_stream), their
+    host ms a tick. Prints and returns {"other": [...], "this": [...]}."""
+    code = DISPATCH_AB_SNIPPET.format(
+        vit=VIT, clip=CLIP, side=SIDE,
+        stream_vit=STREAM_VIT, ring=STREAM_RING,
+        tubelet=TUBELET)
+    got, order, roots = ab_turns(other_root, code, blocks)
+    emit({"phase": "dispatch_ab", "card": nvidia_smi(), "order": order,
+          **got, "roots": roots})
+    return got
+
+
 def run(device):
     smi = phase_env()
     worst = phase_kernel_vs_plain(device)
@@ -3554,6 +4194,23 @@ def run(device):
     phase_moe_training(device, smi)
     style = phase_style(device, smi)
     quant = phase_quantized_serving(device, smi)
+    exported = phase_export_serving(device, smi, serving)
+    resume = phase_resume(device, smi)
+    accum = phase_accum(device, smi)
+    phase_video_writer(device, smi, style)
+    # The infrastructure's paths, each kernel's count on each (0 where the
+    # path runs none of it).
+    infra = {"export_serving": exported["launches"],
+             **{f"export_vpp_{k}": v["launches"]
+                for k, v in exported["vpp"].items() if isinstance(v, dict)
+                and "launches" in v},
+             "resume_vit": resume["vit"]["launches"],
+             "resume_dit": resume["dit_conditional"]["launches"],
+             **{f"accum_{k}": r["launches"]
+                for k, r in accum["runs"].items()}}
+
+    def infra_paths(kernel):
+        return {k: v.get(kernel, 0) for k, v in infra.items()}
     head = rows[0]
     band = next(r for r in flash["cases"] if r["case"] == "twin_temporal")
     twin = streaming["flash_launches"]
@@ -3595,12 +4252,13 @@ def run(device):
                   **{k: r["launches"]["nv12_rgb"]
                      for k, r in serve_runs.items()},
                   **pool_runs, **stream_runs,
-                  **{k: v["nv12_rgb"] for k, v in model_runs.items()}}
+                  **{k: v["nv12_rgb"] for k, v in model_runs.items()},
+                  **infra_paths("nv12_rgb")}
 
     def resize_entry(kernel, replaces, note):
-        paths = {k: v.get(kernel, 0) for k, v in {
+        paths = {**{k: v.get(kernel, 0) for k, v in {
             **resized_runs, **aug_runs, **model_runs}.items()
-            if v.get(kernel, 0)}
+            if v.get(kernel, 0)}, **infra_paths(kernel)}
         head = next(r for r in resize_rows if r["kernel"] == kernel
                     and r["shape"][0] == BATCH)
         entry = {"name": kernel, "route": "cuda",
@@ -3623,7 +4281,10 @@ def run(device):
                     for k, r in serve_runs.items()},
                  **{k: v["flash_fwd"] for k, v in train.items()},
                  **{k: v["flash_fwd"] for k, v in model_runs.items()
-                    if k.startswith("quantized")}}
+                    if k.startswith("quantized")},
+                 **infra_paths("flash_fwd")}
+    bwd_paths = {**{k: v["flash_bwd"] for k, v in train.items()},
+                 **infra_paths("flash_bwd")}
     emit({"kernels": [{
         "name": "nv12_rgb", "route": "cuda",
         "source": "tensor_stream_torch/csrc/nv12_rgb.cu",
@@ -3646,7 +4307,8 @@ def run(device):
         "name": "flash_fwd_band", "route": "cuda", "source": source,
         "replaces": "tensor_stream_tpu/ops/flash_attention.py:230",
         "launches": twin["band"],
-        "launches_by_path": {"serving": 0, "streaming_twin": twin["band"]},
+        "launches_by_path": {"serving": 0, "streaming_twin": twin["band"],
+                             **infra_paths("flash_fwd_band")},
         "shape": band["shape"], "window": band["window"],
         "max_abs_err": flash_worst["window"], "ms": band["ms"],
         "plain_ms": band["plain_ms"], "bound_ms": band["bound_ms"],
@@ -3658,8 +4320,8 @@ def run(device):
                          "Pallas kernel)",
         "design": "wgmma",
         "designs": BWD_DESIGN_NOTES,
-        "launches": sum(v["flash_bwd"] for v in train.values()),
-        "launches_by_path": {k: v["flash_bwd"] for k, v in train.items()},
+        "launches": sum(bwd_paths.values()),
+        "launches_by_path": bwd_paths,
         "launches_by_design": {k: v["flash_bwd_by_design"]
                                for k, v in train.items()},
         "shape": bwd["shape"], "max_abs_err": bwd_worst["wgmma"],

@@ -14,6 +14,10 @@ model call a tick; ``models.VideoViT`` is the video transformer it serves
 and trains, whose attention runs hand-written CUDA flash-attention kernels
 (csrc/flash_fwd.cu, csrc/flash_bwd.cu). ``cuda_graph`` replays a tick or a
 training step as one CUDA graph, where the JAX package jits it.
+``TrainCheckpointer`` saves and resumes a train state with the loader's
+cursor, ``export_inference`` and ``load_inference`` make and reload a
+``.pt2`` serving artifact (the kernels are ``ts::`` custom ops, so an
+artifact calls them on the card), and ``VideoWriter`` encodes frames.
 
     from tensor_stream_torch import TensorStreamConverter, FourCC, Planes
 
@@ -21,24 +25,28 @@ Entry points take ``device=None``, meaning ``cuda:<index>``; they raise
 when no CUDA device is present unless ``device="cpu"`` is passed.
 This package imports nothing of JAX or of the JAX package.
 """
+from .checkpoint import TrainCheckpointer
 from .data import (ClipDataset, ClipLoader, FrameLoader, MultiStreamLoader,
                    PooledStreamLoader)
 from .enums import (ColorStandard, FourCC, FrameRate, LogsLevel, LogsType,
                     Planes, ResizeType, StatusLevel, channels_by_fourcc)
+from .export import export_inference, load_inference
 from .graphs import cuda_graph
 from .ops.augment import AugmentConfig
 from .ops.mix import cutmix, mix_labels, mixup
 from .ops.vpp import VPPConfig
 from .serving import StreamInferencer, StreamResult
 from .tensor_stream import FrameParameters, TensorStreamConverter
+from .video_writer import VideoWriter
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "TensorStreamConverter", "FrameParameters", "FrameLoader",
+    "TensorStreamConverter", "FrameParameters", "FrameLoader", "VideoWriter",
     "ClipLoader", "ClipDataset", "MultiStreamLoader", "PooledStreamLoader",
     "StreamInferencer", "StreamResult", "VPPConfig", "cuda_graph",
-    "AugmentConfig", "mixup", "cutmix", "mix_labels",
+    "AugmentConfig", "mixup", "cutmix", "mix_labels", "TrainCheckpointer",
+    "export_inference", "load_inference",
     "StatusLevel", "LogsLevel", "LogsType", "FourCC", "ResizeType", "Planes",
     "FrameRate", "ColorStandard", "channels_by_fourcc",
 ]

@@ -176,6 +176,14 @@ def load():
         sig("ts_vpp_output_size", None,
             [c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
              c_int_p, c_int_p])
+        # In-process encoder (csrc/video_writer.cpp).
+        sig("ts_writer_create", c_void_p,
+            [c_char_p, c_int, c_int, c_int, c_int, c_char_p, c_int])
+        sig("ts_writer_write_rgb", c_int, [c_void_p, c_void_p])
+        sig("ts_writer_write_nv12", c_int, [c_void_p, c_void_p, c_void_p])
+        sig("ts_writer_frames", c_ll, [c_void_p])
+        sig("ts_writer_close", c_int, [c_void_p])
+        sig("ts_writer_destroy", None, [c_void_p])
 
         _LIB = lib
         return _LIB

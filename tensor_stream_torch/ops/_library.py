@@ -1,0 +1,42 @@
+"""The ``ts`` operator library: each hand-written CUDA kernel of the port
+as a dispatcher operator.
+
+``define(schema, cuda, cpu, fake)`` registers ``ts::<name>`` with its CUDA
+kernel (the wrapper that launches the hand-written kernel), its CPU
+kernel (the plain torch version) and its fake implementation (the
+outputs' shapes, dtypes and strides, which ``torch.export`` traces with).
+The dispatcher picks the kernel from the inputs' device, so a traced
+program holds the operator and not the choice. The operators are
+registered with ``torch.library.Library`` directly: ``torch.library.
+custom_op``'s Python wrappers cost an eager call about 10 µs more of host
+time (on the CPU, against 3 µs here).
+"""
+import torch
+
+_LIB = torch.library.Library("ts", "DEF")
+
+
+def define(schema: str, cuda, cpu, fake):
+    """Registers ``ts::<schema>`` (``name`` or ``name.overload``) and
+    returns its OpOverload."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"ts::{name}", fake, lib=_LIB)
+    op, _, overload = name.partition(".")
+    return getattr(getattr(torch.ops.ts, op), overload or "default")
+
+
+def on_one_device(*tensors, cuda: bool = False):
+    """Raises unless the tensors lie all on one CUDA device or, unless
+    ``cuda``, all on the CPU: the device rule of every operator's caller,
+    checked before the dispatcher picks a kernel."""
+    if not cuda and all(t.device.type == "cpu" for t in tensors):
+        return
+    device = tensors[0].device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(
+            f"tensors on {[str(t.device) for t in tensors]}: the kernel "
+            "needs them all on one CUDA device"
+            + ("" if cuda else " (or all on the CPU)"))

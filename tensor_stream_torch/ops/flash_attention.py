@@ -9,9 +9,13 @@ its tile-recomputing VJP ``_flash_bwd`` (a ``lax.scan``, not Pallas).
 Layout is the JAX package's, ``[batch, heads, seq, head_dim]``, with k/v
 allowed fewer heads (GQA).
 
-``impl="auto"`` launches the kernels for CUDA tensors and runs the plain
-versions for CPU tensors; ``"plain"`` forces the plain versions anywhere;
-``"cuda"`` forces the kernels and raises on the CPU. Nothing falls back
+The kernels are the operators ``ts::flash_fwd`` (o; its overload
+``ts::flash_fwd.residuals`` returns o, l and m; window 0 means none) and
+``ts::flash_bwd``: the dispatcher runs the kernel on CUDA tensors and the
+plain version on CPU tensors, and their fakes give the outputs' shapes
+and strides, so ``torch.export`` traces them without storage.
+``impl="auto"`` calls the ops; ``"plain"`` calls the plain versions
+anywhere; ``"cuda"`` calls the ops and raises off CUDA. Nothing falls back
 from one to the other. Each forward launch adds one to ``launches`` and to
 its mode's entry of ``launches_by_mode``: "band" with a window (the mode
 that serves ``_band_kernel``), else "causal" or "full"; a forward launched
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import _library
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (32, 64, 128)
@@ -217,16 +222,20 @@ def _empty_like(t):
     return out
 
 
-def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
+def _residuals(q):
+    """(l, m): [B, H, Sq] f32."""
+    return (q.new_empty(q.shape[:3], dtype=torch.float32),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _flash_fwd_cuda(q, k, v, causal, window, sm_scale, residuals):
+    """The forward kernel (window 0: none): o, or (o, l, m) with
+    ``residuals``."""
     b, h, hk, sq, sk, d = _cuda_shapes(q, k, v)
     o = _empty_like(q)
-    if residuals:
-        l = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    else:
-        l = m = None
+    l, m = _residuals(q) if residuals else (None, None)
     if o.numel() == 0:
-        return o, l, m
+        return (o, l, m) if residuals else o
     fn = _kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -234,8 +243,8 @@ def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
                 m.data_ptr() if residuals else None,
                 _DTYPES[q.dtype], b, h, hk, sq, sk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *o.stride()[:3], sm_scale, int(bool(causal)),
-                window or 0, torch.cuda.current_stream(q.device).cuda_stream)
+                *o.stride()[:3], sm_scale, int(causal),
+                window, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ts_flash_fwd launch failed: cudaError {rc}")
     global launches, recompute_launches
@@ -243,7 +252,36 @@ def _flash_cuda(q, k, v, causal, window, sm_scale, residuals):
     launches_by_mode["band" if window else "causal" if causal else "full"] += 1
     if _RECOMPUTING:
         recompute_launches += 1
-    return o, l, m
+    return (o, l, m) if residuals else o
+
+
+def _like(t, value):
+    """`value` in an output laid out as the kernel lays out t's (the
+    fake's strides, which an exported program holds the op to)."""
+    return _empty_like(t).copy_(value)
+
+
+def _flash_fwd_cpu(q, k, v, causal, window, sm_scale, residuals):
+    if residuals:
+        o, l, m = flash_attention_plain(q, k, v, causal, window or None,
+                                        sm_scale, True)
+        return _like(q, o), l, m
+    return _like(q, flash_attention_plain(q, k, v, causal, window or None,
+                                          sm_scale))
+
+
+_ARGS = "Tensor q, Tensor k, Tensor v, bool causal, int window, float sm_scale"
+# ts::flash_fwd: o; its overload ts::flash_fwd.residuals: (o, l, m).
+_FWD = _library.define(
+    f"flash_fwd({_ARGS}) -> Tensor",
+    cuda=lambda *a: _flash_fwd_cuda(*a, False),
+    cpu=lambda *a: _flash_fwd_cpu(*a, False),
+    fake=lambda q, *a: _empty_like(q))
+_FWD_RES = _library.define(
+    f"flash_fwd.residuals({_ARGS}) -> (Tensor, Tensor, Tensor)",
+    cuda=lambda *a: _flash_fwd_cuda(*a, True),
+    cpu=lambda *a: _flash_fwd_cpu(*a, True),
+    fake=lambda q, *a: (_empty_like(q), *_residuals(q)))
 
 
 def flash_attention_bwd_plain(q, k, v, o, l, m, do, causal=False,
@@ -284,6 +322,7 @@ def flash_attention_bwd_plain(q, k, v, o, l, m, do, causal=False,
 
 
 def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
+    """The backward kernels (window 0: none): (dq, dk, dv)."""
     b, h, hk, sq, sk, d = _cuda_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
@@ -316,7 +355,7 @@ def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
         rc = fn(*[t.data_ptr() for t in (q, k, v, o, do, l, m, scratch,
                                          dq, dk, dv)],
                 _DTYPES[q.dtype], b, h, hk, sq, sk, d, strides, sm_scale,
-                int(bool(causal)), window or 0,
+                int(causal), window,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ts_flash_bwd launch failed: cudaError {rc}")
@@ -325,6 +364,21 @@ def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
     bwd_launches_by_design[BWD_DESIGNS[_BWD_DESIGN_FN(_DTYPES[q.dtype],
                                                       d)]] += 1
     return dq, dk, dv
+
+
+def _flash_bwd_cpu(q, k, v, o, l, m, do, causal, window, sm_scale):
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, l, m, do, causal,
+                                           window or None, sm_scale)
+    return _like(q, dq), _like(k, dk), _like(v, dv)
+
+
+_BWD = _library.define(
+    "flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor l, Tensor m, "
+    "Tensor dout, bool causal, int window, float sm_scale) "
+    "-> (Tensor, Tensor, Tensor)",
+    cuda=_flash_bwd_cuda, cpu=_flash_bwd_cpu,
+    fake=lambda q, k, v, o, l, m, dout, causal, window, sm_scale:
+        (_empty_like(q), _empty_like(k), _empty_like(v)))
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
@@ -345,8 +399,8 @@ def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = False,
     is dL/do in o's dtype. ``impl`` as for the forward."""
     sm_scale, window = _check(q, k, v, causal, window, sm_scale)
     if _use_kernel(impl, (q, k, v, o, do)):
-        return _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window,
-                               sm_scale)
+        return _BWD(q, k, v, o, l, m, do, bool(causal), window or 0,
+                    sm_scale)
     return flash_attention_bwd_plain(q, k, v, o, l, m, do, causal, window,
                                      sm_scale)
 
@@ -366,7 +420,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, l, m = ctx.saved_tensors
         causal, window, sm_scale, impl = ctx.args
-        if _use_kernel(impl, (q, k, v)) and not _aligned(do):
+        if (impl != "plain" and q.device.type == "cuda"
+                and not _aligned(do)):
             global dout_copies
             do = do.contiguous()
             dout_copies += 1
@@ -411,20 +466,21 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 
 def _use_kernel(impl, tensors):
-    """True for the kernels, False for the plain versions (``impl`` as in
-    ``flash_attention``)."""
+    """True for the operators (whose CUDA kernels are the hand-written
+    ones and whose CPU kernels the plain versions), False for the plain
+    versions called directly (``impl`` as in ``flash_attention``)."""
     if impl == "plain":
         return False
-    if impl == "cuda":
-        return True
-    if impl != "auto":
+    if impl not in ("auto", "cuda"):
         raise ValueError(f"unknown impl {impl!r} (auto, plain or cuda)")
-    return not all(t.device.type == "cpu" for t in tensors)
+    _library.on_one_device(*tensors, cuda=impl == "cuda")
+    return True
 
 
 def _dispatch(q, k, v, causal, window, sm_scale, impl, residuals):
     if _use_kernel(impl, (q, k, v)):
-        return _flash_cuda(q, k, v, causal, window, sm_scale, residuals)
+        args = (q, k, v, bool(causal), window or 0, sm_scale)
+        return _FWD_RES(*args) if residuals else (_FWD(*args), None, None)
     if residuals:
         return flash_attention_plain(q, k, v, causal, window, sm_scale, True)
     return flash_attention_plain(q, k, v, causal, window, sm_scale), None, None

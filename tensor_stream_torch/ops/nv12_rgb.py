@@ -3,9 +3,11 @@
 the JAX package's Pallas TPU kernel
 ``ops/pallas_color.py::_nv12_rgb_kernel``.
 
-``nv12_to_rgb`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; there is no fallback between the two. The
-kernel has two variants, and ``variant`` picks one from the shape and
+``nv12_to_rgb`` calls the operator ``ts::nv12_to_rgb`` (``_library``),
+whose CUDA kernel is the hand-written one and whose CPU kernel is the
+plain version; there is no fallback between the two. Its fake gives the
+output's shape and dtype, so ``torch.export`` traces it without storage.
+The kernel has two variants, and ``variant`` picks one from the shape and
 the pointers before the launch: "vector" (bands of rows moved by bulk
 copies) for W % 16 == 0 with 16-byte aligned planes, "edge" for every
 other even shape. Each launch adds one to ``launches`` and to its
@@ -17,7 +19,7 @@ import ctypes
 import torch
 
 from .. import _build
-from . import color
+from . import _library, color
 
 VARIANTS = ("vector", "edge")
 _ENTRY = {"vector": "ts_nv12_rgb_vec", "edge": "ts_nv12_rgb"}
@@ -81,13 +83,20 @@ def output_shape(y_shape, planar: bool):
 def nv12_to_rgb(y, uv, swap_rb: bool, planar: bool, normalization: bool,
                 standard: int = 0):
     """y [N,H,W] or [H,W] uint8, uv [N,H/2,W] or [H/2,W] uint8 ->
-    [N,3,H,W]/[N,H,W,3] (or without N), uint8 or float32 (x/255)."""
-    if y.device.type == "cpu" and uv.device.type == "cpu":
-        return nv12_to_rgb_plain(y, uv, swap_rb, planar, normalization,
-                                 standard)
-    if y.device.type != "cuda" or uv.device != y.device:
-        raise ValueError(f"y on {y.device} and uv on {uv.device}: both must "
-                         "be on one CUDA device (or both on the CPU)")
+    [N,3,H,W]/[N,H,W,3] (or without N), uint8 or float32 (x/255).
+
+    Calls the operator ``ts::nv12_to_rgb``: the dispatcher runs the
+    kernel for CUDA planes and the plain version for CPU planes, so a
+    program traced by ``torch.export`` on either device holds the op."""
+    _library.on_one_device(y, uv)
+    return _OP(y, uv, bool(swap_rb), bool(planar), bool(normalization),
+               int(standard))
+
+
+def _nv12_to_rgb_cuda(y, uv, swap_rb, planar, normalization, standard):
+    """The kernel: checks the planes, picks the variant from the
+    pointers, launches and counts."""
+    _library.on_one_device(y, uv)
     if y.dtype != torch.uint8 or uv.dtype != torch.uint8:
         raise TypeError(f"NV12 planes must be uint8, got {y.dtype}/{uv.dtype}")
     if y.dim() not in (2, 3) or uv.dim() != y.dim():
@@ -106,17 +115,14 @@ def nv12_to_rgb(y, uv, swap_rb: bool, planar: bool, normalization: bool,
                          "(0..3) before the kernel")
     if n > 65535:
         raise ValueError(f"batch {n} exceeds the kernel's grid (65535)")
-    out = torch.empty(output_shape(y.shape, planar),
-                      dtype=torch.float32 if normalization else torch.uint8,
-                      device=y.device)
+    out = _empty_out(y, planar, normalization)
     if out.numel() == 0:
         return out
     which = variant(h, w, y.data_ptr(), uv.data_ptr(), out.data_ptr())
     fn = _lib()[which]
     with torch.cuda.device(y.device):
         rc = fn(y.data_ptr(), uv.data_ptr(), out.data_ptr(), n, h, w,
-                int(bool(swap_rb)), int(bool(planar)),
-                int(bool(normalization)), int(standard),
+                int(swap_rb), int(planar), int(normalization), int(standard),
                 torch.cuda.current_stream(y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{_ENTRY[which]} launch failed: cudaError {rc}")
@@ -124,3 +130,16 @@ def nv12_to_rgb(y, uv, swap_rb: bool, planar: bool, normalization: bool,
     launches += 1
     launches_by_variant[which] += 1
     return out
+
+
+def _empty_out(y, planar, normalization):
+    return y.new_empty(output_shape(y.shape, planar),
+                       dtype=torch.float32 if normalization else torch.uint8)
+
+
+_OP = _library.define(
+    "nv12_to_rgb(Tensor y, Tensor uv, bool swap_rb, bool planar, "
+    "bool normalization, int standard) -> Tensor",
+    cuda=_nv12_to_rgb_cuda, cpu=nv12_to_rgb_plain,
+    fake=lambda y, uv, swap_rb, planar, normalization, standard:
+        _empty_out(y, planar, normalization))

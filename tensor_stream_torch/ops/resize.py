@@ -27,6 +27,13 @@ plane's columns interleave U (even) and V (odd), so its column tables
 hold each chroma column's taps and weights, and one description covers Y
 and UV. A kernel launch covers the whole batch and both planes. Each
 launch adds one to its kernel's entry of ``launches``.
+
+Each kernel is an operator (``_library``), ``ts::resize_bilinear_nv12``,
+``ts::resize_bicubic_nv12`` and ``ts::resize_area_down_nv12`` (planes,
+target width and height, resize type): its CUDA kernel is the
+hand-written one and its CPU kernel the plain version, and the tables of
+the geometry are made inside it, so an exported program holds the op and
+its integers, not the tables or the pointers.
 """
 import ctypes
 import math
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import _library
 from ..enums import ResizeType
 
 KERNELS = ("resize_bilinear_nv12", "resize_bicubic_nv12",
@@ -621,21 +629,34 @@ _PLAIN = {"resize_bilinear_nv12": _bilinear_plain,
 
 class NV12Resize:
     """One (source, target, algorithm): its tables, its plain version and
-    its kernel. Calling it runs the kernel on CUDA tensors and the plain
-    version on CPU tensors; there is no fallback between the two.
+    its kernel. Calling it calls the kernel's operator (``_OPS``), which
+    runs the kernel on CUDA tensors and the plain version on CPU tensors;
+    there is no fallback between the two.
+
+    There is one object a geometry a process: ``NV12Resize(...)`` returns
+    the geometry's registered object, and the operators look theirs up
+    in the same registry from the planes' shape and their arguments. So
+    the caller's object is the one its calls run on (its AREA plans
+    included), and the tables on the device, whose pointers a captured
+    CUDA graph holds, live as long as the process.
 
     Planes are [..., H, W] and [..., H/2, W] uint8 (any leading batch
     dims on the CPU; [N, H, W] or [H, W] on CUDA, where a crop's strided
     view is read in place through its row pitch and batch stride)."""
 
-    def __init__(self, src_w, src_h, dst_w, dst_h, resize_type):
-        self.src = (int(src_w), int(src_h))
-        self.dst = (int(dst_w), int(dst_h))
-        self.kernel, self.planes = plane_tables(src_w, src_h, dst_w, dst_h,
-                                                resize_type)
-        self._on = {}
-        self._plans = {}
-        self._area_on = {}
+    def __new__(cls, src_w, src_h, dst_w, dst_h, resize_type):
+        key = (int(src_w), int(src_h), int(dst_w), int(dst_h),
+               ResizeType(resize_type))
+        self = _GEOMETRIES.get(key)
+        if self is None:
+            self = _GEOMETRIES[key] = super().__new__(cls)
+            self.src, self.dst = key[:2], key[2:4]
+            self.resize_type = key[4]
+            self.kernel, self.planes = plane_tables(*key)
+            self._on = {}
+            self._plans = {}
+            self._area_on = {}
+        return self
 
     def area_plan(self, n, sms=132):
         """resize_area_down_nv12's plan for a batch of `n` (area_plan)."""
@@ -669,30 +690,43 @@ class NV12Resize:
         fn = _PLAIN[self.kernel]
         return fn(y, planes[0]), fn(uv, planes[1])
 
-    def __call__(self, y, uv):
-        if y.device.type == "cpu" and uv.device.type == "cpu":
+    def __call__(self, y, uv, impl: str = "auto"):
+        """The operator ``ts::<kernel>``: the kernel on CUDA planes, the
+        plain version on CPU planes. ``impl="cuda"`` raises unless the
+        planes lie on one CUDA device, ``impl="plain"`` calls the plain
+        version on any device (as ``flash_attention``'s ``impl``)."""
+        if impl not in ("auto", "plain", "cuda"):
+            raise ValueError(f"unknown impl {impl!r} (auto, plain or cuda)")
+        _library.on_one_device(y, uv, cuda=impl == "cuda")
+        self._match(y, uv)
+        if impl == "plain":
             return self.plain(y, uv)
-        return self.launch(y, uv)
+        return _OPS[self.kernel](y, uv, *self.dst, self.resize_type.value)
 
-    def launch(self, y, uv):
-        """The CUDA kernel: one launch for the batch and both planes."""
-        if y.device.type != "cuda" or uv.device != y.device:
-            raise ValueError(f"y on {y.device} and uv on {uv.device}: both "
-                             "must be on one CUDA device (or both on the "
-                             "CPU)")
+    def _match(self, y, uv):
+        """Raises unless the planes are [..., H, W] and [..., H/2, W] of
+        this source."""
+        sw, sh = self.src
+        lead = tuple(y.shape[:-2])
+        if (tuple(y.shape[-2:]) != (sh, sw)
+                or tuple(uv.shape) != (*lead, sh // 2, sw)):
+            raise ValueError(f"planes {tuple(y.shape)}/{tuple(uv.shape)} "
+                             f"do not match the {sw}x{sh} source")
+
+    def _launch(self, y, uv):
+        """The kernel's body: one launch for the batch and both planes."""
+        _library.on_one_device(y, uv, cuda=True)
         if y.dtype != torch.uint8 or uv.dtype != torch.uint8:
             raise TypeError(f"NV12 planes must be uint8, got "
                             f"{y.dtype}/{uv.dtype}")
         if y.dim() not in (2, 3) or uv.dim() != y.dim():
             raise ValueError(f"expected [N,H,W] or [H,W] planes, got "
                              f"{tuple(y.shape)} and {tuple(uv.shape)}")
+        self._match(y, uv)
         sw, sh = self.src
         dw, dh = self.dst
         *lead, h, w = y.shape
         n = lead[0] if lead else 1
-        if (h, w) != (sh, sw) or tuple(uv.shape) != (*lead, sh // 2, sw):
-            raise ValueError(f"planes {tuple(y.shape)}/{tuple(uv.shape)} "
-                             f"do not match the {sw}x{sh} source")
         if y.stride(-1) != 1 or uv.stride(-1) != 1:
             raise ValueError("plane rows must be contiguous")
         if n > 65535 or dh + dh // 2 > 65535:
@@ -744,6 +778,41 @@ class NV12Resize:
         return self._area_on[key]
 
 
+_GEOMETRIES = {}
+
+
+def _geometry(y, dst_w, dst_h, resize_type):
+    return NV12Resize(y.shape[-1], y.shape[-2], dst_w, dst_h, resize_type)
+
+
+def _define_op(kernel):
+    """``ts::<kernel>(y, uv, dst_w, dst_h, resize_type) -> (y, uv)``: the
+    hand-written kernel on CUDA, the plain version on the CPU, and a fake
+    that gives the outputs' shapes (contiguous, as the kernel's are)."""
+
+    def cuda(y, uv, dst_w, dst_h, resize_type):
+        r = _geometry(y, dst_w, dst_h, resize_type)
+        if r.kernel != kernel:
+            raise ValueError(f"{ResizeType(resize_type)} at {r.src} -> "
+                             f"{r.dst} runs {r.kernel}, not {kernel}")
+        return r._launch(y, uv)
+
+    def cpu(y, uv, dst_w, dst_h, resize_type):
+        return _geometry(y, dst_w, dst_h, resize_type).plain(y, uv)
+
+    def fake(y, uv, dst_w, dst_h, resize_type):
+        lead = y.shape[:-2]
+        return (y.new_empty((*lead, dst_h, dst_w)),
+                uv.new_empty((*lead, dst_h // 2, dst_w)))
+
+    return _library.define(
+        f"{kernel}(Tensor y, Tensor uv, int dst_w, int dst_h, "
+        "int resize_type) -> (Tensor, Tensor)", cuda, cpu, fake)
+
+
+_OPS = {kernel: _define_op(kernel) for kernel in KERNELS}
+
+
 def make_resize_fn(src_w, src_h, dst_w, dst_h, resize_type: ResizeType):
     """(y [..., H, W], uv [..., H/2, W]) -> resized planes. NEAREST is two
     gathers a plane; the others are an NV12Resize."""
@@ -754,10 +823,13 @@ def make_resize_fn(src_w, src_h, dst_w, dst_h, resize_type: ResizeType):
 
     def fn(y, uv):
         key = str(y.device)
-        if key not in on_device:
-            on_device[key] = [torch.as_tensor(t, device=y.device)
-                              for t in tables]
-        rows, cols, uv_rows, uv_cols = on_device[key]
+        on = on_device.get(key)
+        if on is None:
+            on = [torch.as_tensor(t, device=y.device) for t in tables]
+            # A trace (torch.export) makes fake tables: they stay in it.
+            if not torch.compiler.is_compiling():
+                on_device[key] = on
+        rows, cols, uv_rows, uv_cols = on
         return _take(y, rows, cols), _take(uv, uv_rows, uv_cols)
 
     return fn

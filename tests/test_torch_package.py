@@ -35,7 +35,13 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "tensor_stream_torch.ops.metrics, "
             "tensor_stream_torch.ops.flash_attention, "
             "tensor_stream_torch.ops.resize, tensor_stream_torch.ops.augment, "
-            "tensor_stream_torch.ops.mix, tensor_stream_torch.graphs; "
+            "tensor_stream_torch.ops.mix, tensor_stream_torch.graphs, "
+            "tensor_stream_torch.checkpoint, tensor_stream_torch.export, "
+            "tensor_stream_torch.video_writer, "
+            "tensor_stream_torch.parallel, "
+            "tensor_stream_torch.parallel.accum, "
+            "tensor_stream_torch.utils.torch_data, "
+            "tensor_stream_torch.utils.torch_interop; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'tensor_stream_tpu'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -74,17 +80,24 @@ def test_channels_by_fourcc_matches_jax_copy():
                 jax_enums.channels_by_fourcc(jax_enums.FourCC(f.value)))
 
 
-def test_entry_points_without_device_take_cuda():
+def test_entry_points_without_device_take_cuda(tmp_path):
     """device=None means cuda:N: without a CUDA device every entry point
-    raises instead of dropping to the CPU on its own."""
+    raises instead of dropping to the CPU on its own (a serving artifact's
+    load and a restore without a template included)."""
     from tensor_stream_torch import (ClipDataset, ClipLoader, FrameLoader,
-                                     TensorStreamConverter)
+                                     TensorStreamConverter,
+                                     TrainCheckpointer, export_inference,
+                                     load_inference)
     cfg = VPPConfig(64, 32)
     if torch.cuda.is_available():
         assert _device.resolve_device() == torch.device("cuda", 0)
         return
     y = np.zeros((32, 64), np.uint8)
     uv = np.zeros((16, 64), np.uint8)
+    artifact = str(tmp_path / "vpp.pt2")
+    export_inference(lambda a, b: a + b, (torch.ones(2), torch.ones(2)),
+                     artifact)
+    TrainCheckpointer(str(tmp_path)).save(1, {"w": torch.ones(2)})
     from tensor_stream_torch.models import (DiffusionSchedule,
                                             TransformerNet, VideoDiT,
                                             VideoMoE, VideoVAE, VideoViT)
@@ -105,6 +118,8 @@ def test_entry_points_without_device_take_cuda():
                  lambda: DiffusionSchedule(10),
                  lambda: build_vpp(cfg),
                  lambda: vpp_numpy(cfg, y, uv),
+                 lambda: load_inference(artifact),
+                 lambda: TrainCheckpointer(str(tmp_path)).restore(),
                  lambda: _device.resolve_device("cuda:0")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -118,6 +133,25 @@ def test_entry_points_without_device_take_cuda():
     m.device = torch.device("cuda", 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_stream_cache(m, 1, 2)
+
+
+def test_all_is_the_jax_packages_but_the_sharded_loaders():
+    """The port's public names: the JAX package's, less the three
+    Sharded* loaders (the parallel layer, not ported yet), plus the
+    port's own VPPConfig, cuda_graph and channels_by_fourcc; each one
+    importable."""
+    import tensor_stream_torch
+    import tensor_stream_tpu
+    sharded = {"ShardedClipDataset", "ShardedClipLoader",
+               "ShardedStreamLoader"}
+    own = {"VPPConfig", "cuda_graph", "channels_by_fourcc"}
+    assert sharded <= set(tensor_stream_tpu.__all__)
+    assert set(tensor_stream_torch.__all__) == (
+        set(tensor_stream_tpu.__all__) - sharded) | own
+    assert len(tensor_stream_torch.__all__) == len(
+        set(tensor_stream_torch.__all__))
+    for name in tensor_stream_torch.__all__:
+        assert getattr(tensor_stream_torch, name) is not None, name
 
 
 def test_wrapper_runs_plain_on_cpu_and_never_counts():

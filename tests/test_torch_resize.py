@@ -234,10 +234,61 @@ def test_cuda_launch_refuses_cpu_planes():
     y = torch.zeros((48, 64), dtype=torch.uint8)
     uv = torch.zeros((24, 64), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
-        r.launch(y, uv)
+        r(y, uv, impl="cuda")
     before = dict(resize.launches)
     r(y, uv)  # CPU planes: the plain version, no launch counted
     assert resize.launches == before
+
+
+def test_one_object_a_geometry_whose_tables_outlive_other_geometries():
+    """NV12Resize(...) is the registry the operators look their geometry
+    up in: the caller's object is the op's, and its tables (whose
+    pointers a captured CUDA graph holds) survive any number of other
+    geometries."""
+    r = resize.NV12Resize(64, 48, 32, 24, ResizeType.AREA)
+    assert resize.NV12Resize(64, 48, 32, 24, ResizeType.AREA.value) is r
+    assert resize.make_resize_fn(64, 48, 32, 24, ResizeType.AREA) is r
+    ptrs = [t.data_ptr() for t in r._tables("cpu")[1]]
+    rng = np.random.default_rng(4)
+    for dw in range(2, 162, 2):  # 80 other geometries through the op
+        y = torch.from_numpy(rng.integers(0, 256, (1, 48, 64), np.uint8))
+        uv = torch.from_numpy(rng.integers(0, 256, (1, 24, 64), np.uint8))
+        resize.make_resize_fn(64, 48, dw, 8, ResizeType.BILINEAR)(y, uv)
+    assert resize.NV12Resize(64, 48, 32, 24, ResizeType.AREA) is r
+    assert [t.data_ptr() for t in r._tables("cpu")[1]] == ptrs
+
+
+def test_planes_of_another_source_raise():
+    r = resize.NV12Resize(64, 48, 32, 24, ResizeType.BILINEAR)
+    y = torch.zeros((2, 24, 32), dtype=torch.uint8)
+    uv = torch.zeros((2, 12, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="do not match the 64x48 source"):
+        r(y, uv)
+    with pytest.raises(ValueError, match="do not match"):
+        r(torch.zeros((2, 48, 64), dtype=torch.uint8), uv)
+
+
+@pytest.mark.gpu
+def test_a_captured_resize_replays_after_other_geometries():
+    """A CUDA graph captured over a resize replays on its tables after
+    80 other geometries were made and run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    r = resize.NV12Resize(64, 48, 32, 24, ResizeType.BILINEAR)
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.integers(0, 256, (2, 48, 64), np.uint8)).cuda()
+    uv = torch.from_numpy(rng.integers(0, 256, (2, 24, 64), np.uint8)).cuda()
+    r(y, uv)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = r(y, uv)
+    for dw in range(2, 162, 2):
+        resize.NV12Resize(64, 48, dw, 8, ResizeType.BILINEAR)(y, uv)
+    torch.cuda.empty_cache()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = r.plain(y, uv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu
