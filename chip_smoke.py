@@ -70,7 +70,17 @@ kernels:
   video_writer (VideoWriter on phase style's frames, read back through
   FrameLoader; "unavailable" where libtsingest.so cannot be built, as on
   a machine without FFmpeg's development libraries: the encoder is
-  libavcodec's, inside that library).
+  libavcodec's, inside that library);
+* the parallel layer at world size 1 through a real NCCL process group
+  (an in-process HashStore, no port): ring attention's hop and merge code
+  over 4 virtual ranks at ViT-B joint training's attention ([4,12,1568,64]
+  bf16, full and causal) against one flash call and the plain versions,
+  forward and backward, and timed against the one call; the world-1 ring
+  bit-equal to one call; the meshed steps (ViT-B joint with ring
+  attention, DiT and VAE data parallel, MoE data x expert parallel) each
+  bit-equal to its single-device step, graphed and eager; pp_apply,
+  vpp_batch_sharded and a DTensor checkpoint against their single-device
+  counterparts; the sharded loaders where libtsingest.so builds.
 
 Each kernel is a dispatcher operator of the ts library
 (tensor_stream_torch/ops/_library.py: ts::nv12_to_rgb, ts::flash_fwd,
@@ -4163,6 +4173,399 @@ def dispatch_ab(other_root, blocks=2):
     return got
 
 
+# The parallel layer on one card: world size 1 through a real NCCL group.
+# The virtual ring is ViT-B joint training's attention (B=4, 12 heads, 1568
+# tokens, d=64, bf16) split into 4 ring positions of 392 tokens.
+PAR_RING = (4, 12, 1568, 64)
+PAR_RANKS = 4
+PAR_CALLS = 3          # a warm-up, a capture, a replay
+PAR_LR = 1e-4
+PAR_HOPS = {False: {"full": PAR_RANKS ** 2, "causal": 0, "plain": 0,
+                    "skipped": 0},
+            True: {"full": PAR_RANKS * (PAR_RANKS - 1) // 2,
+                   "causal": PAR_RANKS, "plain": 0,
+                   "skipped": PAR_RANKS * (PAR_RANKS - 1) // 2}}
+PAR_PP_REL = 2e-2      # pp_apply's bf16 logits at 2 microbatches
+PAR_VPP = (("headline", BATCH, (SIDE, SIDE), None),
+           ("resized", 16, HEADLINE_SRC, ResizeType.BILINEAR))
+
+
+def flash_counts():
+    return {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+
+
+def virtual_ring_case(device, causal):
+    """The ring's hop and merge code over 4 virtual ranks against one
+    ts::flash_fwd / ts::flash_bwd call and the plain versions."""
+    from tensor_stream_torch.ops import ring_attention as ra
+    b, h, s, d = PAR_RING
+    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 71)
+    do = _grad_out(b, h, s, d, torch.bfloat16, 72)
+    fa.reset_counts()
+    ra.reset_counts()
+    o, l, m = ra.virtual_ring(q, k, v, PAR_RANKS, causal=causal)
+    grads = ra.virtual_ring_bwd(q, k, v, o, l, m, do, PAR_RANKS,
+                                causal=causal)
+    torch.cuda.synchronize()
+    launches = {**flash_counts(), "hops": dict(ra.launches_by_mode),
+                "bwd_hops": dict(ra.bwd_launches_by_mode)}
+    want = PAR_HOPS[causal]
+    kernel_hops = want["full"] + want["causal"]
+    if (launches["hops"] != want or launches["bwd_hops"] != want
+            or launches["flash_fwd"] != kernel_hops
+            or launches["flash_bwd"] != kernel_hops):
+        raise AssertionError(f"virtual ring causal={causal}: launches "
+                             f"{launches}, want {want}")
+    # The ring's plain version: the same hops and merges on the plain
+    # flash forward and backward (no launch).
+    ring_plain = ra.virtual_ring(q, k, v, PAR_RANKS, causal=causal,
+                                 impl="plain")
+    ring_plain_g = ra.virtual_ring_bwd(q, k, v, *ring_plain, do, PAR_RANKS,
+                                       causal=causal, impl="plain")
+    one = fa.flash_attention_fwd(q, k, v, causal=causal)
+    one_g = fa.flash_attention_bwd(q, k, v, *one, do, causal=causal)
+    plain = fa.flash_attention_fwd(q, k, v, causal=causal, impl="plain")
+    plain_g = fa.flash_attention_bwd(q, k, v, *plain, do, causal=causal,
+                                     impl="plain")
+    checks, errs = {}, {}
+    for name, fwd, bwd in (("ring_plain", ring_plain, ring_plain_g),
+                           ("plain", plain, plain_g),
+                           ("one_call", one, one_g)):
+        c, e = flash_rule((o, l, m), fwd)
+        cb, eb = bwd_rule(grads, bwd)
+        # bwd_rule's dk_cast holds one call's bf16 dK, cast once from f32
+        # sums, within 1e-3 of the plain one (an f32 dS would leave it).
+        # The ring's dK is a sum of per-hop dK that the kernel (and the
+        # plain backward) already cast to bf16, as the JAX ring carries its
+        # cotangents in the input dtype: there dk_rel is a reading.
+        cb.pop("dk_cast", None)
+        checks[name] = {**c, **cb}
+        errs[name] = {**e, **eb}
+
+    def ring(q, k, v, do):
+        o, l, m = ra.virtual_ring(q, k, v, PAR_RANKS, causal=causal)
+        return ra.virtual_ring_bwd(q, k, v, o, l, m, do, PAR_RANKS,
+                                   causal=causal)
+
+    def single(q, k, v, do):
+        o = fa.flash_attention_fwd(q, k, v, causal=causal)
+        return fa.flash_attention_bwd(q, k, v, *o, do, causal=causal)
+    ring_ms = time_ms(lambda: ring(q, k, v, do), device, iters=10, warmup=2)
+    one_ms = time_ms(lambda: single(q, k, v, do), device, iters=10,
+                     warmup=2)
+    # The same two as CUDA graphs: the device's time without the host's
+    # enqueue (the ring's 16 hops run some 30 torch ops each besides the
+    # kernels).
+    graphs = {}
+    for name, fn in (("ring", ring), ("one_call", single)):
+        g = cuda_graph(fn)
+        for _ in range(3):
+            g(q, k, v, do)
+        graphs[name] = time_ms(g.graphs[0].replay, device, iters=10,
+                               warmup=2)
+    failed = [f"{n}.{c}" for n, cs in checks.items()
+              for c, ok in cs.items() if not ok]
+    return {"causal": causal, "shape": list(PAR_RING), "ranks": PAR_RANKS,
+            "launches": launches, "checks": checks, "errors": errs,
+            "failed": failed, "ring_fwd_bwd_ms": ring_ms,
+            "one_call_fwd_bwd_ms": one_ms,
+            "ring_over_one_call": ring_ms[0] / one_ms[0],
+            "graph_replay_ms": graphs,
+            "graph_ring_over_one_call": (graphs["ring"][0]
+                                         / graphs["one_call"][0])}
+
+
+def world1_ring(device, mesh, causal):
+    """ring_attention_sharded at world 1 (one hop, no transfer) against
+    one flash call, forward and gradients, bit for bit."""
+    from tensor_stream_torch.ops import ring_attention as ra
+    b, h, s, d = PAR_RING
+    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 73)
+    do = _grad_out(b, h, s, d, torch.bfloat16, 74)
+    ours = [t.clone().requires_grad_() for t in (q, k, v)]
+    theirs = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_counts()
+    o = ra.ring_attention_sharded(mesh, *ours, seq_axis="cp",
+                                  causal=causal).to_local()
+    o.backward(do)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    w = fa.flash_attention(*theirs, causal=causal)
+    w.backward(do)
+    equal = {"o": bitwise_equal(o, w),
+             **{f"d{n}": bitwise_equal(a.grad, b.grad)
+                for n, a, b in zip("qkv", ours, theirs)}}
+    if not all(equal.values()) or launches != {"flash_fwd": 1,
+                                               "flash_bwd": 1}:
+        raise AssertionError(f"world-1 ring causal={causal}: bit-equal "
+                             f"{equal}, launches {launches}")
+    return {"causal": causal, "bit_equal": equal, "launches": launches}
+
+
+def meshed_twins(label, single, meshed, args):
+    """A meshed train step at world 1 against the single-device one:
+    `single` and `meshed` are (build() -> (model, optimizer), make_step(
+    model, optimizer, generator)), generators seeded 1. PAR_CALLS calls of
+    each through its CUDA graph, then the meshed step eager on a third
+    model. Gates: every output and every parameter bit-equal across the
+    three. Returns the row, with the meshed graphed run's launches."""
+    device = args[0].device
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(1)
+    runs, params, ms = {}, {}, {}
+    for name, (build, make) in (("single", single), ("meshed", meshed),
+                                ("meshed_eager", meshed),
+                                ("single_eager", single)):
+        torch.cuda.empty_cache()
+        model, opt = build()
+        step = make(model, opt, gen())
+        if name.endswith("eager"):
+            step = step.graphed.fn
+        fa.reset_counts()
+        reset_resize_counts()
+        runs[name] = [step(*args)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        runs[name] += [step(*args) for _ in range(PAR_CALLS - 1)]
+        torch.cuda.synchronize()
+        if name == "meshed":
+            check_replays(step.graphed, PAR_CALLS, label)
+            launches = {**flash_counts(), **resize_counts()}
+        params[name] = {n: (p.to_local() if hasattr(p, "to_local") else p)
+                        .detach().clone()
+                        for n, p in model.named_parameters()}
+        if name.endswith("eager"):
+            # The eager calls after the first (its DTensor sharding
+            # propagation is cached from then on).
+            ms[name] = (time.monotonic() - t0) / (PAR_CALLS - 1) * 1e3
+        else:   # replays that step the model on, after the reading above
+            ms[name + "_replay"] = time_ms(step.graphed.graphs[0].replay,
+                                           device, iters=5, warmup=1)[0]
+        del model, opt, step
+    others = ("meshed", "meshed_eager", "single_eager")
+    outputs = {n: all(outputs_equal(a, b) for a, b in
+                      zip(runs["single"], runs[n])) for n in others}
+    differing = {n: params_equal(params[n], params["single"])
+                 for n in others}
+    row = {"calls": PAR_CALLS,
+           "loss": [float(as_tuple(o)[0]) for o in runs["meshed"]],
+           "bit_equal_to_single_device": outputs,
+           "params_differing": differing, "launches": launches,
+           "step_ms": ms, "device_time_source": "cuda_graph_replay "
+           "(time_ms, held); eager: host wall over calls 2-3"}
+    if not all(outputs.values()) or any(differing.values()):
+        raise AssertionError(f"{label}: meshed steps differ from the "
+                             f"single-device ones: {outputs}, "
+                             f"{ {k: v[:5] for k, v in differing.items()} }")
+    return row
+
+
+def phase_parallel(device, smi):
+    """The parallel layer at world size 1 through a real NCCL process group
+    (an in-process HashStore: no port): the ring's hop and merge code over
+    4 virtual ranks at ViT-B width, forward and backward, against one flash
+    call and the plain versions, and timed against the one call; the real
+    ring at world 1 bit-equal to one call; the meshed ViT-B joint step
+    with ring attention (Adam), and the dp steps of DiT and VAE and the
+    ("dp", "ep") MoE step at the generation and moe_training phases'
+    configurations, each bit-equal to its single-device step and its
+    graphed run bit-equal to its eager one; the pipeline (ViT-B depth 12,
+    S = 1) against the model's forward; the sharded VPP byte-equal to
+    build_vpp; a world-1 DTensor state through TrainCheckpointer; the
+    sharded loaders where libtsingest.so builds."""
+    import torch.distributed as dist
+
+    from tensor_stream_torch.data import ShardedClipLoader
+    from tensor_stream_torch.models import moe_param_specs
+    from tensor_stream_torch.ops import ring_attention as ra
+    from tensor_stream_torch.parallel import (init_pp_params, make_mesh,
+                                              make_pp_mesh, pp_apply,
+                                              shard_pp_params,
+                                              vpp_batch_sharded)
+    from tensor_stream_torch.parallel.sharding import shard_params
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {"phase": "parallel", "card": smi, "world_size": 1,
+           "backend": dist.get_backend(), "torch": torch.__version__}
+    try:
+        out["virtual_ring"] = [virtual_ring_case(device, c)
+                               for c in (False, True)]
+        failed = [f for r in out["virtual_ring"] for f in r["failed"]]
+        # The world-1 ring's backward is this process's first on autograd's
+        # worker thread, after the virtual ring's graph captures: the
+        # sequence whose launches failed before the wrappers bound the
+        # context (_device.kernel_device).
+        cp = make_mesh(axes=("cp",))
+        out["world1_ring"] = [world1_ring(device, cp, c)
+                              for c in (False, True)]
+
+        clips, mask = ramp_clips(4, SIDE, device)
+        dp_sp = make_mesh(axes=("dp", "sp"))
+
+        def vit_build(**ring):
+            def build():
+                model = VideoViT(compute_dtype=torch.bfloat16,
+                                 residual_dtype=torch.bfloat16,
+                                 use_flash=True, size=SIDE, device=device,
+                                 generator=torch.Generator().manual_seed(0),
+                                 **TRAIN_VIT, **ring)
+                return model, torch.optim.Adam(model.parameters(), lr=PAR_LR)
+            return build
+        # The single-device twin is the same model without the ring: the
+        # same kernels in the same order.
+        steps = {"vit_ring": meshed_twins(
+            "parallel vit_ring",
+            (vit_build(), lambda m, o, g: make_vit_train_step(m, o)),
+            (vit_build(ring_axis="sp", mesh=dp_sp),
+             lambda m, o, g: make_vit_train_step(m, o, mesh=dp_sp)),
+            (clips, mask))}
+
+        dp = make_mesh(axes=("dp",))
+        sched = DiffusionSchedule(GEN_TIMESTEPS, device=device)
+        lat_shape = (GEN_CLIP_LEN // 2, GEN_SIDE // 4, GEN_SIDE // 4,
+                     GEN_VAE["latent"])
+        latents = torch.randn((GEN_CLIPS,) + lat_shape,
+                              generator=torch.Generator().manual_seed(5)
+                              ).to(device)
+        dit = adam_build(lambda: VideoDiT(
+            lat_shape, **GEN_DIT, device=device,
+            generator=torch.Generator().manual_seed(0)), GEN_DIT_LR)
+        steps["dit_dp"] = meshed_twins(
+            "parallel dit_dp",
+            (dit, lambda m, o, g: make_diffusion_train_step(m, sched, o,
+                                                            generator=g)),
+            (dit, lambda m, o, g: make_diffusion_train_step(
+                m, sched, o, generator=g, mesh=dp)), (latents,))
+        gclips = torch.rand((GEN_CLIPS, GEN_CLIP_LEN, GEN_SIDE, GEN_SIDE, 3),
+                            generator=torch.Generator().manual_seed(6)
+                            ).to(device)
+        vae = adam_build(lambda: VideoVAE(
+            **GEN_VAE, device=device,
+            generator=torch.Generator().manual_seed(0)), GEN_VAE_LR)
+        with cudnn_flags(deterministic=True, benchmark=False):
+            steps["vae_dp"] = meshed_twins(
+                "parallel vae_dp",
+                (vae, lambda m, o, g: make_vae_train_step(m, o, generator=g)),
+                (vae, lambda m, o, g: make_vae_train_step(
+                    m, o, generator=g, mesh=dp)), (gclips,))
+        dp_ep = make_mesh(axes=("dp", "ep"))
+
+        def moe_model():
+            return VideoMoE(2, frames=TRAIN_VIT["frames"], size=SIDE,
+                            device=device,
+                            generator=torch.Generator().manual_seed(0))
+        moe = adam_build(moe_model, MOE_LR)
+        steps["moe_ep"] = meshed_twins(
+            "parallel moe_ep",
+            (moe, lambda m, o, g: make_moe_train_step(m, o)),
+            (moe, lambda m, o, g: make_moe_train_step(m, o, mesh=dp_ep)),
+            (clips, mask))
+        out["steps"] = steps
+
+        # A world-1 DTensor state (the ep-laid-out MoE and its Adam state)
+        # through the checkpointer, restored into a fresh twin.
+        model = moe_model()
+        opt = torch.optim.Adam(model.parameters(), lr=MOE_LR)
+        make_moe_train_step(model, opt, mesh=dp_ep).graphed.fn(clips, mask)
+        twin = VideoMoE(2, frames=TRAIN_VIT["frames"], size=SIDE,
+                        device=device,
+                        generator=torch.Generator().manual_seed(9))
+        twin_opt = torch.optim.Adam(twin.parameters(), lr=MOE_LR)
+        make_moe_train_step(twin, twin_opt, mesh=dp_ep)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = TrainCheckpointer(tmp)
+            ckpt.save(1, {"model": model, "opt": opt})
+            ckpt.restore(template={"model": twin, "opt": twin_opt})
+        local = {n: p.to_local() for n, p in model.named_parameters()}
+        differing = params_equal({n: p.to_local() for n, p in
+                                  twin.named_parameters()}, local)
+        state_equal = all(
+            bitwise_equal(twin_opt.state[b][k].to_local(),
+                          opt.state[a][k].to_local())
+            for a, b in zip(model.parameters(), twin.parameters())
+            for k in ("exp_avg", "exp_avg_sq"))
+        out["checkpoint"] = {"params_differing": differing,
+                             "adam_state_bit_equal": state_equal,
+                             "dtensor_params": sum(
+                                 1 for _, p in model.named_parameters()
+                                 if hasattr(p, "to_local")),
+                             "specs_over_ep": sum(
+                                 1 for s in moe_param_specs(model).values()
+                                 if s)}
+        if differing or not state_equal:
+            raise AssertionError(f"parallel checkpoint: {out['checkpoint']}")
+        del model, opt, twin, twin_opt
+
+        # The pipeline: ViT-B joint depth 12 as one stage, 2 microbatches.
+        pp = make_pp_mesh(pp=1)
+        model = VideoViT(compute_dtype=torch.bfloat16, use_flash=True,
+                         size=SIDE, device=device,
+                         generator=torch.Generator().manual_seed(0),
+                         **TRAIN_VIT)
+        outer, stage = shard_pp_params(pp, *init_pp_params(
+            None, model, tuple(clips.shape), 1))
+        pipe = {}
+        with torch.no_grad():
+            want = model(clips)
+            for n_micro in (1, 2):
+                fa.reset_counts()
+                got = pp_apply(pp, model, outer, stage, clips,
+                               n_micro=n_micro).to_local()
+                torch.cuda.synchronize()
+                pipe[n_micro] = {"bit_equal": bitwise_equal(got, want),
+                                 "rel_err": _rel_norm(got, want),
+                                 "launches": flash_counts()}
+        out["pipeline"] = pipe
+        if not pipe[1]["bit_equal"] or pipe[2]["rel_err"] > PAR_PP_REL:
+            raise AssertionError(f"parallel pipeline: {pipe}")
+        del model, outer, stage
+
+        # The sharded VPP against build_vpp.
+        dp_mp = make_mesh()
+        vpp_rows = {}
+        for name, n, (w, h), algo in PAR_VPP:
+            cfg = VPPConfig(w, h, width=SIDE if algo else 0,
+                            height=SIDE if algo else 0,
+                            resize_type=algo or ResizeType.NEAREST,
+                            fourcc=FourCC.RGB24, planes=Planes.PLANAR,
+                            normalization=True)
+            y, uv = split(torch.from_numpy(seeded_nv12(n, h, w, 81)).to(
+                device), n, h, w)
+            reset_resize_counts()
+            got = vpp_batch_sharded(cfg, dp_mp, y, uv).to_local()
+            torch.cuda.synchronize()
+            launches = resize_counts()
+            want = build_vpp(cfg, device)(y, uv)
+            vpp_rows[name] = {"frames": n, "src": [w, h],
+                              "bit_equal": bitwise_equal(got, want),
+                              "launches": launches}
+            if not vpp_rows[name]["bit_equal"] or launches["nv12_rgb"] != 1:
+                raise AssertionError(f"parallel vpp {name}: "
+                                     f"{vpp_rows[name]}")
+        out["vpp_batch_sharded"] = vpp_rows
+
+        try:
+            _native.load()
+            with ShardedClipLoader(HEADLINE, clip_len=4, per_device=2,
+                                   mesh=dp, host_resize=True, width=SIDE,
+                                   height=SIDE, pixel_format=FourCC.RGB24,
+                                   planes_pos=Planes.PLANAR,
+                                   normalization=True) as loader:
+                batch, starts = next(loader)
+                out["sharded_loaders"] = {"clip_batch": list(batch.shape),
+                                          "starts": [int(s) for s in starts]}
+        except _native.NativeBuildError as e:
+            out["sharded_loaders"] = {"status": "unavailable",
+                                      "why": str(e)[:200]}
+    finally:
+        dist.destroy_process_group()
+    emit(out)
+    if failed:
+        raise AssertionError(f"parallel virtual ring: {failed}")
+    return out
+
+
 def run(device):
     smi = phase_env()
     worst = phase_kernel_vs_plain(device)
@@ -4198,6 +4601,7 @@ def run(device):
     resume = phase_resume(device, smi)
     accum = phase_accum(device, smi)
     phase_video_writer(device, smi, style)
+    parallel = phase_parallel(device, smi)
     # The infrastructure's paths, each kernel's count on each (0 where the
     # path runs none of it).
     infra = {"export_serving": exported["launches"],
@@ -4207,7 +4611,17 @@ def run(device):
              "resume_vit": resume["vit"]["launches"],
              "resume_dit": resume["dit_conditional"]["launches"],
              **{f"accum_{k}": r["launches"]
-                for k, r in accum["runs"].items()}}
+                for k, r in accum["runs"].items()},
+             **{f"parallel_virtual_ring{'_causal' if r['causal'] else ''}":
+                r["launches"] for r in parallel["virtual_ring"]},
+             **{f"parallel_world1_ring{'_causal' if r['causal'] else ''}":
+                r["launches"] for r in parallel["world1_ring"]},
+             **{f"parallel_{k}": r["launches"]
+                for k, r in parallel["steps"].items()},
+             **{f"parallel_pipeline_m{k}": r["launches"]
+                for k, r in parallel["pipeline"].items()},
+             **{f"parallel_vpp_{k}": r["launches"]
+                for k, r in parallel["vpp_batch_sharded"].items()}}
 
     def infra_paths(kernel):
         return {k: v.get(kernel, 0) for k, v in infra.items()}

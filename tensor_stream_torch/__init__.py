@@ -9,7 +9,11 @@ normalization -> planar/merged layout) into ``torch.Tensor``s on
 (csrc/nv12_rgb.cu), and so do the BILINEAR, BICUBIC and AREA resizes
 (csrc/resize_nv12.cu). ``ClipLoader`` and ``ClipDataset`` sample
 shuffled clips for training, with on-card augmentation (``AugmentConfig``)
-and batch mixes (``mixup``, ``cutmix``, ``mix_labels``). ``StreamInferencer`` serves many streams through one
+and batch mixes (``mixup``, ``cutmix``, ``mix_labels``); their sharded
+forms (``ShardedClipLoader``, ``ShardedClipDataset``,
+``ShardedStreamLoader``) hand each rank of a mesh its share of a DTensor
+batch, and ``parallel`` holds the meshes, the pipeline and the sharded
+steps. ``StreamInferencer`` serves many streams through one
 model call a tick; ``models.VideoViT`` is the video transformer it serves
 and trains, whose attention runs hand-written CUDA flash-attention kernels
 (csrc/flash_fwd.cu, csrc/flash_bwd.cu). ``cuda_graph`` replays a tick or a
@@ -27,7 +31,8 @@ This package imports nothing of JAX or of the JAX package.
 """
 from .checkpoint import TrainCheckpointer
 from .data import (ClipDataset, ClipLoader, FrameLoader, MultiStreamLoader,
-                   PooledStreamLoader)
+                   PooledStreamLoader, ShardedClipDataset, ShardedClipLoader,
+                   ShardedStreamLoader)
 from .enums import (ColorStandard, FourCC, FrameRate, LogsLevel, LogsType,
                     Planes, ResizeType, StatusLevel, channels_by_fourcc)
 from .export import export_inference, load_inference
@@ -44,6 +49,7 @@ __version__ = "0.1.0"
 __all__ = [
     "TensorStreamConverter", "FrameParameters", "FrameLoader", "VideoWriter",
     "ClipLoader", "ClipDataset", "MultiStreamLoader", "PooledStreamLoader",
+    "ShardedClipLoader", "ShardedClipDataset", "ShardedStreamLoader",
     "StreamInferencer", "StreamResult", "VPPConfig", "cuda_graph",
     "AugmentConfig", "mixup", "cutmix", "mix_labels", "TrainCheckpointer",
     "export_inference", "load_inference",

@@ -9,6 +9,8 @@ Staging is pinned host memory on CUDA, so the native drain writes
 straight into it and one ``non_blocking`` copy ships it; a staging slot
 is reused only after the event recorded behind the work that read it.
 """
+import contextlib
+
 import torch
 
 
@@ -58,3 +60,18 @@ def record_event(device: torch.device):
 def wait_event(event) -> None:
     if event is not None:
         event.synchronize()
+
+
+@contextlib.contextmanager
+def kernel_device(device: torch.device):
+    """The guard around a call into a kernel library (``_build.load``):
+    `device` current, and its context bound to the calling thread through
+    torch's CUDA runtime. The libraries link the CUDA runtime statically;
+    on a thread whose first CUDA call was theirs, after a CUDA graph had
+    been captured anywhere in the process, every launch failed with
+    cudaErrorInvalidValue (an autograd worker thread's first backward,
+    on an H100 with torch 2.11); ``torch.cuda.set_device`` binds the
+    context first."""
+    with torch.cuda.device(device):
+        torch.cuda.set_device(device)
+        yield

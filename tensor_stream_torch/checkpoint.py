@@ -36,6 +36,12 @@ checkpoint's raises; nothing is swapped for new storage.
 Layout: ``<directory>/<step>/`` holds ``state/`` (the DCP files),
 ``tree.json`` (the tree) and ``loader.json`` (the cursor, when given). A
 step is written under a temporary name and renamed into place whole.
+
+On a mesh (a process group is initialized) every rank calls ``save`` and
+``restore``: DCP writes each rank's shards of DTensor leaves once, and
+restores them into the template's placements, which may be another
+mesh's (a reshard); rank 0 alone makes, renames and prunes the
+directories, between barriers.
 """
 import json
 import os
@@ -56,11 +62,25 @@ def _dcp(call, state, path):
     """``dcp.save`` or ``dcp.load`` of a flat state at `path`; without a
     process group it runs in this process alone (DCP warns of that on
     every call, which says nothing here)."""
-    single = not (dist.is_available() and dist.is_initialized())
+    single = not _distributed()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="torch.distributed is "
                                 "disabled")
         call(state, checkpoint_id=path, no_dist=single)
+
+
+def _distributed():
+    return dist.is_available() and dist.is_initialized()
+
+
+def _barrier():
+    if _distributed():
+        dist.barrier()
+
+
+def _lead():
+    """Whether this process manages the checkpoint's directories."""
+    return not _distributed() or dist.get_rank() == 0
 
 
 def _make_state(optimizer: torch.optim.Optimizer) -> None:
@@ -243,23 +263,29 @@ class TrainCheckpointer:
         saved. ``force`` is accepted for the JAX package's signature: every
         call writes (there is no save interval)."""
         step = int(step)
-        if step in self.all_steps():
+        saved = step in self.all_steps()
+        _barrier()          # every rank has seen the steps before writing
+        if saved:
             return False
         flat = {}
         spec = _flatten(state, "", flat)
         tmp = os.path.join(self.directory, f".{step}.tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        if _lead():
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        _barrier()
         _dcp(dcp.save, flat, os.path.join(tmp, "state"))
-        with open(os.path.join(tmp, "tree.json"), "w") as f:
-            json.dump(spec, f)
-        if loader_state is not None:
-            with open(os.path.join(tmp, "loader.json"), "w") as f:
-                json.dump(loader_state, f)
-        os.rename(tmp, self._step_dir(step))
-        if self.max_to_keep is not None:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                shutil.rmtree(self._step_dir(old))
+        if _lead():
+            with open(os.path.join(tmp, "tree.json"), "w") as f:
+                json.dump(spec, f)
+            if loader_state is not None:
+                with open(os.path.join(tmp, "loader.json"), "w") as f:
+                    json.dump(loader_state, f)
+            os.rename(tmp, self._step_dir(step))
+            if self.max_to_keep is not None:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    shutil.rmtree(self._step_dir(old))
+        _barrier()
         return True
 
     def restore(self, step: Optional[int] = None, template: Any = None,

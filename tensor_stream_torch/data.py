@@ -1,11 +1,13 @@
 """FrameLoader: a prefetching iterator from a video stream to device batches;
 ClipLoader and ClipDataset: shuffled fixed-length clips from one file or a
-corpus, for training video models; MultiStreamLoader: several
+corpus, for training video models; ShardedClipLoader, ShardedClipDataset
+and ShardedStreamLoader: the same over the ranks of a "dp" mesh, one
+process a rank, each batch one DTensor; MultiStreamLoader: several
 FrameLoaders stacked into one batch a tick; PooledStreamLoader: many
 streams on one native worker pool, one flat staging buffer and one VPP
 dispatch a tick.
 
-Port of the JAX package's ``data.py:53-1130`` and ``:1399-1679``. Decode
+Port of the JAX package's ``data.py``. Decode
 runs in native producer threads, the drain (plus the optional native host
 resize) in a loader thread, both outside the GIL; the caller's thread
 only ships each filled pinned staging buffer to the device in one
@@ -519,9 +521,12 @@ class _ClipLoaderBase:
             self._destroy_handle()
             raise
 
-    def _start(self, epoch, start_clip):
-        self._vpp = self._build_vpp(self._cfg, self.batch)
-        size = self.batch * self.clip_len * self._w * self._h * 3 // 2
+    def _start(self, epoch, start_clip, clips=None):
+        """Starts the fill thread; `clips` is what a staging buffer and the
+        VPP hold (default the batch; a sharded loader's rank share)."""
+        self._clips = self.batch if clips is None else int(clips)
+        self._vpp = self._build_vpp(self._cfg, self._clips)
+        size = self._clips * self.clip_len * self._w * self._h * 3 // 2
         self._closed = False
         self.epoch = int(epoch)
         self._cursor = int(start_clip)  # clip index within the epoch order
@@ -638,10 +643,10 @@ class _ClipLoaderBase:
             tensors = self._vpp(flat, aug_ids)
         else:
             tensors = self._vpp(flat)
-            tensors = tensors.reshape((self.batch, self.clip_len)
+            tensors = tensors.reshape((self._clips, self.clip_len)
                                       + tuple(tensors.shape[1:]))
         self._pending.append((buf, record_event(self.device)))
-        if got < self.batch:
+        if got < self._clips:
             tensors = tensors[:got]
         if len(self._pending) > self.prefetch:
             old_buf, old_event = self._pending.popleft()
@@ -973,6 +978,255 @@ class ClipDataset(_ClipLoaderBase):
         aug_ids = None if self.augment is None else \
             self._aug_ids(self._consumed[0], ids, self.batch)
         return self._to_device_batch(buf, got, aug_ids), labels
+
+
+def _dp_mesh(mesh, device):
+    """(mesh, this rank's place k on its "dp" axis, the axis size, the
+    device): `mesh` or a 1-D "dp" mesh over the process group."""
+    from .parallel.sharding import make_mesh, mesh_device
+    if mesh is None:
+        mesh = make_mesh(axes=("dp",), device=device)
+    return (mesh, mesh.get_local_rank("dp"), mesh["dp"].size(),
+            mesh_device(mesh))
+
+
+def _global_batch(mesh, local, n):
+    """The ranks' equal shares `local` as one DTensor over "dp" (no copy:
+    the rank's tensor is the DTensor's local shard)."""
+    from torch.distributed.tensor import DTensor
+
+    from .parallel.sharding import spec_placements
+    shape = (n * local.shape[0],) + tuple(local.shape[1:])
+    return DTensor.from_local(local, mesh, spec_placements(mesh, ("dp",)),
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+class _Sharded:
+    """The dp plumbing of the sharded clip loaders, one process a rank:
+    every rank draws the same (seed + epoch) order and decodes only its
+    own `per_device` clips of each global batch (ranks in "dp" order);
+    epoch tails that cannot fill every shard are dropped."""
+
+    def _init_shards(self, per_device, mesh, device):
+        self.mesh, self.rank, self.n_shards, self.device = _dp_mesh(mesh,
+                                                                    device)
+        self.device_index = self.device.index or 0
+        self.per_device = int(per_device)
+        self.batch = self.per_device * self.n_shards
+        self.drop_partial = True
+
+    def _check_shards_fit(self):
+        if self.batch > len(self.starts):
+            raise ValueError(
+                f"global batch {self.batch} (= {self.n_shards} ranks x "
+                f"{self.per_device} clips) exceeds the {len(self.starts)} "
+                "clip starts per epoch — every epoch would yield zero "
+                "batches; lower per_device/clip_step or use fewer ranks")
+
+    def _share(self, ids):
+        k, pd = self.rank, self.per_device
+        return ids[k * pd:(k + 1) * pd]
+
+    def _sharded_next(self):
+        """(global DTensor batch, ids of the whole batch)."""
+        item = self._filled.get()
+        self._check_latched(item)
+        buf, ids, self._consumed = item
+        aug_ids = None if self.augment is None else self._share(
+            self._aug_ids(self._consumed[0], ids, self.batch))
+        local = self._to_device_batch(buf, self.per_device, aug_ids)
+        return _global_batch(self.mesh, local, self.n_shards), ids
+
+
+class ShardedClipLoader(_Sharded, ClipLoader):
+    """Clip batches from one file, sharded over the ranks of a "dp" mesh
+    (data-parallel training). Port of the JAX package's ``data.py:1132``.
+
+        loader = ShardedClipLoader("video.mp4", clip_len=8, per_device=2,
+                                   host_resize=True, width=224, height=224,
+                                   pixel_format=FourCC.RGB24,
+                                   planes_pos=Planes.PLANAR,
+                                   normalization=True)
+        for clips, starts in loader:  # DTensor [ranks*2, 8, ...] over "dp"
+            train_step(clips)
+
+    One process a rank (``mesh``: a mesh with a "dp" axis, default a 1-D
+    one over the initialized process group). Every rank samples the same
+    shuffled epoch, so no clip is duplicated across ranks; each decodes
+    only its own share into its own staging buffer and ships it to its
+    own device, and the global batch is ``DTensor.from_local`` of that
+    share: no further copy. Epochs, ``state()`` and resume are
+    ClipLoader's; ``starts`` are the whole batch's."""
+
+    def __init__(self, stream_url, clip_len, per_device=2, mesh=None,
+                 frame_stride=1, clip_step=None, shuffle=True, seed=0,
+                 workers=2, host_resize=False, decode_threads=0,
+                 fast_decode=False, prefetch=2, epoch=0, start_clip=0,
+                 augment=None, aug_seed=None, device=None, **frame_kwargs):
+        self._init_shards(per_device, mesh, device)
+        self._cfg = self._init_clip_source(
+            stream_url, clip_len, frame_stride, clip_step, shuffle, seed,
+            workers, host_resize, decode_threads, fast_decode, prefetch,
+            frame_kwargs)
+        try:
+            self._init_augment(augment, aug_seed)
+            self._check_shards_fit()
+            self._start(epoch, start_clip, self.per_device)
+        except Exception:
+            self._destroy_handle()
+            raise
+
+    def _fill(self):
+        pd = self.per_device
+        y_size = pd * self.clip_len * self._w * self._h
+        while not self._stop.is_set():
+            if self._epoch_done():
+                continue
+            starts = self._order[self._cursor:self._cursor + self.batch]
+            self._cursor += self.batch
+            meta = (self.epoch, self._cursor)
+            buf = self._pool.get()
+            if buf is None or self._stop.is_set():
+                break
+            sub = np.ascontiguousarray(self._share(starts), np.int64)
+            rc = self._lib.ts_clip_get_batch(
+                self._handle,
+                sub.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), pd,
+                self.clip_len, self.frame_stride, buf.data_ptr(),
+                buf.data_ptr() + y_size)
+            if rc != 0:
+                self._filled.put(
+                    _RENEGOTIATED if rc == _native.TS_RENEGOTIATE
+                    else RuntimeError(f"clip decode failed (code {rc})"))
+                break
+            self._filled.put((buf, starts, meta))
+
+    def __next__(self):
+        """(clips, starts): clips one DTensor [batch, clip_len, ...] over
+        "dp", starts the first frame of each clip of the whole batch."""
+        clips, starts = self._sharded_next()
+        return clips, list(starts)
+
+
+class ShardedClipDataset(_Sharded, ClipDataset):
+    """Globally shuffled clips from many files, sharded over the ranks of
+    a "dp" mesh. Port of the JAX package's ``data.py:1218``: ClipDataset's
+    corpus-wide (seed + epoch) epoch with ShardedClipLoader's one process
+    a rank. Each rank regroups its own share file-contiguous; ``labels``
+    are the (file index, first frame) of the whole batch, the shares in
+    rank order, each regrouped (every rank computes them: the regrouping
+    is deterministic). Augmentation is keyed by the global clip identity,
+    as in ClipDataset."""
+
+    def __init__(self, stream_urls, clip_len, per_device=2, mesh=None,
+                 frame_stride=1, clip_step=None, shuffle=True, seed=0,
+                 workers=2, host_resize=False, decode_threads=0,
+                 fast_decode=False, prefetch=2, epoch=0, start_clip=0,
+                 max_open=4, augment=None, aug_seed=None, device=None,
+                 **frame_kwargs):
+        self._handles = []
+        self._init_shards(per_device, mesh, device)
+        self._cfg = self._init_corpus(
+            stream_urls, clip_len, frame_stride, clip_step, shuffle, seed,
+            workers, host_resize, decode_threads, fast_decode, prefetch,
+            max_open, frame_kwargs)
+        try:
+            self._init_augment(augment, aug_seed)
+            self._check_shards_fit()
+            self._start(epoch, start_clip, self.per_device)
+        except Exception:
+            self._destroy_handle()
+            raise
+
+    def _regrouped(self, ids):
+        return ids[np.argsort(self._file_of[ids], kind="stable")]
+
+    def _fill(self):
+        pd = self.per_device
+        while not self._stop.is_set():
+            if self._epoch_done():
+                continue
+            ids = self._order[self._cursor:self._cursor + self.batch]
+            self._cursor += self.batch
+            meta = (self.epoch, self._cursor)
+            buf = self._pool.get()
+            if buf is None or self._stop.is_set():
+                break
+            _, rc, fi = self._decode_ids_into(self._share(ids), buf, pd)
+            if rc != 0:
+                self._filled.put(
+                    _RENEGOTIATED if rc == _native.TS_RENEGOTIATE
+                    else RuntimeError(f"clip decode failed (code {rc}, "
+                                      f"file {self.stream_urls[fi]})"))
+                break
+            every = np.concatenate([self._regrouped(ids[j * pd:(j + 1) * pd])
+                                    for j in range(self.n_shards)])
+            self._filled.put((buf, every, meta))
+
+    def __next__(self):
+        """(clips, labels): clips one DTensor [batch, clip_len, ...] over
+        "dp", labels the (file index, first frame) of each clip."""
+        clips, ids = self._sharded_next()
+        return clips, [(int(self._file_of[i]), int(self._start_of[i]))
+                       for i in ids]
+
+
+class ShardedStreamLoader:
+    """N streams -> one DTensor batch over the N ranks of a "dp" mesh
+    (data-parallel serving). Port of the JAX package's ``data.py:1303``.
+
+        loader = ShardedStreamLoader([u1, u2, u3, u4], per_stream=8,
+                                     width=224, height=224, ...)
+        for batch, indices in loader:   # DTensor [32, ...] over "dp"
+            logits = model(batch)
+
+    One process a rank: rank k runs stream k's FrameLoader onto its own
+    device, and the batch is ``DTensor.from_local`` of its frames (no
+    copy). ``indices`` holds every stream's frame indices (gathered from
+    the ranks). Iteration ends on every rank when any stream is exhausted;
+    a short final batch ends it too (shards must be equal-sized)."""
+
+    def __init__(self, stream_urls, per_stream=8, mesh=None, device=None,
+                 **kwargs):
+        self.mesh, rank, n, dev = _dp_mesh(mesh, device)
+        if len(stream_urls) != n:
+            raise ValueError(f"{len(stream_urls)} streams need as many "
+                             f"ranks on the 'dp' axis, the mesh has {n}")
+        kwargs.setdefault("drop_partial", True)
+        # Streams at the same frame index draw independent transforms.
+        base_seed = kwargs.pop("aug_seed", None) or 0
+        self.loader = FrameLoader(stream_urls[rank], batch=per_stream,
+                                  aug_seed=base_seed + rank, device=dev,
+                                  **kwargs)
+        self.per_stream, self.n_streams = per_stream, n
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            tensors, idx = next(self.loader)
+        except StopIteration:
+            tensors, idx = None, None
+        every = [None] * self.n_streams
+        torch.distributed.all_gather_object(every, idx,
+                                            group=self.mesh.get_group("dp"))
+        if any(i is None or len(i) != self.per_stream for i in every):
+            raise StopIteration
+        return (_global_batch(self.mesh, tensors, self.n_streams),
+                dict(enumerate(every)))
+
+    def close(self):
+        self.loader.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 class MultiStreamLoader:

@@ -43,7 +43,7 @@ inlines a jitted function). Nothing falls back: a capture or replay that
 fails raises.
 
 The kernels' launch counters (``ops/nv12_rgb.py``, ``ops/resize.py``,
-``ops/flash_attention.py``)
+``ops/flash_attention.py``, and the ring's hops, ``ops/ring_attention.py``)
 move only when Python calls a wrapper. A capture records what its
 wrappers added (``snapshot``, ``difference``), takes it back (nothing ran),
 and each replay adds it again (``add``).
@@ -52,7 +52,7 @@ from typing import Callable, Dict
 
 import torch
 
-from .ops import flash_attention, nv12_rgb, resize
+from .ops import flash_attention, nv12_rgb, resize, ring_attention
 
 # The counters a replay must advance: (module, attribute) pairs, each an
 # int or a dict of ints.
@@ -61,7 +61,9 @@ COUNTERS = tuple(
     + [(resize, name) for name in ("launches", "area_launches_by_variant")]
     + [(flash_attention, name) for name in (
         "launches", "launches_by_mode", "recompute_launches", "bwd_launches",
-        "bwd_launches_by_design", "dout_copies")])
+        "bwd_launches_by_design", "dout_copies")]
+    + [(ring_attention, name) for name in ("launches_by_mode",
+                                           "bwd_launches_by_mode")])
 
 
 def leaves(tree):

@@ -13,6 +13,10 @@ to the device):
   ``time_mlp1/2`` and ``label_embed``;
 * ``moe_state_dict_from_flax``: ``VideoMoE`` (``moe.router`` and the
   stacked ``w1``, ``b1``, ``w2``, ``b2``, kept in flax's (e, ...) layout);
+* ``pp_params_from_flax``: the pipeline's (outer, stage) trees of
+  ``init_pp_params`` (flax's stage leaves stacked [S, L, ...]) -> the
+  port's ``parallel.init_pp_params`` dicts, each block converted as
+  ``vit_state_dict_from_flax`` converts it;
 * ``vae_state_dict_from_flax`` and ``transformer_net_state_dict_from_flax``:
   the convolutional models, whose flax submodules have automatic names
   (``CausalConv3D_0``, ``ResBlock_1``, ``GroupNorm_0``, ``ConvLayer_3``,
@@ -90,6 +94,31 @@ def dit_state_dict_from_flax(params) -> dict:
 def moe_state_dict_from_flax(params) -> dict:
     """flax VideoMoE params -> the port's ``VideoMoE`` state_dict."""
     return vit_state_dict_from_flax(params)
+
+
+def _leaf_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _leaf_map(fn, v) for k, v in tree.items()}
+    return fn(np.asarray(tree))
+
+
+def pp_params_from_flax(outer, stage):
+    """The JAX ``init_pp_params`` trees -> (outer, stage) as the port's
+    ``parallel.init_pp_params`` returns them: outer {name: tensor} of the
+    embedding and head, stage {block-relative name: [S, L, ...] tensor}."""
+    inner = _inner(stage)
+    first = inner
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    n_stages, per = np.asarray(first).shape[:2]
+    blocks = [[vit_state_dict_from_flax(
+        {"block0": _leaf_map(lambda x: x[s, i], inner)})
+        for i in range(per)] for s in range(n_stages)]
+    prefix = len("blocks.0.")
+    stacked = {name[prefix:]: torch.stack([torch.stack(
+        [blocks[s][i][name] for i in range(per)]) for s in range(n_stages)])
+        for name in blocks[0][0]}
+    return vit_state_dict_from_flax(outer), stacked
 
 
 _AUTO_NAME = re.compile(r"^(\w+)_(\d+)$")

@@ -24,8 +24,11 @@ Port of the JAX package's ``models/latent_diffusion.py``:
   ``(1 + w)·ε(y) − w·ε(∅)``; ``make_ddim_sampler`` replays the whole n-step
   loop as one CUDA graph, the counterpart of the reference's ``lax.scan``.
 
-Left out here: the ring (context-parallel) attention options and the mesh
-of the train steps (ROADMAP.md, the parallel slice).
+Meshes: ``ring_axis``/``mesh`` ring the spatial attention (video_vit.MHA,
+``ops/ring_attention.py``); the train steps take ``mesh=`` (data
+parallel: each rank draws the global batch's t, ε and dropout mask from
+the step's generator, seeded alike on every rank, and runs the model on
+its share of the batch; the gradients are averaged over "dp").
 """
 import math
 from typing import Optional
@@ -115,11 +118,11 @@ class DiTBlock(nn.Module):
     the MLP, each behind a modulated non-affine LayerNorm and gated."""
 
     def __init__(self, dim, num_heads, hidden_mult, compute_dtype,
-                 init: _Init):
+                 init: _Init, **ring):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.adaLN = Dense(dim, 9 * dim, torch.float32, init, zero_init=True)
-        self.attn_s = MHA(dim, num_heads, compute_dtype, init)
+        self.attn_s = MHA(dim, num_heads, compute_dtype, init, **ring)
         self.attn_t = MHA(dim, num_heads, compute_dtype, init)
         self.fc1 = Dense(dim, hidden_mult * dim, compute_dtype, init)
         self.fc2 = Dense(hidden_mult * dim, dim, compute_dtype, init)
@@ -142,13 +145,17 @@ class VideoDiT(nn.Module):
     (T', h', w', Cz): the positional tables are sized at construction, as
     the flax module sizes them from its first input). ``forward(z, t, y)``
     takes timesteps t [B] and, where ``num_classes`` > 0, labels y [B]
-    (``num_classes`` is the NULL class)."""
+    (``num_classes`` is the NULL class). ``ring_axis``, ``mesh``,
+    ``ring_batch_axis`` and ``ring_head_axis`` ring the spatial attention
+    (video_vit.MHA's)."""
 
     def __init__(self, latent_shape, depth=4, dim=192, num_heads=3,
                  hidden_mult=4, patch=1, tubelet_t=1,
                  compute_dtype=torch.bfloat16, remat=False,
                  conditioning="adaln", num_classes=0, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ring_axis=None, mesh=None, ring_batch_axis="dp",
+                 ring_head_axis=None):
         super().__init__()
         if patch != 1 or tubelet_t != 1:
             raise ValueError("the linear head writes one latent pixel a "
@@ -175,12 +182,16 @@ class VideoDiT(nn.Module):
             self.label_embed = nn.Embedding(
                 num_classes + 1, dim,
                 _weight=init.normal((num_classes + 1, dim), dim ** -0.5))
+        ring = {} if ring_axis is None else dict(
+            ring_axis=ring_axis, mesh=mesh, ring_batch_axis=ring_batch_axis,
+            ring_head_axis=ring_head_axis)
+        self.ringed = ring_axis is not None
         if conditioning == "adaln":
             blocks = [DiTBlock(dim, num_heads, hidden_mult, compute_dtype,
-                               init) for _ in range(depth)]
+                               init, **ring) for _ in range(depth)]
         else:
             blocks = [FactorizedBlock(dim, num_heads, hidden_mult,
-                                      compute_dtype, init)
+                                      compute_dtype, init, **ring)
                       for _ in range(depth)]
         self.blocks = nn.ModuleList(blocks)
         self.ln_f = LayerNorm(dim, init)
@@ -231,16 +242,31 @@ def diffusion_loss(model: VideoDiT, schedule: DiffusionSchedule, latents, t,
     return ((model(xt, t, y) - noise) ** 2).mean()
 
 
-def _make_train_step(model, schedule, optimizer, label_dropout, generator):
+def _make_train_step(model, schedule, optimizer, label_dropout, generator,
+                     mesh):
     gen = generator if generator is not None else step_generator(
         model.device)
+    if mesh is not None:
+        from ..parallel.sharding import (gathered_params, local_batch,
+                                         local_module, mean_over,
+                                         shard_params)
+        if model.ringed:
+            raise ValueError("the data-parallel step runs the model on each "
+                             "rank's batch; build it without ring_axis")
+        shard_params(model, mesh, {}, optimizer)
 
     def update(latents, t, noise, y):
-        loss = diffusion_loss(model, schedule, latents, t, noise, y)
+        if mesh is None:
+            loss = diffusion_loss(model, schedule, latents, t, noise, y)
+        else:
+            local = local_module(model, gathered_params(model, mesh))
+            loss = diffusion_loss(local, schedule,
+                                  *local_batch(mesh, latents, t, noise, y))
         loss.backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return loss.detach()
+        return loss.detach() if mesh is None else mean_over(loss.detach(),
+                                                            mesh)
 
     if label_dropout is None:
         def step(latents):
@@ -257,28 +283,31 @@ def _make_train_step(model, schedule, optimizer, label_dropout, generator):
 
 def make_diffusion_train_step(model: VideoDiT, schedule: DiffusionSchedule,
                               optimizer: torch.optim.Optimizer,
-                              generator: Optional[torch.Generator] = None):
-    """The JAX ``make_diffusion_train_step`` on one device, without its
-    mesh: step(latents) -> loss (0-d, on the device), after one `optimizer`
-    step on ``diffusion_loss`` at t and ε drawn on the device from
-    `generator` (default: one of the model's device, seeded 0). Replayed as
-    a CUDA graph on the card (``_train.py``); ``step.graphed.fn`` is the
-    same step, eager."""
-    return _make_train_step(model, schedule, optimizer, None, generator)
+                              generator: Optional[torch.Generator] = None,
+                              mesh=None):
+    """The JAX ``make_diffusion_train_step``: step(latents) -> loss (0-d,
+    on the device), after one `optimizer` step on ``diffusion_loss`` at t
+    and ε drawn on the device from `generator` (default: one of the
+    model's device, seeded 0). With `mesh` the step is data parallel over
+    "dp" (latents: a DTensor, or the whole batch on every rank) and the
+    loss is the global batch's. Replayed as a CUDA graph on the card
+    (``_train.py``); ``step.graphed.fn`` is the same step, eager."""
+    return _make_train_step(model, schedule, optimizer, None, generator,
+                            mesh)
 
 
 def make_conditional_diffusion_train_step(
         model: VideoDiT, schedule: DiffusionSchedule,
         optimizer: torch.optim.Optimizer, label_dropout: float = 0.1,
-        generator: Optional[torch.Generator] = None):
+        generator: Optional[torch.Generator] = None, mesh=None):
     """The class-conditional step: step(latents, labels) -> loss, where
     `label_dropout` of the labels become the NULL class (drawn on the
     device each step), so that the model also learns the unconditional
-    prediction that CFG needs."""
+    prediction that CFG needs. `mesh` as for the unconditional step."""
     if not model.num_classes:
         raise ValueError("a conditional step needs a model with num_classes")
     return _make_train_step(model, schedule, optimizer, float(label_dropout),
-                            generator)
+                            generator, mesh)
 
 
 # --------------------------------------------------------------- sampling

@@ -19,8 +19,11 @@ static-shape GShard/Switch formulation, nothing data-dependent in shape:
 
 Nothing in the forward or the train step syncs with the host (no
 ``nonzero``, no ``item``), so the step replays as one CUDA graph
-(``_train.py``). Left out: ``moe_param_specs`` and the ``ep`` mesh of
-``make_moe_train_step`` (ROADMAP.md, the parallel slice).
+(``_train.py``). ``moe_param_specs`` lays the expert weights out on their
+expert axis over "ep"; ``make_moe_train_step(..., mesh=...)`` is the
+("dp", "ep") step: the clips over "dp", the experts stored over "ep" and
+gathered whole for the step (an all-gather; their gradients go back
+averaged over "dp" and sliced over "ep").
 """
 import math
 from typing import Optional
@@ -173,15 +176,47 @@ def moe_loss(model: VideoMoE, clips, flip_mask):
     return ce + aux, acc, aux
 
 
-def make_moe_train_step(model: VideoMoE, optimizer: torch.optim.Optimizer):
-    """The JAX ``make_moe_train_step`` on one device, without its ep mesh:
-    step(clips, flip_mask) -> (loss, acc, aux), 0-d device tensors, after
-    one `optimizer` step on ``moe_loss``. Replayed as a CUDA graph on the
-    card (``_train.py``); ``step.graphed.fn`` is the same step, eager."""
+def moe_param_specs(model: VideoMoE, ep_axis: str = "ep") -> dict:
+    """{parameter name: JAX-style spec}: the experts' stacked weights
+    (``w1``, ``b1``, ``w2``, ``b2``) over `ep_axis` on their leading
+    expert axis, everything else replicated."""
+    specs = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        specs[name] = ((ep_axis,) + (None,) * (p.ndim - 1)
+                       if "moe" in parts and parts[-1] in ("w1", "b1", "w2",
+                                                           "b2") else ())
+    return specs
+
+
+def make_moe_train_step(model: VideoMoE, optimizer: torch.optim.Optimizer,
+                        mesh=None, ep_axis: str = "ep"):
+    """The JAX ``make_moe_train_step``: step(clips, flip_mask) -> (loss,
+    acc, aux), 0-d device tensors, after one `optimizer` step on
+    ``moe_loss``. With `mesh` (axes "dp" and `ep_axis`) the parameters
+    are laid out by ``moe_param_specs`` (the optimizer pointed at them; it
+    must have no state yet), the clips (DTensors, or the whole batch on
+    every rank) are sharded over "dp", and the three results are the
+    global batch's. Replayed as a CUDA graph on the card (``_train.py``);
+    ``step.graphed.fn`` is the same step, eager."""
+    if mesh is not None:
+        from ..parallel.sharding import (gathered_params, local_batch,
+                                         local_module, mean_over,
+                                         shard_params)
+        shard_params(model, mesh, moe_param_specs(model, ep_axis), optimizer)
+
     def step(clips, flip_mask):
-        loss, acc, aux = moe_loss(model, clips, flip_mask)
+        if mesh is None:
+            loss, acc, aux = moe_loss(model, clips, flip_mask)
+        else:
+            local = local_module(model, gathered_params(model, mesh))
+            loss, acc, aux = moe_loss(local, *local_batch(mesh, clips,
+                                                          flip_mask))
         loss.backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return loss.detach(), acc, aux.detach()
+        out = (loss.detach(), acc, aux.detach())
+        if mesh is not None:
+            out = tuple(mean_over(x, mesh) for x in out)
+        return out
     return graphed_train_step(step, optimizer, model.device)

@@ -24,9 +24,9 @@ The reference's numerics, written out by hand:
   ``torch.Generator`` or passed in (``noise``), in the latents' layout
   [B, T', H', W', latent].
 
-``make_vae_train_step`` is the JAX step without its mesh, replayed as a
-CUDA graph on the card (``_train.py``), drawing its noise on the device
-from a generator the step owns.
+``make_vae_train_step`` is the JAX step, replayed as a CUDA graph on the
+card (``_train.py``), drawing its noise on the device from a generator the
+step owns; with ``mesh=`` it is data parallel over "dp".
 """
 from typing import Optional, Tuple
 
@@ -214,21 +214,42 @@ def vae_loss(recon, clips, mean, logvar, kl_weight=1e-4):
 
 def make_vae_train_step(model: VideoVAE, optimizer: torch.optim.Optimizer,
                         kl_weight=1e-4,
-                        generator: Optional[torch.Generator] = None):
-    """The JAX ``make_vae_train_step`` on one device, without its mesh:
-    returns step(clips) -> (loss, rec, kl), 0-d device tensors, after one
-    `optimizer` step on the gradients of ``vae_loss``. The noise is drawn
-    on the device from `generator` (default: a generator of the model's
-    device seeded 0), which the step's CUDA graph registers; on CUDA
-    ``step.graphed.fn`` is the same step, eager."""
+                        generator: Optional[torch.Generator] = None,
+                        mesh=None):
+    """The JAX ``make_vae_train_step``: returns step(clips) -> (loss, rec,
+    kl), 0-d device tensors, after one `optimizer` step on the gradients of
+    ``vae_loss``. The noise is drawn on the device from `generator`
+    (default: a generator of the model's device seeded 0), which the
+    step's CUDA graph registers; on CUDA ``step.graphed.fn`` is the same
+    step, eager. With `mesh` the step is data parallel over "dp" (clips: a
+    DTensor, or the whole batch on every rank): every rank draws the
+    global batch's noise and runs the model on its share; the losses are
+    the global batch's."""
     gen = generator if generator is not None else step_generator(
         model.device)
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+        shard_params(model, mesh, {}, optimizer)
 
     def step(clips):
-        recon, mean, logvar = model(clips, generator=gen)
+        if mesh is None:
+            recon, mean, logvar = model(clips, generator=gen)
+        else:
+            from ..parallel.sharding import (gathered_params, local_batch,
+                                             local_module)
+            b, t, h, w, _ = clips.shape
+            noise = torch.randn((b, t // 2, h // 4, w // 4, model.latent),
+                                generator=gen, device=model.device)
+            clips, noise = local_batch(mesh, clips, noise)
+            local = local_module(model, gathered_params(model, mesh))
+            recon, mean, logvar = local(clips, noise)
         loss, (rec, kl) = vae_loss(recon, clips, mean, logvar, kl_weight)
         loss.backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return loss.detach(), rec.detach(), kl.detach()
+        out = (loss.detach(), rec.detach(), kl.detach())
+        if mesh is not None:
+            from ..parallel.sharding import mean_over
+            out = tuple(mean_over(x, mesh) for x in out)
+        return out
     return graphed_train_step(step, optimizer, model.device, (gen,))

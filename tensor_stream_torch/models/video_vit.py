@@ -25,12 +25,21 @@ parity come from the JAX package through ``models/convert.py``).
 Training: ``remat=True`` runs each block under ``torch.utils.checkpoint``
 (non-reentrant) when grad is enabled, as the flax module wraps its blocks
 in ``nn.remat``; ``init_vit`` re-draws a model's parameters from a
-generator; ``make_vit_train_step`` is the JAX step without its mesh (the
-arrow-of-time task, its loss and accuracy, then the optimizer), replayed
-as a CUDA graph on the card. Left out here: ring attention
-(``ring_axis``/``mesh``), ``act_sharding``, ``vit_param_specs``,
-``make_act_sharding`` and the mesh of ``make_vit_train_step`` (ROADMAP.md,
-the parallel slice).
+generator; ``make_vit_train_step`` is the JAX step (the arrow-of-time
+task, its loss and accuracy, then the optimizer), replayed as a CUDA graph
+on the card.
+
+Meshes (``parallel/sharding.py``): ``ring_axis``/``mesh`` route attention
+through ring attention (``ops/ring_attention.py``: the token axis stays
+sharded over that mesh axis, the flash kernel at each hop; the spatial
+attention of a factorized block, every attention of a joint one);
+``act_sharding`` (``make_act_sharding``) pins the residual stream's layout
+after every sub-layer; ``vit_param_specs`` is the Megatron layout (q/k/v
+and fc1 over heads / hidden, out and fc2 over their inputs), and
+``make_vit_train_step(..., mesh=...)`` lays the parameters out by it and
+steps on DTensors: dp shards the clips, tp the heads, whose attention
+launches the kernel on each rank's heads (the ``ts`` operators' sharding
+rules, ``parallel/_rules.py``).
 """
 from typing import Optional, Tuple
 
@@ -121,11 +130,19 @@ class MHA(nn.Module):
     kernel on the card; ``flash_impl`` as there); otherwise logits are
     materialized (f32, -inf masking, as the JAX module's own branch).
     ``num_kv_heads`` < ``num_heads`` is GQA; ``window`` the sliding window
-    (causal: last W positions; else the band |i-j| < W)."""
+    (causal: last W positions; else the band |i-j| < W).
+
+    ``ring_axis``/``mesh``: ring attention over the token axis sharded on
+    that mesh axis (the batch on ``ring_batch_axis``, the heads on
+    ``ring_head_axis`` when tp shards them). On DTensors the output comes
+    back in the layout of the projections (no collective when the tokens
+    already lie on the ring's axis); plain tensors are taken as the whole
+    arrays (the same on every rank) and the output is gathered whole."""
 
     def __init__(self, dim, num_heads, compute_dtype, init: _Init,
                  causal=False, use_flash=False, flash_impl="auto",
-                 num_kv_heads=None, window=None):
+                 num_kv_heads=None, window=None, ring_axis=None, mesh=None,
+                 ring_batch_axis="dp", ring_head_axis=None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} must be a multiple of num_heads "
@@ -139,6 +156,15 @@ class MHA(nn.Module):
         self.compute_dtype = compute_dtype
         self.causal, self.window = causal, window
         self.use_flash, self.flash_impl = use_flash, flash_impl
+        if ring_axis is not None:
+            if kv_heads != num_heads:
+                raise ValueError("ring attention does not compose with "
+                                 "num_kv_heads")
+            if mesh is None:
+                raise ValueError("ring_axis needs the mesh")
+        self.ring_axis, self.mesh = ring_axis, mesh
+        self.ring_batch_axis, self.ring_head_axis = (ring_batch_axis,
+                                                     ring_head_axis)
         dh = self.head_dim
         self.query = Dense(dim, num_heads * dh, compute_dtype, init)
         self.key = Dense(dim, kv_heads * dh, compute_dtype, init)
@@ -158,7 +184,9 @@ class MHA(nn.Module):
         k = self.key(x).reshape(-1, s, self.kv_heads, dh)
         v = self.value(x).reshape(-1, s, self.kv_heads, dh)
         scale = dh ** -0.5
-        if use_flash:
+        if self.ring_axis is not None:
+            o = self._ring(x, q, k, v, causal, window, scale)
+        elif use_flash:
             # [N, S, H, dh] -> [N, H, S, dh] views: the kernel takes the
             # strides, and its output transposes back without a copy.
             o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -179,6 +207,34 @@ class MHA(nn.Module):
             o = torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
         return self.out(o.reshape(*lead, s, self.num_heads * dh))
 
+    def _ring(self, x, q, k, v, causal, window, scale):
+        from torch.distributed.tensor import DTensor
+
+        from ..ops.ring_attention import ring_attention_sharded
+        from ..parallel.sharding import as_dtensor
+        mesh = self.mesh
+        ring = mesh[self.ring_axis].size()
+        if x.shape[-2] % ring:
+            raise ValueError(f"token axis {x.shape[-2]} must divide the ring "
+                             f"size {ring} ({self.ring_axis!r})")
+        for axis, n, what in ((self.ring_batch_axis, x.shape[0], "batch"),
+                              (self.ring_head_axis, self.num_heads,
+                               "num_heads")):
+            if axis is not None and n % mesh[axis].size():
+                raise ValueError(f"{what} {n} must divide mesh axis {axis!r}="
+                                 f"{mesh[axis].size()}")
+        qt = q.transpose(1, 2)
+        o = ring_attention_sharded(
+            mesh, qt, k.transpose(1, 2), v.transpose(1, 2),
+            seq_axis=self.ring_axis, batch_axis=self.ring_batch_axis,
+            head_axis=self.ring_head_axis, causal=causal, window=window,
+            sm_scale=scale, impl=self.flash_impl)
+        if not isinstance(q, DTensor):
+            return o.full_tensor().transpose(1, 2)
+        # Back in the layout the projections gave (a no-op when the
+        # residual stream's tokens are already on the ring's axis).
+        return as_dtensor(o, mesh, qt.placements).transpose(1, 2)
+
 
 class MLP(nn.Module):
     def __init__(self, dim, hidden_mult, compute_dtype, init: _Init):
@@ -193,52 +249,61 @@ class MLP(nn.Module):
 class FactorizedBlock(nn.Module):
     """Pre-LN block over [B, T, N, D]: spatial attention (within a frame),
     temporal attention (across frames; ``causal``/``temporal_window``),
-    then the MLP. ``spatial_window`` bands the spatial token axis."""
+    then the MLP. ``spatial_window`` bands the spatial token axis; the
+    ``ring`` options (MHA's) ring the spatial attention; ``act_sharding``
+    pins the residual stream after every sub-layer."""
 
     def __init__(self, dim, num_heads, hidden_mult, compute_dtype,
                  init: _Init, causal=False, use_flash=False,
                  flash_impl="auto", num_kv_heads=None, temporal_window=None,
-                 spatial_window=None):
+                 spatial_window=None, act_sharding=None, **ring):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.act_sharding = act_sharding
         mha = dict(dim=dim, num_heads=num_heads, compute_dtype=compute_dtype,
                    init=init, use_flash=use_flash, flash_impl=flash_impl,
                    num_kv_heads=num_kv_heads)
         self.ln_s = LayerNorm(dim, init)
-        self.attn_s = MHA(window=spatial_window, **mha)
+        self.attn_s = MHA(window=spatial_window, **mha, **ring)
         self.ln_t = LayerNorm(dim, init)
         self.attn_t = MHA(causal=causal, window=temporal_window, **mha)
         self.ln_m = LayerNorm(dim, init)
         self.mlp = MLP(dim, hidden_mult, compute_dtype, init)
 
+    def _pin(self, x):
+        return x if self.act_sharding is None else self.act_sharding(x)
+
     def forward(self, x):
         cd = self.compute_dtype
-        x = x + self.attn_s(self.ln_s(x).to(cd)).to(x.dtype)
+        x = self._pin(x + self.attn_s(self.ln_s(x).to(cd)).to(x.dtype))
         y = self.attn_t(self.ln_t(x).to(cd).transpose(1, 2))
-        x = x + y.transpose(1, 2).to(x.dtype)
-        return x + self.mlp(self.ln_m(x).to(cd)).to(x.dtype)
+        x = self._pin(x + y.transpose(1, 2).to(x.dtype))
+        return self._pin(x + self.mlp(self.ln_m(x).to(cd)).to(x.dtype))
 
 
 class JointBlock(nn.Module):
     """Pre-LN joint space-time block over [B, S, D]: attention over all
-    tokens at once, then the MLP."""
+    tokens at once (ringed with the ``ring`` options), then the MLP."""
 
     def __init__(self, dim, num_heads, hidden_mult, compute_dtype,
                  init: _Init, use_flash=False, flash_impl="auto",
-                 num_kv_heads=None):
+                 num_kv_heads=None, act_sharding=None, **ring):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.act_sharding = act_sharding
         self.ln_a = LayerNorm(dim, init)
         self.attn = MHA(dim, num_heads, compute_dtype, init,
                         use_flash=use_flash, flash_impl=flash_impl,
-                        num_kv_heads=num_kv_heads)
+                        num_kv_heads=num_kv_heads, **ring)
         self.ln_m = LayerNorm(dim, init)
         self.mlp = MLP(dim, hidden_mult, compute_dtype, init)
 
+    _pin = FactorizedBlock._pin
+
     def forward(self, x):
         cd = self.compute_dtype
-        x = x + self.attn(self.ln_a(x).to(cd)).to(x.dtype)
-        return x + self.mlp(self.ln_m(x).to(cd)).to(x.dtype)
+        x = self._pin(x + self.attn(self.ln_a(x).to(cd)).to(x.dtype))
+        return self._pin(x + self.mlp(self.ln_m(x).to(cd)).to(x.dtype))
 
 
 def tubelet_tokens(m, clips):
@@ -279,7 +344,9 @@ class VideoViT(nn.Module):
                  spatial_window=None, residual_dtype=torch.float32,
                  attention="factorized", frames=16, size=224, channels=3,
                  remat=False, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 act_sharding=None, ring_axis=None, mesh=None,
+                 ring_batch_axis="dp", ring_head_axis=None):
         super().__init__()
         if attention not in ("factorized", "joint"):
             raise ValueError(f"attention must be 'factorized' or 'joint': "
@@ -304,6 +371,7 @@ class VideoViT(nn.Module):
         self.size = (height, width)
         self.patch, self.tubelet_t = patch, tubelet_t
         self.compute_dtype, self.residual_dtype = compute_dtype, residual_dtype
+        self.act_sharding = act_sharding
         fan_in = tubelet_t * patch * patch * channels
         self.tubelet = Dense(fan_in, dim, compute_dtype, init)
         self.pos_spatial = init.normal(
@@ -312,7 +380,11 @@ class VideoViT(nn.Module):
         common = dict(dim=dim, num_heads=num_heads, hidden_mult=hidden_mult,
                       compute_dtype=compute_dtype, init=init,
                       use_flash=use_flash, flash_impl=flash_impl,
-                      num_kv_heads=num_kv_heads)
+                      num_kv_heads=num_kv_heads, act_sharding=act_sharding)
+        if ring_axis is not None:
+            common.update(ring_axis=ring_axis, mesh=mesh,
+                          ring_batch_axis=ring_batch_axis,
+                          ring_head_axis=ring_head_axis)
         if joint:
             blocks = [JointBlock(**common) for _ in range(depth)]
         else:
@@ -329,6 +401,8 @@ class VideoViT(nn.Module):
         if self.joint:
             b, tt, n, d = x.shape
             x = x.reshape(b, tt * n, d)
+        if self.act_sharding is not None:
+            x = self.act_sharding(x)
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
@@ -401,37 +475,133 @@ def init_vit(generator: torch.Generator, model: VideoViT,
     return model.state_dict()
 
 
-def vit_loss(model: VideoViT, clips: torch.Tensor, flip_mask: torch.Tensor):
-    """The JAX step's task and ``loss_fn``: clips [B, T, H, W, C] whose
-    `flip_mask` [B] (bool) is set are time-reversed on the device, the mask
-    is the label; returns (loss, acc) as 0-d device tensors, loss =
-    -mean(log_softmax(logits)[label]), acc = mean(argmax == label)."""
-    x = torch.where(flip_mask[:, None, None, None, None], clips.flip(1),
-                    clips)
-    labels = flip_mask.long()
-    logits = model(x)
+def flip_clips(clips, flip_mask):
+    """The arrow-of-time task's input: the clips whose `flip_mask` [B]
+    (bool) is set, time-reversed."""
+    return torch.where(flip_mask[:, None, None, None, None], clips.flip(1),
+                       clips)
+
+
+def loss_and_accuracy(logits, labels):
+    """-mean(log_softmax(logits)[label]) and mean(argmax == label)."""
     loss = -torch.take_along_dim(torch.log_softmax(logits, dim=-1),
                                  labels[:, None], dim=1).mean()
     acc = (logits.argmax(-1) == labels).float().mean()
     return loss, acc
 
 
-def make_vit_train_step(model: VideoViT, optimizer: torch.optim.Optimizer):
-    """The JAX ``make_vit_train_step`` on one device, without its mesh:
-    returns step(clips, flip_mask) -> (loss, acc), which takes the
-    gradients of ``vit_loss``, applies `optimizer` and clears the
-    gradients, updating `model` and `optimizer` in place. Nothing in it
-    waits for the device: loss and acc come back as 0-d device tensors.
+def vit_loss(model: VideoViT, clips: torch.Tensor, flip_mask: torch.Tensor):
+    """The JAX step's task and ``loss_fn``: clips [B, T, H, W, C] whose
+    `flip_mask` [B] (bool) is set are time-reversed on the device, the mask
+    is the label; returns (loss, acc) as 0-d device tensors, loss =
+    -mean(log_softmax(logits)[label]), acc = mean(argmax == label)."""
+    return loss_and_accuracy(model(flip_clips(clips, flip_mask)),
+                             flip_mask.long())
+
+
+def vit_param_specs(model: nn.Module, tp_axis: str = "mp", mesh=None) -> dict:
+    """The Megatron layout, {parameter name: JAX-style spec} (the JAX
+    ``vit_param_specs`` on the port's [out, in] weights): q/k/v weights
+    and biases over heads (their output rows) on `tp_axis`, the output
+    projection over its input; fc1 over the hidden units, fc2 over its
+    input (its bias replicated); everything else replicated.
+
+    With `mesh` the head counts are checked up front: under GQA/MQA the
+    key/value heads are ``num_kv_heads``, and a tp axis they do not divide
+    raises a ValueError naming the counts."""
+    tp = None
+    if mesh is not None and tp_axis in mesh.mesh_dim_names:
+        tp = mesh[tp_axis].size()
+    specs = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        leaf = parts[-1]
+        spec = ()
+        proj = next((n for n in parts if n in ("query", "key", "value")),
+                    None)
+        if proj is not None:
+            owner = model.get_submodule(".".join(parts[:parts.index(proj)]))
+            heads = owner.num_heads if proj == "query" else owner.kv_heads
+            if tp and heads % tp:
+                raise ValueError(
+                    f"{proj} projection has {heads} heads (num_kv_heads for "
+                    f"key/value under GQA/MQA), not divisible by mesh axis "
+                    f"'{tp_axis}' of size {tp}; pick num_kv_heads as a "
+                    f"multiple of the tp axis size, or shrink the tp axis.")
+            spec = (tp_axis, None) if leaf == "weight" else (tp_axis,)
+        elif "out" in parts and leaf == "weight":
+            spec = (None, tp_axis)
+        elif "fc1" in parts:
+            spec = (tp_axis, None) if leaf == "weight" else (tp_axis,)
+        elif "fc2" in parts and leaf == "weight":
+            spec = (None, tp_axis)
+        specs[name] = spec
+    return specs
+
+
+def make_act_sharding(mesh, seq_axis: Optional[str], joint: bool = False):
+    """The residual-stream pin: [B, T, N, D] with the batch on "dp" and
+    the spatial tokens on `seq_axis` (sequence parallelism), or with
+    ``joint`` the flat [B, S, D] stream with S on `seq_axis`. Returns
+    pin(x) -> x redistributed so (``with_sharding_constraint``)."""
+    from ..parallel.sharding import distribute
+    spec = ("dp", seq_axis, None) if joint else ("dp", None, seq_axis, None)
+
+    def pin(x):
+        return distribute(x, mesh, spec)
+    return pin
+
+
+def make_vit_train_step(model: VideoViT, optimizer: torch.optim.Optimizer,
+                        mesh=None, tp_axis: str = "mp"):
+    """The JAX ``make_vit_train_step``: returns step(clips, flip_mask) ->
+    (loss, acc), which takes the gradients of ``vit_loss``, applies
+    `optimizer` and clears the gradients, updating `model` and `optimizer`
+    in place. Nothing in it waits for the device: loss and acc come back
+    as 0-d device tensors.
+
+    With `mesh` (``parallel.make_mesh``) the model's parameters are laid
+    out by ``vit_param_specs`` on `tp_axis` (replaced by DTensor
+    parameters, the optimizer pointed at them; it must have no state
+    yet), the clips and mask (DTensors, or the whole batch on every rank)
+    are sharded over "dp", and the model runs on DTensors (the flip and
+    the loss on each rank's share); loss and acc are the global batch's,
+    the same on every rank.
 
     On CUDA the step is replayed as a CUDA graph (``_train.py``: the
     counterpart of the JAX step's ``jax.jit``; the optimizer is made
     capturable, a float hyperparameter changed after the capture raises,
     a tensor lr may be scheduled); on the CPU it runs eagerly. On CUDA
     ``step.graphed.fn`` is the same step, eager."""
-    def step(clips, flip_mask):
-        loss, acc = vit_loss(model, clips, flip_mask)
-        loss.backward()
+    if mesh is None:
+        def step(clips, flip_mask):
+            loss, acc = vit_loss(model, clips, flip_mask)
+            loss.backward()
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            return loss.detach(), acc
+        return graphed_train_step(step, optimizer, model.device)
+
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import distribute, mean_over, shard_params
+    shard_params(model, mesh, vit_param_specs(model, tp_axis, mesh),
+                 optimizer)
+    dp = mesh["dp"].size()
+
+    def meshed_step(clips, flip_mask):
+        # The flip and the loss run on each rank's own clips and logits
+        # (DTensor has no sharding rule for flip in every torch release);
+        # the loss over dp is the mean of the ranks' means.
+        clips = distribute(clips, mesh, ("dp",))
+        mask = distribute(flip_mask, mesh, ("dp",)).to_local()
+        x = DTensor.from_local(flip_clips(clips.to_local(), mask), mesh,
+                               clips.placements, run_check=False,
+                               shape=clips.shape, stride=clips.stride())
+        logits = distribute(model(x), mesh, ("dp",)).to_local()
+        loss, acc = loss_and_accuracy(logits, mask.long())
+        (loss / dp).backward()
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return loss.detach(), acc
-    return graphed_train_step(step, optimizer, model.device)
+        return mean_over(loss.detach(), mesh), mean_over(acc, mesh)
+    return graphed_train_step(meshed_step, optimizer, model.device)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._device import kernel_device
 from . import _library
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -151,12 +152,13 @@ def band_mask(sq, sk, causal, window, device):
 
 
 def flash_attention_plain(q, k, v, causal=False, window=None, sm_scale=None,
-                          residuals=False):
+                          residuals=False, mask=None):
     """The torch twin of the JAX ``_reference``: materialized f32 logits,
     masked with -0.7 * f32max, softmax in f32, P cast to v's dtype, P@V
     accumulated in f32 and cast back. With ``residuals`` returns (o, l, m),
     l and m being the f32 row sum and row max [B, H, Sq] of the masked,
-    scaled logits."""
+    scaled logits. ``mask`` ([Sq, Sk] bool) replaces the one of `causal`
+    and `window`."""
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
     if k.shape[1] != q.shape[1]:
@@ -164,7 +166,8 @@ def flash_attention_plain(q, k, v, causal=False, window=None, sm_scale=None,
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    mask = band_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    if mask is None:
+        mask = band_mask(q.shape[2], k.shape[2], causal, window, q.device)
     if mask is not None:
         s = torch.where(mask, s, torch.tensor(MASK_VALUE, dtype=torch.float32,
                                               device=s.device))
@@ -237,7 +240,7 @@ def _flash_fwd_cuda(q, k, v, causal, window, sm_scale, residuals):
     if o.numel() == 0:
         return (o, l, m) if residuals else o
     fn = _kernel()
-    with torch.cuda.device(q.device):
+    with kernel_device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 l.data_ptr() if residuals else None,
                 m.data_ptr() if residuals else None,
@@ -285,7 +288,7 @@ _FWD_RES = _library.define(
 
 
 def flash_attention_bwd_plain(q, k, v, o, l, m, do, causal=False,
-                              window=None, sm_scale=None):
+                              window=None, sm_scale=None, mask=None):
     """The torch twin of the JAX ``_flash_bwd`` with P materialized:
     delta = rowsum(f32(dO) * f32(o)); P = exp(S - m) * l_inv in f32 (S the
     scaled logits, masked with -0.7 * f32max; l_inv 1 where l == 0);
@@ -293,7 +296,8 @@ def flash_attention_bwd_plain(q, k, v, o, l, m, do, causal=False,
     dS = (P * (dP - delta)) * scale cast to the input dtype; dQ = dS K,
     dK = dS^T Q. Products of input-dtype operands sum in f32; under GQA
     dK and dV sum over each group of q heads in f32; each output is cast
-    to the input dtype at the end. Returns (dq, dk, dv)."""
+    to the input dtype at the end. ``mask`` as in the forward. Returns
+    (dq, dk, dv)."""
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
     dt = q.dtype
@@ -305,7 +309,8 @@ def flash_attention_bwd_plain(q, k, v, o, l, m, do, causal=False,
     dof = do.to(dt).float()
     delta = (do.float() * o.float()).sum(dim=-1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
-    mask = band_mask(sq, sk, causal, window, q.device)
+    if mask is None:
+        mask = band_mask(sq, sk, causal, window, q.device)
     if mask is not None:
         s = torch.where(mask, s, torch.tensor(MASK_VALUE, dtype=torch.float32,
                                               device=s.device))
@@ -351,7 +356,7 @@ def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
     strides = (ctypes.c_longlong * 24)(*[st for t in tensors
                                          for st in t.stride()[:3]])
     fn = _bwd_kernel()
-    with torch.cuda.device(q.device):
+    with kernel_device(q.device):
         rc = fn(*[t.data_ptr() for t in (q, k, v, o, do, l, m, scratch,
                                          dq, dk, dv)],
                 _DTYPES[q.dtype], b, h, hk, sq, sk, d, strides, sm_scale,

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .._device import kernel_device
 from . import _library, color
 
 VARIANTS = ("vector", "edge")
@@ -120,7 +121,7 @@ def _nv12_to_rgb_cuda(y, uv, swap_rb, planar, normalization, standard):
         return out
     which = variant(h, w, y.data_ptr(), uv.data_ptr(), out.data_ptr())
     fn = _lib()[which]
-    with torch.cuda.device(y.device):
+    with kernel_device(y.device):
         rc = fn(y.data_ptr(), uv.data_ptr(), out.data_ptr(), n, h, w,
                 int(swap_rb), int(planar), int(normalization), int(standard),
                 torch.cuda.current_stream(y.device).cuda_stream)

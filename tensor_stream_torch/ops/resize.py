@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._device import kernel_device
 from . import _library
 from ..enums import ResizeType
 
@@ -748,7 +749,7 @@ class NV12Resize:
             extra = area_args(plan, div.data_ptr(), spans.data_ptr(),
                               taps.data_ptr(), sw, sh,
                               self.planes[1]["cols"].shape[0])
-        with torch.cuda.device(y.device):
+        with kernel_device(y.device):
             rc = _lib()[self.kernel](
                 y.data_ptr(), y.stride(-2), batch_y,
                 uv.data_ptr(), uv.stride(-2), batch_uv,

@@ -40,6 +40,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "tensor_stream_torch.video_writer, "
             "tensor_stream_torch.parallel, "
             "tensor_stream_torch.parallel.accum, "
+            "tensor_stream_torch.parallel.sharding, "
+            "tensor_stream_torch.parallel.pipeline, "
+            "tensor_stream_torch.parallel._rules, "
+            "tensor_stream_torch.ops.ring_attention, "
             "tensor_stream_torch.utils.torch_data, "
             "tensor_stream_torch.utils.torch_interop; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
@@ -136,9 +140,9 @@ def test_entry_points_without_device_take_cuda(tmp_path):
 
 
 def test_all_is_the_jax_packages_but_the_sharded_loaders():
-    """The port's public names: the JAX package's, less the three
-    Sharded* loaders (the parallel layer, not ported yet), plus the
-    port's own VPPConfig, cuda_graph and channels_by_fourcc; each one
+    """The port's public names: the JAX package's (the three Sharded*
+    loaders too, since the parallel slice ported them), plus the port's
+    own VPPConfig, cuda_graph and channels_by_fourcc; each one
     importable."""
     import tensor_stream_torch
     import tensor_stream_tpu
@@ -146,12 +150,32 @@ def test_all_is_the_jax_packages_but_the_sharded_loaders():
                "ShardedStreamLoader"}
     own = {"VPPConfig", "cuda_graph", "channels_by_fourcc"}
     assert sharded <= set(tensor_stream_tpu.__all__)
+    assert sharded <= set(tensor_stream_torch.__all__)
     assert set(tensor_stream_torch.__all__) == (
-        set(tensor_stream_tpu.__all__) - sharded) | own
+        set(tensor_stream_tpu.__all__) | own)
     assert len(tensor_stream_torch.__all__) == len(
         set(tensor_stream_torch.__all__))
     for name in tensor_stream_torch.__all__:
         assert getattr(tensor_stream_torch, name) is not None, name
+
+
+def test_parallel_exports_the_jax_packages_names():
+    """``parallel`` holds every name of the JAX package's ``parallel``
+    (its __init__ imports them), plus ``shard_pp_params``, the shard_fn
+    that the JAX ``make_pp_train_step`` returns and that torch needs
+    before the optimizer is built."""
+    import tensor_stream_torch.parallel as ours
+    import tensor_stream_tpu.parallel as theirs
+    jax_names = {n for n in vars(theirs) if not n.startswith("_")
+                 and callable(getattr(theirs, n))}
+    assert jax_names == {
+        "make_mesh", "vpp_batch_sharded", "make_train_state",
+        "build_train_step", "multi_stream_round_robin", "param_sharding",
+        "make_pp_mesh", "init_pp_params", "pp_apply", "make_pp_train_step",
+        "accumulate_gradients"}
+    assert set(ours.__all__) == jax_names | {"shard_pp_params"}
+    for name in ours.__all__:
+        assert callable(getattr(ours, name)), name
 
 
 def test_wrapper_runs_plain_on_cpu_and_never_counts():
