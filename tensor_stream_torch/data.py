@@ -26,6 +26,7 @@ iterations: staging buffers rotate on the host, each behind the CUDA
 event recorded after the VPP that read it.
 """
 import collections
+import contextlib
 import ctypes
 import queue
 import threading
@@ -568,6 +569,10 @@ class _ClipLoaderBase:
                                              side="right") - 1
         return self._seg_keys
 
+    def _share(self, ids):
+        """The part of a batch's clip ids this loader decodes: all."""
+        return ids
+
     def _epoch_order(self, epoch):
         if self.shuffle_mode is None:
             return self.starts
@@ -739,19 +744,20 @@ class ClipLoader(_ClipLoaderBase):
             raise
 
     def _fill(self):
-        y_size = self.batch * self.clip_len * self._w * self._h
+        capacity = self._clips
+        y_size = capacity * self.clip_len * self._w * self._h
         while not self._stop.is_set():
             if self._epoch_done():
                 continue
             batch_starts = self._order[self._cursor:self._cursor + self.batch]
             self._cursor += len(batch_starts)
             meta = (self.epoch, self._cursor)
-            got = len(batch_starts)
+            sub = self._share(batch_starts)
+            got = len(sub)
             # The native call and the VPP are fixed-size: a trailing
             # partial batch repeats its last start, sliced off afterwards.
-            padded = batch_starts if got == self.batch else np.concatenate(
-                [batch_starts,
-                 np.full(self.batch - got, batch_starts[-1], np.int64)])
+            padded = sub if got == capacity else np.concatenate(
+                [sub, np.full(capacity - got, sub[-1], np.int64)])
             padded = np.ascontiguousarray(padded, np.int64)
             buf = self._pool.get()
             if buf is None or self._stop.is_set():
@@ -759,7 +765,7 @@ class ClipLoader(_ClipLoaderBase):
             rc = self._lib.ts_clip_get_batch(
                 self._handle,
                 padded.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-                self.batch, self.clip_len, self.frame_stride,
+                capacity, self.clip_len, self.frame_stride,
                 buf.data_ptr(), buf.data_ptr() + y_size)
             if rc == _native.TS_RENEGOTIATE:
                 self._filled.put(_RENEGOTIATED)
@@ -916,6 +922,10 @@ class ClipDataset(_ClipLoaderBase):
             old, _ = self._lru.popitem(last=False)
             self._lib.ts_clip_release_decoders(self._handles[old])
 
+    def _regroup(self, ids):
+        """`ids` file-contiguous, stable: one native call a file."""
+        return ids[np.argsort(self._file_of[ids], kind="stable")]
+
     def _decode_ids_into(self, ids, buf, capacity):
         """Decodes the clips of global ids into `buf` (laid out for
         `capacity` clips), regrouped file-contiguous (stable) with one
@@ -923,7 +933,7 @@ class ClipDataset(_ClipLoaderBase):
         repeating the last regrouped clip. Returns (regrouped ids, rc,
         failed file index)."""
         got = len(ids)
-        ids = ids[np.argsort(self._file_of[ids], kind="stable")]
+        ids = self._regroup(ids)
         padded = ids if got == capacity else np.concatenate(
             [ids, np.repeat(ids[-1:], capacity - got)])
         y_frame = self._w * self._h
@@ -953,18 +963,23 @@ class ClipDataset(_ClipLoaderBase):
             ids = self._order[self._cursor:self._cursor + self.batch]
             self._cursor += len(ids)
             meta = (self.epoch, self._cursor)
-            got = len(ids)
+            sub = self._share(ids)
             buf = self._pool.get()
             if buf is None or self._stop.is_set():
                 break
-            ids, rc, fi = self._decode_ids_into(ids, buf, self.batch)
+            decoded, rc, fi = self._decode_ids_into(sub, buf, self._clips)
             if rc != 0:
                 self._filled.put(
                     _RENEGOTIATED if rc == _native.TS_RENEGOTIATE
                     else RuntimeError(f"clip decode failed (code {rc}, "
                                       f"file {self.stream_urls[fi]})"))
                 break
-            self._filled.put((buf, got, ids, meta))
+            self._filled.put((buf, len(sub), self._yielded_ids(ids, decoded),
+                              meta))
+
+    def _yielded_ids(self, ids, decoded):
+        """The global ids a batch yields, in its order: those decoded."""
+        return decoded
 
     def __next__(self):
         """(clips, labels): clips a [batch, clip_len, ...] tensor, labels
@@ -1033,7 +1048,7 @@ class _Sharded:
         """(global DTensor batch, ids of the whole batch)."""
         item = self._filled.get()
         self._check_latched(item)
-        buf, ids, self._consumed = item
+        buf, _, ids, self._consumed = item
         aug_ids = None if self.augment is None else self._share(
             self._aug_ids(self._consumed[0], ids, self.batch))
         local = self._to_device_batch(buf, self.per_device, aug_ids)
@@ -1078,31 +1093,6 @@ class ShardedClipLoader(_Sharded, ClipLoader):
             self._destroy_handle()
             raise
 
-    def _fill(self):
-        pd = self.per_device
-        y_size = pd * self.clip_len * self._w * self._h
-        while not self._stop.is_set():
-            if self._epoch_done():
-                continue
-            starts = self._order[self._cursor:self._cursor + self.batch]
-            self._cursor += self.batch
-            meta = (self.epoch, self._cursor)
-            buf = self._pool.get()
-            if buf is None or self._stop.is_set():
-                break
-            sub = np.ascontiguousarray(self._share(starts), np.int64)
-            rc = self._lib.ts_clip_get_batch(
-                self._handle,
-                sub.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), pd,
-                self.clip_len, self.frame_stride, buf.data_ptr(),
-                buf.data_ptr() + y_size)
-            if rc != 0:
-                self._filled.put(
-                    _RENEGOTIATED if rc == _native.TS_RENEGOTIATE
-                    else RuntimeError(f"clip decode failed (code {rc})"))
-                break
-            self._filled.put((buf, starts, meta))
-
     def __next__(self):
         """(clips, starts): clips one DTensor [batch, clip_len, ...] over
         "dp", starts the first frame of each clip of the whole batch."""
@@ -1140,30 +1130,11 @@ class ShardedClipDataset(_Sharded, ClipDataset):
             self._destroy_handle()
             raise
 
-    def _regrouped(self, ids):
-        return ids[np.argsort(self._file_of[ids], kind="stable")]
-
-    def _fill(self):
+    def _yielded_ids(self, ids, decoded):
+        """Every rank's share of `ids`, each regrouped as its rank does."""
         pd = self.per_device
-        while not self._stop.is_set():
-            if self._epoch_done():
-                continue
-            ids = self._order[self._cursor:self._cursor + self.batch]
-            self._cursor += self.batch
-            meta = (self.epoch, self._cursor)
-            buf = self._pool.get()
-            if buf is None or self._stop.is_set():
-                break
-            _, rc, fi = self._decode_ids_into(self._share(ids), buf, pd)
-            if rc != 0:
-                self._filled.put(
-                    _RENEGOTIATED if rc == _native.TS_RENEGOTIATE
-                    else RuntimeError(f"clip decode failed (code {rc}, "
-                                      f"file {self.stream_urls[fi]})"))
-                break
-            every = np.concatenate([self._regrouped(ids[j * pd:(j + 1) * pd])
-                                    for j in range(self.n_shards)])
-            self._filled.put((buf, every, meta))
+        return np.concatenate([self._regroup(ids[j * pd:(j + 1) * pd])
+                               for j in range(self.n_shards)])
 
     def __next__(self):
         """(clips, labels): clips one DTensor [batch, clip_len, ...] over
@@ -1184,9 +1155,12 @@ class ShardedStreamLoader:
 
     One process a rank: rank k runs stream k's FrameLoader onto its own
     device, and the batch is ``DTensor.from_local`` of its frames (no
-    copy). ``indices`` holds every stream's frame indices (gathered from
-    the ranks). Iteration ends on every rank when any stream is exhausted;
-    a short final batch ends it too (shards must be equal-sized)."""
+    copy). ``indices`` holds every stream's frame indices, gathered from
+    the ranks as one fixed-size int64 tensor (-1 for a stream with no
+    batch) on a side stream of the device, so the gather waits for no
+    frame conversion. Iteration ends on every rank when any stream is
+    exhausted; a short final batch ends it too (shards must be
+    equal-sized)."""
 
     def __init__(self, stream_urls, per_stream=8, mesh=None, device=None,
                  **kwargs):
@@ -1201,6 +1175,9 @@ class ShardedStreamLoader:
                                   aug_seed=base_seed + rank, device=dev,
                                   **kwargs)
         self.per_stream, self.n_streams = per_stream, n
+        self._group = self.mesh.get_group("dp")
+        self._side = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                      else None)
 
     def __iter__(self):
         return self
@@ -1210,13 +1187,27 @@ class ShardedStreamLoader:
             tensors, idx = next(self.loader)
         except StopIteration:
             tensors, idx = None, None
-        every = [None] * self.n_streams
-        torch.distributed.all_gather_object(every, idx,
-                                            group=self.mesh.get_group("dp"))
-        if any(i is None or len(i) != self.per_stream for i in every):
+        every = self._gather_indices(idx)
+        if (every < 0).any():
             raise StopIteration
         return (_global_batch(self.mesh, tensors, self.n_streams),
-                dict(enumerate(every)))
+                dict(enumerate(every.tolist())))
+
+    def _gather_indices(self, idx):
+        """[n_streams, per_stream] int64 on the host: every rank's frame
+        indices, a row of -1 where a rank's stream had no full batch."""
+        mine = np.full(self.per_stream, -1, np.int64)
+        if idx is not None and len(idx) == self.per_stream:
+            mine[:] = idx
+        dev = self.loader.device
+        with (torch.cuda.stream(self._side) if self._side is not None
+              else contextlib.nullcontext()):
+            local = torch.from_numpy(mine).to(dev)
+            every = torch.empty(self.n_streams * self.per_stream,
+                                dtype=torch.int64, device=dev)
+            torch.distributed.all_gather_into_tensor(every, local,
+                                                     group=self._group)
+            return every.cpu().numpy().reshape(self.n_streams, -1)
 
     def close(self):
         self.loader.close()

@@ -21,9 +21,14 @@ Nothing in the forward or the train step syncs with the host (no
 ``nonzero``, no ``item``), so the step replays as one CUDA graph
 (``_train.py``). ``moe_param_specs`` lays the expert weights out on their
 expert axis over "ep"; ``make_moe_train_step(..., mesh=...)`` is the
-("dp", "ep") step: the clips over "dp", the experts stored over "ep" and
-gathered whole for the step (an all-gather; their gradients go back
-averaged over "dp" and sliced over "ep").
+("dp", "ep") step: the clips over "dp" (the ranks of an ep group hold the
+same clips), and each rank runs only its own E/ep experts on them. Every
+rank routes all its tokens (the router is replicated), dispatches to its
+experts alone and combines their gated outputs, summed over "ep" (an
+all-reduce; its backward passes the gradient through). The tokens and
+gates that enter the experts sum their gradients over "ep" in the
+backward, since each rank's experts see only their own tokens. A token
+goes to one expert, so both sums add zeros to one value: exact.
 """
 import math
 from typing import Optional
@@ -55,6 +60,9 @@ class MoEMLP(nn.Module):
         self.b1 = init.const((e, f), 0.0)
         self.w2 = init.normal((e, f, dim), f ** -0.5)
         self.b2 = init.const((e, dim), 0.0)
+        # (process group, place on it) of the "ep" axis when a meshed step
+        # runs this layer on its rank's shard of the experts.
+        self.ep = None
 
     def capacity(self, tokens: int) -> int:
         return int(math.ceil(tokens / self.num_experts * self.capacity_factor))
@@ -79,18 +87,59 @@ class MoEMLP(nn.Module):
         cd = self.compute_dtype
         logits, probs, mask, _, dispatch = self.route(x)
         gate = (probs * mask).sum(-1)
+        xe = x.float()
+        if self.ep is not None:       # this rank's experts: w1 [E/ep, ...]
+            group, k = self.ep
+            n = self.w1.shape[0]
+            dispatch = dispatch[:, :, k * n:(k + 1) * n]
+            xe, gate = _SumGrad.apply(xe, group), _SumGrad.apply(gate, group)
         combine = dispatch * gate[:, :, None, None]
-        xin = torch.einsum("gsec,gsd->egcd", dispatch, x.float()).to(cd)
+        xin = torch.einsum("gsec,gsd->egcd", dispatch, xe).to(cd)
         h = torch.einsum("egcd,edf->egcf", xin, self.w1.to(cd))
         h = F.gelu(h + self.b1[:, None, None].to(cd), approximate="tanh")
         y = torch.einsum("egcf,efd->egcd", h, self.w2.to(cd))
         y = y + self.b2[:, None, None].to(cd)
         out = torch.einsum("gsec,egcd->gsd", combine, y.float())
+        if self.ep is not None:
+            out = _SumOut.apply(out, self.ep[0])
         f_e, p_e = mask.mean(dim=1), probs.mean(dim=1)
         balance = self.num_experts * (f_e * p_e).sum(-1).mean()
         zloss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
         aux = self.router_weight * balance + self.zloss_weight * zloss
         return out.to(x.dtype), aux
+
+
+def _all_reduce(t, group):
+    if group.size() == 1:         # a sum over one rank: launch nothing
+        return t
+    out = torch.ops._c10d_functional.all_reduce(t, "sum", group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over `group`."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _SumOut(torch.autograd.Function):
+    """The sum over `group` forward; the backward passes the gradient
+    through (every rank of the group computes the same loss from it)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 class MoEBlock(nn.Module):
@@ -204,12 +253,17 @@ def make_moe_train_step(model: VideoMoE, optimizer: torch.optim.Optimizer,
                                          local_module, mean_over,
                                          shard_params)
         shard_params(model, mesh, moe_param_specs(model, ep_axis), optimizer)
+        ep = (mesh.get_group(ep_axis), mesh.get_local_rank(ep_axis))
+        for layer in model.modules():
+            if isinstance(layer, MoEMLP):
+                layer.ep = ep
 
     def step(clips, flip_mask):
         if mesh is None:
             loss, acc, aux = moe_loss(model, clips, flip_mask)
         else:
-            local = local_module(model, gathered_params(model, mesh))
+            local = local_module(model, gathered_params(model, mesh,
+                                                        keep=(ep_axis,)))
             loss, acc, aux = moe_loss(local, *local_batch(mesh, clips,
                                                           flip_mask))
         loss.backward()

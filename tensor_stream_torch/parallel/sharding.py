@@ -152,21 +152,23 @@ def shard_params(module: torch.nn.Module, mesh: DeviceMesh, specs: dict,
 
 
 def gathered_params(module: torch.nn.Module, mesh: DeviceMesh,
-                    dp_axis: str = "dp") -> dict:
-    """Each parameter of `module` gathered whole on every rank, as a local
-    tensor whose gradient is the rank's share of a mean over `dp_axis`:
-    the backward averages it over dp and slices it back to the
-    parameter's layout (an all-reduce and, for sharded parameters, a
-    reduce-scatter). For a step that runs the module on local tensors
-    (``torch.func.functional_call``) whose loss is a mean over the
-    rank's equal share of the global batch."""
-    whole = [Replicate()] * mesh.ndim
-    grad = [Partial("avg") if name == dp_axis else Replicate()
-            for name in mesh.mesh_dim_names]
+                    dp_axis: str = "dp", keep: Sequence[str] = ()) -> dict:
+    """Each parameter of `module` gathered whole on every rank, but for
+    its shards over the mesh axes in `keep`, which stay local (a rank
+    computes with its own shard), as a local tensor whose gradient is the
+    rank's share of a mean over `dp_axis`: the backward averages it over
+    dp and slices it back to the parameter's layout (an all-reduce and,
+    for gathered shards, a reduce-scatter). For a step that runs the
+    module on local tensors (``torch.func.functional_call``) whose loss
+    is a mean over the rank's equal share of the global batch."""
     out = {}
     for name, p in module.named_parameters():
         if isinstance(p, DTensor):
-            p = p.redistribute(mesh, whole).to_local(grad_placements=grad)
+            target = [pl if axis in keep else Replicate()
+                      for axis, pl in zip(mesh.mesh_dim_names, p.placements)]
+            grad = [Partial("avg") if axis == dp_axis else pl
+                    for axis, pl in zip(mesh.mesh_dim_names, target)]
+            p = p.redistribute(mesh, target).to_local(grad_placements=grad)
         out[name] = p
     return out
 

@@ -16,7 +16,9 @@ this CPU).
   rules);
 * ``vit_param_specs``: its count of sharded leaves and its GQA error;
 * ``make_moe_train_step(..., mesh=)`` over ("dp", "ep"): the forward of
-  the flax model and one step of the single-device port step;
+  the flax model and one step of the single-device port step; a rank's
+  MoE layer counts half the unsharded layer's expert FLOPs (the router's
+  are replicated) and gives its output;
 * the dp steps of VideoDiT and VideoVAE against their single-device steps
   drawing from the same generator;
 * MHA ringed over "cp" with its heads over "tp" (``ring_head_axis``)
@@ -50,6 +52,29 @@ def clips_of(seed, shape=CLIP):
 def _params(model):
     return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
             .detach().numpy() for n, p in model.named_parameters()}
+
+
+def _expert_flops(dense, meshed, mesh):
+    """FLOPs of one MoE layer's forward on the same tokens, unsharded
+    (`dense`), on this rank's experts (`meshed`, after
+    ``make_moe_train_step(mesh=)``) and of the router alone; and the two
+    layers' outputs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tensor_stream_torch.parallel.sharding import (gathered_params,
+                                                       local_module)
+    tokens = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 16, MOE["dim"])).astype(np.float32))
+    ep = local_module(meshed, gathered_params(meshed, mesh, keep=("ep",)))
+    flops, outs = {}, {}
+    with torch.no_grad():
+        for key, fn in (("dense", dense), ("ep", ep),
+                        ("router", dense.router)):
+            with FlopCounterMode(display=False) as counter:
+                y = fn(tokens)
+            flops[key] = counter.get_total_flops()
+            outs[key] = y[0].numpy() if isinstance(y, tuple) else None
+    return flops, (outs["dense"], outs["ep"])
 
 
 def _ranks(rank, world, vit_sd, moe_sd, mha_sd):
@@ -106,6 +131,8 @@ def _ranks(rank, world, vit_sd, moe_sd, mha_sd):
                                                          lr=LR))
     m_step = make_moe_train_step(meshed, torch.optim.SGD(meshed.parameters(),
                                                          lr=LR), mesh=dp_ep)
+    out["moe_flops"], out["moe_layer"] = _expert_flops(
+        single.blocks[0].moe, meshed.blocks[0].moe, dp_ep)
     moe_clips = torch.from_numpy(clips_of(1))
     out["moe_single"] = [float(x) for x in s_step(moe_clips, mask)]
     out["moe_meshed"] = [float(x) for x in m_step(moe_clips, mask)]
@@ -267,6 +294,17 @@ def test_expert_parallel_matches_unsharded(results):
                                    err_msg=name, **PARAM)
     local, whole = r["local_w1"]
     assert local[0] * 2 == whole[0] and local[1:] == whole[1:]
+
+
+def test_expert_parallel_splits_the_expert_work(results):
+    got, _ = results
+    for r in got:
+        flops = r["moe_flops"]
+        router = flops["router"]
+        assert router > 0 and flops["ep"] > router
+        assert 2 * (flops["ep"] - router) == flops["dense"] - router, flops
+        dense, ep = r["moe_layer"]
+        np.testing.assert_allclose(ep, dense, **TOL)
 
 
 @pytest.mark.parametrize("model", ["dit", "vae"])
