@@ -19,7 +19,9 @@ kernels:
 * clip augmentation: bench.py::bench_device_augment's configuration
   (16 clips of 8 frames of 224², RandomResizedCrop, flip, ColorJitter,
   normalize), from 224² frames and from 1080p through the device
-  resize, as one CUDA graph a batch, bit-equal to the eager run;
+  resize, as one CUDA graph a batch, bit-equal to the eager run, every
+  batch through the clip_augment kernel, which is first held against its
+  plain version over layouts, dtypes, configs and edge cases;
 * serving: two streams of 224x224 NV12 frames -> MultiStreamLoader ->
   StreamInferencer, one 16-frame clip a stream a tick, into a VideoViT at
   ViT-B width (dim 768, depth 12, 12 heads, patch 16, tubelet 2, joint
@@ -85,8 +87,9 @@ kernels:
 Each kernel is a dispatcher operator of the ts library
 (tensor_stream_torch/ops/_library.py: ts::nv12_to_rgb, ts::flash_fwd,
 ts::flash_bwd, ts::resize_bilinear_nv12, ts::resize_bicubic_nv12,
-ts::resize_area_down_nv12) whose CUDA kernel launches the hand-written
-kernel, whose CPU kernel is the plain version and whose fake gives the
+ts::resize_area_down_nv12, ts::clip_augment) whose CUDA kernel launches
+the hand-written kernel, whose CPU kernel is the plain version and whose
+fake gives the
 outputs' shapes and strides: a program that torch.export traces, on the
 CPU or on the card, holds the operators, and on CUDA tensors they launch
 the kernels.
@@ -167,6 +170,7 @@ from tensor_stream_torch.models import (
 from tensor_stream_torch.models._train import graphed_train_step
 from tensor_stream_torch.models.moe import MoEMLP
 from tensor_stream_torch.models.video_vit import vit_loss
+from tensor_stream_torch.ops import augment as aug_ops
 from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
 from tensor_stream_torch.ops import resize as resize_ops
@@ -935,6 +939,254 @@ def repeated_frame_staging(n, h, w, clip_len, seed):
     return np.concatenate([y.reshape(-1), uv.reshape(-1)])
 
 
+# The clip augmentation kernel (csrc/clip_augment.cu) against its plain
+# version: tests/test_torch_augment.py's bound of the port against JAX.
+AUG_F32_TOL = 1e-4
+AUG_REL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+AUG_U8_SHARE = 1e-2
+AUG_SPATIAL = dict(width=SIDE, height=SIDE, scale=(0.3, 1.0),
+                   ratio=(0.75, 4 / 3), hflip=0.5)
+AUG_JITTER = dict(brightness=0.4, contrast=0.4, saturation=0.4, hue=0.05)
+AUG_NORM = dict(mean=(0.45,) * 3, std=(0.225,) * 3)
+AUG_U8 = AugmentConfig(**AUG_SPATIAL, **AUG_JITTER, erase=0.5)
+AUG_W42 = dict(width=42, height=30, scale=(0.3, 1.0), ratio=(0.75, 4 / 3),
+               hflip=0.5, **AUG_JITTER, erase=0.5)
+# (name, config, clips, frames, source (h, w), planar, input dtype, output
+# dtype, unit, bgr). "edge_rects" moves the drawn crop and erase rects onto
+# the frame's edges; "u8_halving" puts a quarter of its values on exact
+# halves (a rounding rule at fault shows there); "wide_source" has rows
+# wider than a block's threads.
+F32, BF16, U8 = torch.float32, torch.bfloat16, torch.uint8
+AUG_CASES = (
+    ("bench_planar_f32", BENCH_AUG, AUG_CLIPS, AUG_CLIP_LEN, (SIDE, SIDE),
+     True, F32, F32, 1.0, False),
+    ("bench_merged_bgr_f32", BENCH_AUG, 4, 8, (SIDE, SIDE), False, F32, F32,
+     1.0, True),
+    ("bench_planar_bf16", BENCH_AUG, 4, 8, (SIDE, SIDE), True, F32, BF16,
+     1.0, False),
+    ("bench_merged_bgr_bf16", BENCH_AUG, 4, 8, (SIDE, SIDE), False, F32,
+     BF16, 1.0, True),
+    ("bench_planar_bgr_f16", BENCH_AUG, 4, 8, (SIDE, SIDE), True, F32,
+     torch.float16, 1.0, True),
+    ("u8_planar", AUG_U8, 4, 8, (SIDE, SIDE), True, U8, U8, 255.0, False),
+    ("u8_merged_bgr", AUG_U8, 4, 8, (SIDE, SIDE), False, U8, U8, 255.0,
+     True),
+    ("u8_to_f32_normalized", AugmentConfig(
+        **AUG_SPATIAL, **AUG_JITTER, mean=(114.75,) * 3, std=(57.375,) * 3),
+     4, 8, (SIDE, SIDE), True, U8, F32, 255.0, False),
+    ("bf16_input", BENCH_AUG, 4, 8, (SIDE, SIDE), False, BF16, F32, 1.0,
+     False),
+    ("erase_flip", AugmentConfig(**{**AUG_SPATIAL, "hflip": 1.0},
+                                 **AUG_NORM, erase=1.0),
+     4, 8, (SIDE, SIDE), True, F32, F32, 1.0, False),
+    ("contrast_only", AugmentConfig(contrast=0.4), 4, 8, (SIDE, SIDE), True,
+     F32, F32, 1.0, False),
+    ("jitter_no_spatial", AugmentConfig(**AUG_JITTER, **AUG_NORM), 4, 8,
+     (SIDE, SIDE), False, F32, F32, 1.0, True),
+    ("frames_t1", BENCH_AUG, 32, 1, (SIDE, SIDE), True, F32, F32, 1.0,
+     False),
+    ("w42_planar_f32", AugmentConfig(**AUG_W42, **AUG_NORM), 4, 8, (48, 64),
+     True, F32, F32, 1.0, False),
+    ("w42_merged_u8", AugmentConfig(**AUG_W42), 4, 8, (48, 64), False, U8,
+     U8, 255.0, True),
+    ("flip_only_w42", AugmentConfig(hflip=1.0), 4, 8, (30, 42), False, U8,
+     U8, 255.0, False),
+    ("edge_rects", AugmentConfig(**AUG_SPATIAL, **AUG_JITTER, **AUG_NORM,
+                                 erase=1.0),
+     4, 8, (SIDE, SIDE), True, F32, F32, 1.0, False),
+    ("u8_halving", AugmentConfig(width=SIDE // 2, height=SIDE // 2), 4, 8,
+     (SIDE, SIDE), True, U8, U8, 255.0, False),
+    ("wide_source", AugmentConfig(**{**AUG_SPATIAL, "height": SIDE // 2},
+                                  **AUG_JITTER, **AUG_NORM, erase=0.5),
+     4, 4, (240, 1280), False, F32, F32, 1.0, False),
+)
+AUG_MUST_FIRE = {"erase_flip": ("flip", "erase"),
+                 "edge_rects": ("erase",)}
+
+
+def augment_rule(got, want, out_dtype):
+    """The clip augmentation kernel's output against the plain version's
+    on the same inputs, at tests/test_torch_augment.py's bound of the
+    port against JAX: float32 within 1e-4 absolute (values at unit 1.0 or
+    after mean/std), bf16 (f16) within that plus 2^-7 (2^-10) of |want|,
+    one rounding step of the narrower type; u8 within 1, and at most 1% of
+    the values 1 apart. The clip's mean gray summed in another order
+    moves a value across a rounding boundary rarely; a rounding rule at
+    fault moves every exact half (an eighth of the values of a halving
+    resize of u8 frames). Returns (passed, numbers)."""
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or got.dtype != out_dtype):
+        return False, {"got": [list(got.shape), str(got.dtype)],
+                       "want": [list(want.shape), str(want.dtype)]}
+    w = want.double()
+    diff = (got.double() - w).abs()
+    worst = float(diff.max()) if diff.numel() else 0.0
+    share = float((diff > 0).double().mean()) if diff.numel() else 0.0
+    if out_dtype == torch.uint8:
+        ok = worst <= 1 and share <= AUG_U8_SHARE
+    else:
+        tol = AUG_F32_TOL + AUG_REL.get(out_dtype, 0.0) * w.abs()
+        ok = bool((diff <= tol).all())
+    return ok, {"max_abs_err": worst, "differing_share": share}
+
+
+def aug_case_inputs(case, seed, device):
+    """A case's seeded clips and parameter rows, on the card."""
+    name, cfg, b, t, (h, w), planar, in_dt = case[:7]
+    rng = np.random.default_rng(seed)
+    shape = (b, t, 3, h, w) if planar else (b, t, h, w, 3)
+    if in_dt == torch.uint8:
+        clips = torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+    else:
+        clips = torch.from_numpy(rng.random(shape, np.float32)).to(in_dt)
+    ids = np.stack([np.zeros(b, np.int64), np.arange(b)], axis=1)
+    params = sample_clip_params(cfg, h, w, seed, ids)
+    if name == "edge_rects":
+        out_w, out_h = cfg.output_size(w, h)
+        col = {k: i for i, k in enumerate(aug_ops.PARAMS)}
+        p, f32 = params, np.float32
+        # Clip 0 at the top and right edges, clip 1 at the bottom-left
+        # corner, clip 2 the whole frame, clip 3 the last pixel; every
+        # erase rect at the bottom-right corner.
+        p[0, col["y0"]], p[0, col["x0"]] = 0, f32(w) - p[0, col["rect_w"]]
+        p[1, col["y0"]], p[1, col["x0"]] = f32(h) - p[1, col["rect_h"]], 0
+        p[2, :4] = (0, 0, h, w)
+        p[3, :4] = (h - 1, w - 1, 1, 1)
+        p[:, col["erase_y0"]] = f32(out_h) - p[:, col["erase_h"]]
+        p[:, col["erase_x0"]] = f32(out_w) - p[:, col["erase_w"]]
+    return clips.to(device), torch.from_numpy(params).to(device)
+
+
+def plain_reference(clips, params, *args):
+    """clip_augment_plain on the host copy of the inputs: the function
+    tests/test_torch_augment.py holds to the JAX package. On CUDA tensors
+    torch takes the plain version's `extent / n` (a tensor over a Python
+    int) as extent * (1 / n), one ulp from the quotient in about half the
+    cases, which moves the sampling grid by up to 1.5e-5 of a pixel at
+    224²; the kernel divides as the host and JAX do."""
+    return aug_ops.clip_augment_plain(clips.cpu(), params.cpu(), *args)
+
+
+def phase_clip_augment_vs_plain(device):
+    """The kernel on the card against clip_augment_plain on the same
+    inputs (``plain_reference``), for every case of AUG_CASES, each
+    launched twice: the two runs bit-equal, within augment_rule of the
+    plain version, and the erase and flip firing where the case asks.
+    Returns the worst error by output dtype."""
+    worst, rows = {}, []
+    for i, case in enumerate(AUG_CASES):
+        name, cfg, b, t, (h, w), planar, in_dt, out_dt, unit, bgr = case
+        clips, params = aug_case_inputs(case, 70 + i, device)
+        out_w, out_h = cfg.output_size(w, h)
+        ops = aug_ops.op_flags(cfg)
+        fn = aug_ops.make_clip_augment_fn(cfg, h, w, planar, unit, bgr,
+                                          out_dt)
+        before = aug_ops.launches
+        runs = [fn(clips, params) for _ in range(2)]
+        went = aug_ops.launches - before
+        want_launches = 2 * (1 + bool(ops & aug_ops.OP_BITS["contrast"]))
+        args = (planar, out_h, out_w, ops, list(cfg.mean or (0.0,) * 3),
+                list(cfg.std or (1.0,) * 3), unit, bgr, out_dt)
+        want = plain_reference(clips, params, *args)
+        ok, nums = augment_rule(runs[0].cpu(), want, out_dt)
+        p = params.cpu().numpy()
+        fired = {k: int((p[:, aug_ops.PARAMS.index(k)] > 0.5).sum())
+                 for k in ("flip", "erase")}
+        row = {"case": name, "shape": list(clips.shape),
+               "in": str(in_dt)[6:], "out": str(out_dt)[6:],
+               "layout": "planar" if planar else "merged",
+               "bgr": bgr, "ops": [k for k in aug_ops.OPS
+                                   if ops & aug_ops.OP_BITS[k]],
+               "launches": went, "fired": fired,
+               "relaunch_bit_equal": bytes_equal(runs[0], runs[1]), **nums}
+        rows.append(row)
+        if went != want_launches:
+            raise AssertionError(f"clip_augment_vs_plain {name}: "
+                                 f"{went} launches, want {want_launches}")
+        if not ok or not row["relaunch_bit_equal"]:
+            raise AssertionError(f"clip_augment_vs_plain {name}: {row}")
+        for k in AUG_MUST_FIRE.get(name, ()):
+            if not fired[k]:
+                raise AssertionError(f"clip_augment_vs_plain {name}: no "
+                                     f"clip drew the {k}")
+        if "erase" in AUG_MUST_FIRE.get(name, ()):
+            # Every clip erases: the output holds a rect of exact zeros.
+            zeros = int((runs[0] == 0).sum())
+            area = int(np.floor(p[:, aug_ops.PARAMS.index("erase_h")]).clip(
+                1).min() * np.floor(p[:, aug_ops.PARAMS.index(
+                    "erase_w")]).clip(1).min())
+            if zeros < 3 * t * area:
+                raise AssertionError(f"clip_augment_vs_plain {name}: "
+                                     f"{zeros} zeros, the rects hold more")
+        key = str(out_dt)[6:]
+        worst[key] = max(worst.get(key, 0.0), nums["max_abs_err"])
+    emit({"phase": "clip_augment_vs_plain", "cases": rows,
+          "reference": "clip_augment_plain on the host copy of the inputs",
+          "rule": "f32 1e-4; bf16 1e-4 + 2^-7 |want|; f16 1e-4 + 2^-10 "
+                  "|want|; u8 1, at most 1% of values differing",
+          "max_abs_err": worst})
+    return worst
+
+
+AUG_OPS_PER_PIXEL = {  # float32 operations an output pixel (3 channels)
+    "spatial": 36,      # 3 lerps a channel, 4 operations each
+    "brightness": 3, "contrast": 15,  # 9, and 6 for the clip's gray sum
+    "saturation": 14, "hue": 36, "clamp": 6, "normalize": 6}
+
+
+def augment_work(cfg, params, frames, h, w, planar, in_size, out_size):
+    """(bytes, operations) of one kernel call on `params` ([B, 14] numpy):
+    every 32-byte sector of the source that the taps touch read once
+    (frames start 32-byte aligned), the parameters, and the output written
+    once; AUG_OPS_PER_PIXEL of each operation the config applies."""
+    ops = aug_ops.op_flags(cfg)
+    on = {k: bool(ops & bit) for k, bit in aug_ops.OP_BITS.items()}
+    out_w, out_h = cfg.output_size(w, h)
+    col = {k: i for i, k in enumerate(aug_ops.PARAMS)}
+    sectors = 0
+    for row in params:
+        if on["resize"] or on["flip"]:
+            y0, x0, rh, rw = (row[:4] if on["rect"] else
+                              np.float32([0, 0, h, w]))
+            flip = on["flip"] and row[col["flip"]] > 0.5
+            taps = []
+            for n, start, extent, size, fl in ((out_h, y0, rh, h, False),
+                                               (out_w, x0, rw, w, flip)):
+                u = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * (
+                    np.float32(extent) / np.float32(n))
+                if fl:
+                    u = np.float32(extent) - u
+                lo = np.floor(np.float32(start) + u - np.float32(0.5))
+                taps.append(np.unique(np.clip(np.concatenate(
+                    [lo, lo + 1]), 0, size - 1).astype(np.int64)))
+            rows, cols = taps
+        else:
+            rows, cols = np.arange(h), np.arange(w)
+        pix = rows[:, None] * w + cols[None, :]
+        if planar:  # 3 planes of the same sectors
+            sectors += 3 * np.unique(pix * in_size // 32).size
+        else:
+            sectors += np.unique(np.concatenate([
+                (pix * 3 * in_size // 32).ravel(),
+                ((pix * 3 + 2) * in_size // 32).ravel()])).size
+    pixels = len(params) * frames * out_h * out_w
+    nbytes = (frames * sectors * 32 + params.size * 4
+              + pixels * 3 * out_size)
+    per = (AUG_OPS_PER_PIXEL["spatial"] * (on["resize"] or on["flip"])
+           + sum(AUG_OPS_PER_PIXEL[k] for k in (
+               "brightness", "contrast", "saturation", "hue", "normalize")
+               if on[k])
+           + AUG_OPS_PER_PIXEL["clamp"] * any(on[k] for k in (
+               "brightness", "contrast", "saturation", "hue")))
+    return nbytes, pixels * per
+
+
+def aug_counts():
+    return {"clip_augment": aug_ops.launches,
+            **{f"clip_augment_{k}": v
+               for k, v in aug_ops.launches_by_pass.items()}}
+
+
 def clip_augment_run(device, source):
     cfg = aug_cfg(source)
     n = AUG_CLIPS * AUG_CLIP_LEN
@@ -944,9 +1196,10 @@ def clip_augment_run(device, source):
                                 device)
     graph = fn.graphed
     reset_resize_counts()
+    aug_ops.reset_counts()
     outs = [fn(flat, aug_ids(k)) for k in range(AUG_CALLS)]
     torch.cuda.synchronize()
-    graphed_launches = resize_counts()
+    graphed_launches = {**resize_counts(), **aug_counts()}
     check_replays(graph, AUG_CALLS, f"clip_augment {source}")
     want_shape = (AUG_CLIPS, AUG_CLIP_LEN, 3, SIDE, SIDE)
     for o in outs:
@@ -954,23 +1207,40 @@ def clip_augment_run(device, source):
             raise AssertionError(f"clip_augment {source}: output "
                                  f"{tuple(o.shape)} or non-finite values")
     reset_resize_counts()
+    aug_ops.reset_counts()
     for k, o in enumerate(outs):
         params = torch.from_numpy(sample_clip_params(
             BENCH_AUG, SIDE, SIDE, 0, aug_ids(k))).to(device)
         if not bitwise_equal(graph.fn(flat, params), o):
             raise AssertionError(f"clip_augment {source}: batch {k}, "
                                  "graphed != eager")
-    eager_launches = resize_counts()
+    eager_launches = {**resize_counts(), **aug_counts()}
+    # The augmentation kernel ran every batch, graphed and eager: pass 1
+    # (the clip's mean gray, with contrast) and pass 2.
+    passes = 1 + (BENCH_AUG.contrast > 0)
+    for label, got in (("graphed", graphed_launches),
+                       ("eager", eager_launches)):
+        want = {"clip_augment": passes * AUG_CALLS,
+                "clip_augment_mean": (passes - 1) * AUG_CALLS,
+                "clip_augment_apply": AUG_CALLS}
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"clip_augment {source} {label}: launches "
+                                 f"{got}, want {want}: the path bypassed "
+                                 "the augmentation kernel")
     if not bitwise_equal(fn(flat, aug_ids(0)), outs[0]):
         raise AssertionError(f"clip_augment {source}: the same ids gave "
                              "other bytes")
     # The identity config is the plain VPP, bit for bit.
     plain_vpp = build_vpp_batched_flat(cfg, n, device)
     plain = plain_vpp(flat)
+    before = aug_ops.launches
     ident = build_vpp_clip_augment(cfg, AugmentConfig(), AUG_CLIPS,
                                    AUG_CLIP_LEN, 0, device)(flat, aug_ids(0))
     if not bitwise_equal(ident, plain.view(want_shape)):
         raise AssertionError(f"clip_augment {source}: identity != plain VPP")
+    if aug_ops.launches != before:
+        raise AssertionError(f"clip_augment {source}: the identity config "
+                             "launched the augmentation kernel")
     # One transform a clip: a clip of one repeated frame stays so.
     rep = torch.from_numpy(repeated_frame_staging(n, h, w, AUG_CLIP_LEN,
                                                   43)).to(device)
@@ -981,6 +1251,34 @@ def clip_augment_run(device, source):
                              "repeated-frame clip differ")
     aug_ms = time_ms(graph.graphs[0].replay, device, iters=50)[0]
     plain_ms = time_ms(lambda: plain_vpp(flat), device, iters=50)[0]
+    # The kernel alone on this batch's VPP output, beside the plain version
+    # on the same tensors and the bound of the drawn rects.
+    frames = plain.view(want_shape)
+    params0 = sample_clip_params(BENCH_AUG, SIDE, SIDE, 0, aug_ids(0))
+    p0 = torch.from_numpy(params0).to(device)
+    clip_fn = aug_ops.make_clip_augment_fn(BENCH_AUG, SIDE, SIDE, True)
+    ops = aug_ops.op_flags(BENCH_AUG)
+    mean, std = list(BENCH_AUG.mean), list(BENCH_AUG.std)
+
+    def plain_aug():
+        return aug_ops.clip_augment_plain(frames, p0, True, SIDE, SIDE, ops,
+                                          mean, std, 1.0, False,
+                                          torch.float32)
+    want = plain_reference(frames, p0, True, SIDE, SIDE, ops, mean, std,
+                           1.0, False, torch.float32)
+    ok, nums = augment_rule(clip_fn(frames, p0).cpu(), want, torch.float32)
+    # A reading, no gate: the plain version run on the card, whose grid
+    # divides by a reciprocal (plain_reference).
+    nums["plain_on_card_err"] = max_abs_err(plain_aug().cpu(), want)
+    if not ok:
+        raise AssertionError(f"clip_augment {source}: kernel vs plain on "
+                             f"the VPP's output: {nums}")
+    kernel_ms, k10, k90 = time_ms(lambda: clip_fn(frames, p0), device)
+    kernel_plain_ms = time_ms(plain_aug, device, iters=20, warmup=3)[0]
+    nbytes, flops = augment_work(BENCH_AUG, params0, AUG_CLIP_LEN, SIDE,
+                                 SIDE, True, 4, 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for k in range(20):
@@ -998,14 +1296,23 @@ def clip_augment_run(device, source):
             "device_frames_per_s": n / aug_ms * 1e3,
             "plain_vpp_device_ms": plain_ms,
             "augment_device_ms": aug_ms - plain_ms,
+            "kernel_ms": kernel_ms, "kernel_p10_ms": k10,
+            "kernel_p90_ms": k90, "kernel_plain_ms": kernel_plain_ms,
+            "kernel_vs_plain": nums, "kernel_bytes": nbytes,
+            "kernel_ops": flops, "kernel_bound_ms": max(bytes_ms, ops_ms),
+            "kernel_bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations",
+            "kernel_share_of_bound": max(bytes_ms, ops_ms) / kernel_ms,
             "wall_ms_per_call": wall * 1e3, "wall_frames_per_s": n / wall}
 
 
 def phase_clip_augment(device, smi):
     """bench_device_augment's configuration, (a) on 224² frames and (b)
     from 1080p through the device bilinear resize; graphed and eager
-    bit-equal; identity = plain VPP; one transform a clip; the same ids
-    the same bytes."""
+    bit-equal, each batch through the augmentation kernel; identity =
+    plain VPP; one transform a clip; the same ids the same bytes; the
+    kernel alone on the VPP's output beside the plain version and the
+    bound."""
     runs = {src: clip_augment_run(device, src) for src in ("224", "1080p")}
     emit({"phase": "clip_augment", "card": smi,
           "augment": {k: v for k, v in BENCH_AUG.__dict__.items()},
@@ -4581,6 +4888,7 @@ def run(device):
     rows = phase_times(device, smi, main)
     resize_worst = phase_resize_vs_plain(device)
     resized = phase_resized_main_path(device, smi, main)
+    aug_worst = phase_clip_augment_vs_plain(device)
     clip_aug = phase_clip_augment(device, smi)
     resize_rows = phase_resize_times(device, smi)
     phase_area_variants(device, smi)
@@ -4654,6 +4962,8 @@ def run(device):
     aug_runs = {f"clip_augment_{src}{'' if g == 'graphed' else '_eager'}":
                 r[f"{g}_launches"] for src, r in clip_aug.items()
                 for g in ("graphed", "eager")}
+    aug_paths = {k: v["clip_augment"] for k, v in aug_runs.items()}
+    aug_head = clip_aug["224"]
     model_runs = {"generation": generation["input_launches"],
                   "style": style["eager"]["launches"],
                   "style_graphed": style["graphed"]["launches"],
@@ -4753,7 +5063,22 @@ def run(device):
         resize_entry("resize_area_down_nv12",
                      "tensor_stream_tpu/ops/resize.py:404",
                      "resize_area's downscale branch, an XLA fusion (not a "
-                     "Pallas kernel)")]})
+                     "Pallas kernel)"), {
+        "name": "clip_augment", "route": "cuda",
+        "source": "tensor_stream_torch/csrc/clip_augment.cu",
+        "replaces": "tensor_stream_tpu/ops/augment.py:198",
+        "replaces_note": "make_clip_augment_fn, an XLA fusion (not a "
+                         "Pallas kernel)",
+        "launches": sum(aug_paths.values()), "launches_by_path": aug_paths,
+        "launches_by_pass": {k: sum(v[f"clip_augment_{k}"]
+                                    for v in aug_runs.values())
+                             for k in aug_ops.PASSES},
+        "max_abs_err": aug_worst["float32"],
+        "max_abs_err_by_dtype": aug_worst,
+        "shape": [AUG_CLIPS, AUG_CLIP_LEN, 3, SIDE, SIDE],
+        "ms": aug_head["kernel_ms"], "plain_ms": aug_head["kernel_plain_ms"],
+        "bound_ms": aug_head["kernel_bound_ms"],
+        "bound_by": aug_head["kernel_bound_by"], "library_ms": None}]})
     print(smi, flush=True)
 
 

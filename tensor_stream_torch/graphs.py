@@ -43,7 +43,8 @@ inlines a jitted function). Nothing falls back: a capture or replay that
 fails raises.
 
 The kernels' launch counters (``ops/nv12_rgb.py``, ``ops/resize.py``,
-``ops/flash_attention.py``, and the ring's hops, ``ops/ring_attention.py``)
+``ops/augment.py``, ``ops/flash_attention.py``, and the ring's hops,
+``ops/ring_attention.py``)
 move only when Python calls a wrapper. A capture records what its
 wrappers added (``snapshot``, ``difference``), takes it back (nothing ran),
 and each replay adds it again (``add``).
@@ -52,13 +53,14 @@ from typing import Callable, Dict
 
 import torch
 
-from .ops import flash_attention, nv12_rgb, resize, ring_attention
+from .ops import augment, flash_attention, nv12_rgb, resize, ring_attention
 
 # The counters a replay must advance: (module, attribute) pairs, each an
 # int or a dict of ints.
 COUNTERS = tuple(
     [(nv12_rgb, name) for name in ("launches", "launches_by_variant")]
     + [(resize, name) for name in ("launches", "area_launches_by_variant")]
+    + [(augment, name) for name in ("launches", "launches_by_pass")]
     + [(flash_attention, name) for name in (
         "launches", "launches_by_mode", "recompute_launches", "bwd_launches",
         "bwd_launches_by_design", "dout_copies")]

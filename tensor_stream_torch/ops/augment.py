@@ -19,17 +19,27 @@ reproduce ``jax.random``, so the transform is split in two:
   epoch, identity) always gives the same parameters, so a resumed loader
   replays the same augmentation, and the device program reads no random
   state and nothing on the host (a CUDA graph can capture it).
-- ``apply_clip_augment`` applies given parameters to a batch of clips in
-  float32 torch ops, on whatever device the clips lie.
+- ``apply_clip_augment`` applies given parameters to a batch of clips
+  through the operator ``ts::clip_augment`` (``ops/_library.py``): on CUDA
+  tensors the hand-written kernel of ``csrc/clip_augment.cu`` (two passes
+  with contrast, one without; ``launches`` and ``launches_by_pass`` count
+  them), on CPU tensors ``clip_augment_plain``, the float32 torch ops.
+  There is no fallback between the two.
 
 The distributions and clamps are the JAX package's (its ``_sample_rect``,
 ``_factor`` and the erase draw); only the random bits differ.
 """
+import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .. import _build
+from .._device import kernel_device
+from . import _library
 
 # ITU-R BT.601 luma weights (torchvision rgb_to_grayscale).
 _GRAY_RGB = (0.299, 0.587, 0.114)
@@ -235,6 +245,288 @@ def _per_clip(params, name, ndim):
     return params[:, _COL[name]].reshape((-1,) + (1,) * (ndim - 1))
 
 
+OPS = ("resize", "rect", "flip", "brightness", "contrast", "saturation",
+       "hue", "normalize", "erase")
+OP_BITS = {name: 1 << k for k, name in enumerate(OPS)}
+
+
+def op_flags(cfg: AugmentConfig) -> int:
+    """The operations `cfg` applies, as a mask of ``OPS`` bits: "resize" a
+    static output size, "rect" a sampled crop rect, "flip" a drawn flip,
+    each jitter, "normalize" mean/std, "erase" RandomErasing. 0 for the
+    identity."""
+    on = (bool(cfg.width), cfg.samples_rect, cfg.hflip > 0,
+          cfg.brightness > 0, cfg.contrast > 0, cfg.saturation > 0,
+          cfg.hue > 0, bool(cfg.mean), cfg.erase > 0)
+    return sum(OP_BITS[name] for name, flag in zip(OPS, on) if flag)
+
+
+def channel_mixes(bgr: bool):
+    """(gray weights [3], RGB->YIQ [3, 3], YIQ->RGB [3, 3]) float32 in the
+    tensor's channel order: BGR permutes the gray weights, the RGB->YIQ
+    columns and the YIQ->RGB rows."""
+    gray_w = np.asarray(_GRAY_RGB, np.float32)
+    yiq, yiq_inv = _RGB2YIQ, _YIQ2RGB
+    if bgr:
+        gray_w = gray_w[::-1].copy()
+        yiq = yiq[:, ::-1].copy()
+        yiq_inv = yiq_inv[::-1, :].copy()
+    return gray_w, yiq, yiq_inv
+
+
+def _cast(x, dt):
+    if dt == torch.uint8:
+        return torch.round(x).clamp(0.0, 255.0).to(torch.uint8)
+    return x.to(dt)
+
+
+@functools.lru_cache(maxsize=64)
+def _plain_constants(device: str, src_h: int, src_w: int, mean: tuple,
+                     std: tuple):
+    """(mean, std, the full-frame rect) as float32 tensors on `device`,
+    made once per device and config on the first (eager) call, so that a
+    CUDA graph's capture of the plain version copies nothing from the
+    host."""
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.tensor(std, dtype=torch.float32, device=device),
+            torch.tensor([0.0, 0.0, float(src_h), float(src_w)],
+                         dtype=torch.float32, device=device))
+
+
+def clip_augment_plain(clips, params, planar: bool, out_h: int, out_w: int,
+                       ops: int, mean, std, unit: float, bgr: bool,
+                       out_dtype):
+    """The plain torch version of ``ts::clip_augment``, on whatever device
+    the clips lie: `ops` (``op_flags``) applied with the per-clip
+    `params` to ``clips`` ([B, T, ...], frames of any size; the output
+    frames are out_h x out_w), math in float32, cast to `out_dtype`."""
+    on = {name: bool(ops & bit) for name, bit in OP_BITS.items()}
+    h_axis, w_axis, c_axis = (3, 4, 2) if planar else (2, 3, 4)
+    src_h, src_w = clips.shape[h_axis], clips.shape[w_axis]
+    gray_w, yiq, yiq_inv = channel_mixes(bgr)
+    spatial = on["resize"] or on["flip"]
+    n_jitter = sum(on[k] for k in ("brightness", "contrast", "saturation",
+                                   "hue"))
+    x = clips.to(torch.float32)
+    p = params.to(torch.float32)
+    consts = _plain_constants(str(x.device), src_h, src_w, tuple(mean),
+                              tuple(std))
+    if spatial:
+        if on["rect"]:
+            rect = p[:, :4]
+        else:
+            rect = consts[2].expand(p.shape[0], 4)
+        y0, x0, rh, rw = (rect[:, k:k + 1] for k in range(4))
+        flip = (p[:, _COL["flip"]:_COL["flip"] + 1] > 0.5
+                if on["flip"] else None)
+        ys = _grid_1d(out_h, y0, rh)
+        xs = _grid_1d(out_w, x0, rw, flip)
+        x = _gather_lerp(x, ys, h_axis, src_h)
+        x = _gather_lerp(x, xs, w_axis, src_w)
+    if n_jitter or on["normalize"]:
+        x = torch.movedim(x, c_axis, -1)  # [..., 3] for channel math
+        nd = x.dim()
+        # Channel mixes are written elementwise in float32, as the JAX
+        # package writes them.
+        if on["brightness"]:
+            x = x * _per_clip(p, "brightness", nd)
+        if on["contrast"]:
+            m = _dot3(x, gray_w).flatten(1).mean(dim=1)
+            m = m.reshape((-1,) + (1,) * (nd - 1))
+            x = (x - m) * _per_clip(p, "contrast", nd) + m
+        if on["saturation"]:
+            g = _dot3(x, gray_w)[..., None]
+            x = g + (x - g) * _per_clip(p, "saturation", nd)
+        if on["hue"]:
+            theta = _per_clip(p, "theta", nd - 1)
+            c, s = torch.cos(theta), torch.sin(theta)
+            lum = _dot3(x, yiq[0])
+            i0, q0 = _dot3(x, yiq[1]), _dot3(x, yiq[2])
+            i1 = c * i0 - s * q0
+            q1 = s * i0 + c * q0
+            x = torch.stack(
+                [lum * float(yiq_inv[ch, 0]) + i1 * float(yiq_inv[ch, 1])
+                 + q1 * float(yiq_inv[ch, 2]) for ch in range(3)],
+                dim=-1)
+        if n_jitter:
+            x = x.clamp(0.0, unit)
+        if on["normalize"]:
+            x = (x - consts[0]) / consts[1]
+        x = torch.movedim(x, -1, c_axis)
+    if on["erase"]:
+        nd = x.dim()
+        e = {k: p[:, _COL[k]:_COL[k] + 1] for k in (
+            "erase_y0", "erase_x0", "erase_h", "erase_w")}
+        rows = torch.arange(out_h, dtype=torch.float32, device=x.device)
+        cols = torch.arange(out_w, dtype=torch.float32, device=x.device)
+        in_y = (rows >= e["erase_y0"]) & (
+            rows < e["erase_y0"] + e["erase_h"])
+        in_x = (cols >= e["erase_x0"]) & (
+            cols < e["erase_x0"] + e["erase_w"])
+        shape_y = [x.shape[0]] + [1] * (nd - 1)
+        shape_y[h_axis] = out_h
+        shape_x = [x.shape[0]] + [1] * (nd - 1)
+        shape_x[w_axis] = out_w
+        do = _per_clip(p, "erase", nd) > 0.5
+        inside = in_y.view(shape_y) & in_x.view(shape_x)
+        x = torch.where(do & inside, 0.0, x)
+    return _cast(x, out_dtype)
+
+
+# ------------------------------------------------------------ the kernel
+
+# Output dtypes the kernel writes, by its code (csrc/clip_augment.cu
+# OutKind).
+OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+             torch.uint8: 3}
+SMEM = 227 * 1024  # shared memory a block can hold
+MEAN_BLOCKS = 32  # pass 1's blocks a clip
+PASSES = ("mean", "apply")
+
+launches = 0
+launches_by_pass = dict.fromkeys(PASSES, 0)
+
+_FN = None
+
+
+def reset_counts():
+    global launches
+    launches = 0
+    for k in PASSES:
+        launches_by_pass[k] = 0
+
+
+def _lib():
+    global _FN
+    if _FN is None:
+        fn = _build.load("clip_augment").ts_clip_augment
+        v = ctypes.c_void_p
+        fn.restype = ctypes.c_int
+        fn.argtypes = [v, v, v, v, v, v, v]
+        _FN = fn
+    return _FN
+
+
+def output_shape(shape, planar: bool, out_h: int, out_w: int):
+    b, t = shape[:2]
+    return (b, t, 3, out_h, out_w) if planar else (b, t, out_h, out_w, 3)
+
+
+@functools.lru_cache(maxsize=64)
+def pack_constants(mean, std, unit: float, bgr: bool) -> np.ndarray:
+    """The kernel's Consts (csrc/clip_augment.cu), 28 float32: the gray
+    weights, RGB->YIQ and YIQ->RGB (row-major), all in the tensor's
+    channel order (``channel_mixes``), then mean, std and unit. `mean` and
+    `std` are tuples. Read-only."""
+    gray_w, yiq, yiq_inv = channel_mixes(bgr)
+    out = np.concatenate([gray_w, yiq.reshape(-1), yiq_inv.reshape(-1),
+                          np.asarray(mean, np.float32),
+                          np.asarray(std, np.float32),
+                          np.asarray([unit], np.float32)]).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def launch_dims(shape, in_dtype, params_shape, planar: bool, out_h: int,
+                out_w: int, ops: int, out_dtype) -> np.ndarray:
+    """The kernel's dims (B, T, H, W, out H, out W, ops, planar, input u8,
+    output kind, pass 1's blocks a clip) as int32, after checking what the
+    kernel takes; raises on anything else. Read-only.
+
+    Pass 1 (with contrast) holds the taps of every output row and column
+    and the weights of every source row and column in shared memory."""
+    if len(shape) != 5 or shape[2 if planar else 4] != 3:
+        raise ValueError(f"clips {shape}: expected [B, T, 3, H, W] "
+                         "(planar) or [B, T, H, W, 3] (merged)")
+    if in_dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"the kernel reads uint8 or float32 clips, got "
+                        f"{in_dtype}")
+    if out_dtype not in OUT_TYPES:
+        raise TypeError(f"the kernel writes {list(OUT_TYPES)}, not "
+                        f"{out_dtype}")
+    b, t = shape[:2]
+    h, w = shape[3:5] if planar else shape[2:4]
+    if tuple(params_shape) != (b, len(PARAMS)):
+        raise ValueError(f"params {tuple(params_shape)}: expected "
+                         f"({b}, {len(PARAMS)})")
+    if not (ops & (OP_BITS["resize"] | OP_BITS["flip"])) and (out_h, out_w) != (
+            h, w):
+        raise ValueError(f"output {out_h}x{out_w} without a spatial op "
+                         f"must be the frames' {h}x{w}")
+    if not (0 < b <= 65535 and 0 < t <= 65535) or min(h, w, out_h,
+                                                      out_w) < 1:
+        raise ValueError(f"clips {shape} -> {out_h}x{out_w}: outside the "
+                         "kernel's grid")
+    if 3 * max(h * w, out_h * out_w) >= 2 ** 31 or t * h >= 2 ** 31:
+        raise ValueError(f"frames of {h}x{w} -> {out_h}x{out_w} exceed the "
+                         "kernel's 32-bit frame indexing")
+    smem = (out_h + out_w) * 12 + (h + w) * 4
+    if ops & OP_BITS["contrast"] and smem > SMEM:
+        raise ValueError(f"frames of {h}x{w} -> {out_h}x{out_w}: the clip "
+                         f"mean's tables take {smem} bytes, more than a "
+                         f"block's {SMEM} of shared memory")
+    dims = np.asarray([b, t, h, w, out_h, out_w, ops, int(planar),
+                       int(in_dtype == torch.uint8), OUT_TYPES[out_dtype],
+                       min(MEAN_BLOCKS, t * h)], np.int32)
+    dims.flags.writeable = False
+    return dims
+
+
+def _empty_out(clips, planar, out_h, out_w, out_dtype):
+    return clips.new_empty(output_shape(clips.shape, planar, out_h, out_w),
+                           dtype=out_dtype)
+
+
+def _clip_augment_cuda(clips, params, planar, out_h, out_w, ops, mean, std,
+                       unit, bgr, out_dtype):
+    """The kernel: casts clips of another dtype to float32 (the plain
+    version's first op), checks, launches pass 1 (with contrast) and
+    pass 2, and counts."""
+    _library.on_one_device(clips, params, cuda=True)
+    if clips.dtype not in (torch.uint8, torch.float32):
+        clips = clips.to(torch.float32)
+    params = params.to(torch.float32).contiguous()
+    dims = launch_dims(tuple(clips.shape), clips.dtype, tuple(params.shape),
+                       bool(planar), int(out_h), int(out_w), int(ops),
+                       out_dtype)
+    if not clips.is_contiguous():
+        raise ValueError("the kernel reads contiguous clips")
+    out = _empty_out(clips, planar, out_h, out_w, out_dtype)
+    contrast = bool(ops & OP_BITS["contrast"])
+    partials = (clips.new_empty(int(dims[0] * dims[10]),
+                                dtype=torch.float32) if contrast else None)
+    consts = pack_constants(tuple(mean), tuple(std), float(unit), bool(bgr))
+    with kernel_device(clips.device):
+        rc = _lib()(clips.data_ptr(), params.data_ptr(),
+                    partials.data_ptr() if contrast else None,
+                    out.data_ptr(), dims.ctypes.data, consts.ctypes.data,
+                    torch.cuda.current_stream(clips.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ts_clip_augment launch failed: cudaError {rc}")
+    global launches
+    launches += 1 + contrast
+    launches_by_pass["mean"] += contrast
+    launches_by_pass["apply"] += 1
+    return out
+
+
+def _clip_augment_cpu(clips, params, planar, out_h, out_w, ops, mean, std,
+                      unit, bgr, out_dtype):
+    # The plain version, its output in the fake's (contiguous) strides.
+    return clip_augment_plain(clips, params, planar, out_h, out_w, ops,
+                              mean, std, unit, bgr, out_dtype).contiguous()
+
+
+_OP = _library.define(
+    "clip_augment(Tensor clips, Tensor params, bool planar, int out_h, "
+    "int out_w, int ops, float[] mean, float[] std, float unit, bool bgr, "
+    "ScalarType out_dtype) -> Tensor",
+    cuda=_clip_augment_cuda, cpu=_clip_augment_cpu,
+    fake=lambda clips, params, planar, out_h, out_w, ops, mean, std, unit,
+    bgr, out_dtype: _empty_out(clips, planar, out_h, out_w, out_dtype))
+
+
 def make_clip_augment_fn(cfg: AugmentConfig, src_h: int, src_w: int,
                          planar: bool, unit: float = 1.0, bgr: bool = False,
                          out_dtype=None):
@@ -245,104 +537,28 @@ def make_clip_augment_fn(cfg: AugmentConfig, src_h: int, src_w: int,
     the same device (``sample_clip_params``). Math runs in float32 and
     the result is cast to `out_dtype` (default: the input dtype; uint8
     gets round and clamp). `unit` is the value scale (1.0 for normalized
-    tensors, 255.0 for u8-valued ones)."""
-    h_axis, w_axis, c_axis = (3, 4, 2) if planar else (2, 3, 4)
-    out_w, out_h = cfg.output_size(src_w, src_h)
-    gray_w = np.asarray(_GRAY_RGB, np.float32)
-    yiq, yiq_inv = _RGB2YIQ, _YIQ2RGB
-    if bgr:
-        gray_w = gray_w[::-1].copy()
-        yiq = yiq[:, ::-1].copy()
-        yiq_inv = yiq_inv[::-1, :].copy()
-    spatial = bool(cfg.width) or cfg.hflip > 0
-    n_jitter = sum(x > 0 for x in (cfg.brightness, cfg.contrast,
-                                   cfg.saturation, cfg.hue))
-    # Per-device constants, made on the first (eager) call so that a CUDA
-    # graph's capture copies nothing from the host.
-    consts = {}
+    tensors, 255.0 for u8-valued ones).
 
-    def constants(device):
-        key = str(device)
-        if key not in consts:
-            consts[key] = (
-                torch.tensor(cfg.mean or (0.0,) * 3, dtype=torch.float32,
-                             device=device),
-                torch.tensor(cfg.std or (1.0,) * 3, dtype=torch.float32,
-                             device=device),
-                torch.tensor([0.0, 0.0, float(src_h), float(src_w)],
-                             dtype=torch.float32, device=device))
-        return consts[key]
+    Calls the operator ``ts::clip_augment``: on CUDA tensors the kernel
+    of csrc/clip_augment.cu, on CPU tensors the plain version. The
+    identity config (``AugmentConfig()``) is the cast alone and calls
+    nothing."""
+    h_axis, w_axis = (3, 4) if planar else (2, 3)
+    out_w, out_h = cfg.output_size(src_w, src_h)
+    ops = op_flags(cfg)
+    mean = [float(v) for v in cfg.mean or (0.0,) * 3]
+    std = [float(v) for v in cfg.std or (1.0,) * 3]
 
     def fn(clips, params):
         if (clips.shape[h_axis], clips.shape[w_axis]) != (src_h, src_w):
             raise ValueError(f"clips {tuple(clips.shape)}: expected frames "
                              f"of {src_h}x{src_w}")
-        mean, std, full_rect = constants(clips.device)
-        x = clips.to(torch.float32)
-        p = params.to(torch.float32)
-        if spatial:
-            if cfg.width and cfg.samples_rect:
-                rect = p[:, :4]
-            else:
-                rect = full_rect.expand(p.shape[0], 4)
-            y0, x0, rh, rw = (rect[:, k:k + 1] for k in range(4))
-            flip = (p[:, _COL["flip"]:_COL["flip"] + 1] > 0.5
-                    if cfg.hflip > 0 else None)
-            ys = _grid_1d(out_h, y0, rh)
-            xs = _grid_1d(out_w, x0, rw, flip)
-            x = _gather_lerp(x, ys, h_axis, src_h)
-            x = _gather_lerp(x, xs, w_axis, src_w)
-        if n_jitter or cfg.mean:
-            x = torch.movedim(x, c_axis, -1)  # [..., 3] for channel math
-            nd = x.dim()
-            # Channel mixes are written elementwise in float32, as the JAX
-            # package writes them.
-            if cfg.brightness > 0:
-                x = x * _per_clip(p, "brightness", nd)
-            if cfg.contrast > 0:
-                m = _dot3(x, gray_w).flatten(1).mean(dim=1)
-                m = m.reshape((-1,) + (1,) * (nd - 1))
-                x = (x - m) * _per_clip(p, "contrast", nd) + m
-            if cfg.saturation > 0:
-                g = _dot3(x, gray_w)[..., None]
-                x = g + (x - g) * _per_clip(p, "saturation", nd)
-            if cfg.hue > 0:
-                theta = _per_clip(p, "theta", nd - 1)
-                c, s = torch.cos(theta), torch.sin(theta)
-                lum = _dot3(x, yiq[0])
-                i0, q0 = _dot3(x, yiq[1]), _dot3(x, yiq[2])
-                i1 = c * i0 - s * q0
-                q1 = s * i0 + c * q0
-                x = torch.stack(
-                    [lum * float(yiq_inv[ch, 0]) + i1 * float(yiq_inv[ch, 1])
-                     + q1 * float(yiq_inv[ch, 2]) for ch in range(3)],
-                    dim=-1)
-            if n_jitter:
-                x = x.clamp(0.0, unit)
-            if cfg.mean:
-                x = (x - mean) / std
-            x = torch.movedim(x, -1, c_axis)
-        if cfg.erase > 0:
-            nd = x.dim()
-            e = {k: p[:, _COL[k]:_COL[k] + 1] for k in (
-                "erase_y0", "erase_x0", "erase_h", "erase_w")}
-            rows = torch.arange(out_h, dtype=torch.float32, device=x.device)
-            cols = torch.arange(out_w, dtype=torch.float32, device=x.device)
-            in_y = (rows >= e["erase_y0"]) & (
-                rows < e["erase_y0"] + e["erase_h"])
-            in_x = (cols >= e["erase_x0"]) & (
-                cols < e["erase_x0"] + e["erase_w"])
-            shape_y = [x.shape[0]] + [1] * (nd - 1)
-            shape_y[h_axis] = out_h
-            shape_x = [x.shape[0]] + [1] * (nd - 1)
-            shape_x[w_axis] = out_w
-            do = _per_clip(p, "erase", nd) > 0.5
-            inside = in_y.view(shape_y) & in_x.view(shape_x)
-            x = torch.where(do & inside, 0.0, x)
         dt = out_dtype if out_dtype is not None else clips.dtype
-        if dt == torch.uint8:
-            return torch.round(x).clamp(0.0, 255.0).to(torch.uint8)
-        return x.to(dt)
+        if not ops:
+            return _cast(clips.to(torch.float32), dt)
+        _library.on_one_device(clips, params)
+        return _OP(clips, params, bool(planar), out_h, out_w, ops, mean, std,
+                   float(unit), bool(bgr), dt)
 
     return fn
 

@@ -8,7 +8,9 @@ the kernel on the rank's local shard, with no collective:
   batch (dim 0) or heads (dim 1) sharded, every tensor alike (GQA's fewer
   k/v heads split in the same proportion, which ``vit_param_specs``
   checks divides);
-* ``ts::nv12_to_rgb`` and ``ts::resize_*_nv12``: the batch (dim 0).
+* ``ts::nv12_to_rgb`` and ``ts::resize_*_nv12``: the batch (dim 0);
+* ``ts::clip_augment``: clips and their parameter rows (dim 0 of both),
+  since each clip is transformed alone (the contrast mean is per clip).
 
 Anything else is replicated first (DTensor redistributes to the all-
 replicate strategy). Importing this module registers the rules.
@@ -17,7 +19,7 @@ import torch
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 
-from ..ops import flash_attention, nv12_rgb, resize  # noqa: F401 (the ops)
+from ..ops import augment, flash_attention, nv12_rgb, resize  # noqa: F401
 
 
 def _rules(n_out, n_tensors, n_scalars, dims):
@@ -56,3 +58,9 @@ def _resize(y, uv, dst_w, dst_h, resize_type):
 for _name in ("resize_bilinear_nv12", "resize_bicubic_nv12",
               "resize_area_down_nv12"):
     register_sharding(getattr(torch.ops.ts, _name).default)(_resize)
+
+
+@register_sharding(torch.ops.ts.clip_augment.default)
+def _clip_augment(clips, params, planar, out_h, out_w, ops, mean, std, unit,
+                  bgr, out_dtype):
+    return _rules(1, 2, 9, (0,))

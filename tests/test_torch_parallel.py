@@ -111,6 +111,25 @@ def _ranks(rank, world, ckpt_dir):
     rgb = torch.ops.ts.nv12_to_rgb(ry, ruv, False, False, True,
                                    enums.ColorStandard.BT601.value)
     out["op_rules"] = ([str(p) for p in rgb.placements], _whole(rgb))
+    # ts::clip_augment on DTensors over "dp": clips and parameter rows
+    # sharded alike, each clip augmented on its rank (the contrast mean is
+    # per clip).
+    from tensor_stream_torch.ops import augment
+    aug = AugmentConfig(width=24, height=20, scale=(0.3, 1.0), hflip=0.5,
+                        brightness=0.4, contrast=0.4, mean=(0.45,) * 3,
+                        std=(0.225,) * 3, erase=0.5)
+    clips = np.random.default_rng(3).random((4, 2, 3, 30, 40), np.float32)
+    rows = augment.sample_clip_params(aug, 30, 40, 1, np.stack(
+        [np.zeros(4), np.arange(4)], axis=1))
+    args = (True, 20, 24, augment.op_flags(aug), list(aug.mean),
+            list(aug.std), 1.0, False, torch.float32)
+    got = torch.ops.ts.clip_augment(
+        *(distribute(torch.from_numpy(a), mesh, ("dp",))
+          for a in (clips, rows)), *args)
+    out["aug_rule"] = ([str(p) for p in got.placements], _whole(got),
+                       torch.ops.ts.clip_augment(
+                           torch.from_numpy(clips), torch.from_numpy(rows),
+                           *args).numpy())
     model, opt = make_train_state(mesh, 64, 64, batch=8,
                                   generator=torch.Generator().manual_seed(0))
     step = build_train_step(mesh, model, opt, vpp_cfg(pkg, 64))
@@ -289,6 +308,16 @@ def test_vpp_operators_run_on_each_ranks_frames(results):
         placements, rgb = r["op_rules"]
         assert placements == ["S(0)", "R"]
         np.testing.assert_array_equal(rgb, r["vpp"])
+
+
+def test_clip_augment_operator_runs_on_each_ranks_clips(results):
+    """ts::clip_augment called on DTensors sharded over "dp": its rule
+    keeps clips and parameter rows sharded, and the clips are the
+    single-device operator's."""
+    for r in results[0]:
+        placements, got, want = r["aug_rule"]
+        assert placements == ["S(0)", "R"]
+        np.testing.assert_array_equal(got, want)
 
 
 def test_sharded_train_step_runs_and_descends(results):
