@@ -20,8 +20,10 @@ kernels:
   (16 clips of 8 frames of 224², RandomResizedCrop, flip, ColorJitter,
   normalize), from 224² frames and from 1080p through the device
   resize, as one CUDA graph a batch, bit-equal to the eager run, every
-  batch through the clip_augment kernel, which is first held against its
-  plain version over layouts, dtypes, configs and edge cases;
+  batch through the clip augmentation kernel that reads the NV12 planes
+  (and no NV12 conversion), which is first held against the two-kernel
+  chain and its plain version over layouts, dtypes, colour standards,
+  configs and edge cases, as the tensor kernel is against its own;
 * serving: two streams of 224x224 NV12 frames -> MultiStreamLoader ->
   StreamInferencer, one 16-frame clip a stream a tick, into a VideoViT at
   ViT-B width (dim 768, depth 12, 12 heads, patch 16, tubelet 2, joint
@@ -87,7 +89,8 @@ kernels:
 Each kernel is a dispatcher operator of the ts library
 (tensor_stream_torch/ops/_library.py: ts::nv12_to_rgb, ts::flash_fwd,
 ts::flash_bwd, ts::resize_bilinear_nv12, ts::resize_bicubic_nv12,
-ts::resize_area_down_nv12, ts::clip_augment) whose CUDA kernel launches
+ts::resize_area_down_nv12, ts::clip_augment, ts::nv12_clip_augment)
+whose CUDA kernel launches
 the hand-written kernel, whose CPU kernel is the plain version and whose
 fake gives the
 outputs' shapes and strides: a program that torch.export traces, on the
@@ -140,6 +143,7 @@ import ctypes
 import inspect
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -180,7 +184,8 @@ from tensor_stream_torch.ops.metrics import psnr, ssim
 from tensor_stream_torch.serving import StreamInferencer
 from tensor_stream_torch.ops.vpp import (VPPConfig, build_vpp,
                                          build_vpp_batched_flat,
-                                         build_vpp_clip_augment, make_vpp_fn)
+                                         build_vpp_clip_augment,
+                                         make_nv12_stage_fn, make_vpp_fn)
 from tensor_stream_torch.parallel import accumulate_gradients
 from tensor_stream_torch.tensor_stream import (FrameParameters,
                                                TensorStreamConverter)
@@ -1128,22 +1133,153 @@ def phase_clip_augment_vs_plain(device):
     return worst
 
 
+# The NV12 kernel (ts::nv12_clip_augment): AUG_CASES read from NV12 planes
+# (a float input is the NV12 kernel's normalized output, u8 its bytes), and
+# besides them a BT.709 limited, a BT.709 full-range and a cropped source.
+# (name, case of AUG_CASES, colour standard, crop (left, top) of a source
+# 32 columns and 16 rows larger, or None).
+NV12_AUG_CASES = tuple((c[0], c, 0, None) for c in AUG_CASES) + (
+    ("bt709_bgr", AUG_CASES[1], 1, None),
+    ("bt709_full_u8", AUG_CASES[5], 3, None),
+    ("cropped_source", AUG_CASES[0][:2] + (4,) + AUG_CASES[0][3:], 0,
+     (10, 6)),
+)
+
+
+def nv12_aug_case_inputs(case, seed, device):
+    """A case's seeded NV12 planes [B*T, H, W] (cropped out of a larger
+    source where it asks, then made contiguous, as the VPP does) and its
+    parameter rows (``aug_case_inputs``'s), on the card."""
+    _, aug_case, _, crop = case
+    _, cfg, b, t, (h, w) = aug_case[:5]
+    _, params = aug_case_inputs(aug_case, seed, device)
+    pad_h, pad_w = (16, 32) if crop else (0, 0)
+    flat = seeded_nv12(b * t, h + pad_h, w + pad_w, seed)
+    y, uv = split(torch.from_numpy(flat), b * t, h + pad_h, w + pad_w)
+    if crop:
+        y, uv = crop_nv12(y, uv, crop[0], crop[1], crop[0] + w, crop[1] + h)
+    return (y.contiguous().to(device), uv.contiguous().to(device), params)
+
+
+def nv12_aug_args(case):
+    """The operator's arguments after the planes and rows."""
+    _, aug_case, standard, _ = case
+    _, cfg, b, t, (h, w), planar, in_dt, out_dt, unit, bgr = aug_case
+    out_w, out_h = cfg.output_size(w, h)
+    return (bgr, in_dt != torch.uint8, standard, planar, out_h, out_w,
+            aug_ops.op_flags(cfg), list(cfg.mean or (0.0,) * 3),
+            list(cfg.std or (1.0,) * 3), unit, out_dt)
+
+
+def nv12_aug_counts():
+    return {"nv12_clip_augment": aug_ops.nv12_launches,
+            **{f"nv12_clip_augment_{k}": v
+               for k, v in aug_ops.nv12_launches_by_pass.items()},
+            **{f"nv12_clip_augment_{k}": v
+               for k, v in aug_ops.nv12_launches_by_mode.items()}}
+
+
+def phase_nv12_clip_augment_vs_plain(device):
+    """The NV12 kernel on the card, for every case of NV12_AUG_CASES,
+    launched twice: the two runs bit-equal; against the two-kernel chain
+    on the card (the NV12 kernel, then ts::clip_augment on its output)
+    bit-equal without contrast and within augment_rule with it (pass 1
+    sums in the chain's order, so bit-equal is expected there too); within
+    augment_rule of the plain version on the host copy of the inputs; the
+    erase and flip firing where AUG_MUST_FIRE asks. Both of the kernel's
+    ways to read its source must run: rows staged by TMA and taps gathered
+    from device memory. Returns the worst error against the host by
+    output dtype."""
+    worst, rows, modes = {}, [], dict.fromkeys(aug_ops.NV12_MODES, 0)
+    for i, case in enumerate(NV12_AUG_CASES):
+        name, aug_case = case[:2]
+        cfg, b, t = aug_case[1:4]
+        y, uv, params = nv12_aug_case_inputs(case, 90 + i, device)
+        args = nv12_aug_args(case)
+        (bgr, norm, standard, planar, out_h, out_w, ops, mean, std, unit,
+         out_dt) = args
+        aug_ops.reset_counts()
+        nv12_rgb.reset_counts()
+        runs = [torch.ops.ts.nv12_clip_augment(y, uv, params, *args)
+                for _ in range(2)]
+        went = nv12_aug_counts()
+        contrast = bool(ops & aug_ops.OP_BITS["contrast"])
+        if (went["nv12_clip_augment"] != 2 * (1 + contrast)
+                or nv12_rgb.launches or aug_ops.launches):
+            raise AssertionError(f"nv12_clip_augment_vs_plain {name}: "
+                                 f"launches {went}, nv12_rgb "
+                                 f"{nv12_rgb.launches}, clip_augment "
+                                 f"{aug_ops.launches}")
+        for k in aug_ops.NV12_MODES:
+            modes[k] += went[f"nv12_clip_augment_{k}"]
+        rgb = nv12_rgb.nv12_to_rgb(y, uv, bgr, planar, norm, standard)
+        rgb = rgb.reshape((b, t) + tuple(rgb.shape[1:]))
+        chain = torch.ops.ts.clip_augment(rgb, params, planar, out_h, out_w,
+                                          ops, mean, std, unit, bgr, out_dt)
+        chain_equal = bytes_equal(runs[0], chain)
+        chain_ok = chain_equal or (contrast and augment_rule(
+            runs[0].cpu(), chain.cpu(), out_dt)[0])
+        want = aug_ops.nv12_clip_augment_plain(y.cpu(), uv.cpu(),
+                                               params.cpu(), *args)
+        ok, nums = augment_rule(runs[0].cpu(), want, out_dt)
+        p = params.cpu().numpy()
+        fired = {k: int((p[:, aug_ops.PARAMS.index(k)] > 0.5).sum())
+                 for k in ("flip", "erase")}
+        row = {"case": name, "planes": [list(y.shape), list(uv.shape)],
+               "standard": standard, "normalization": norm,
+               "out": str(out_dt)[6:], "layout": "planar" if planar
+               else "merged", "bgr": bgr, "ops": [
+                   k for k in aug_ops.OPS if ops & aug_ops.OP_BITS[k]],
+               "launches": went["nv12_clip_augment"],
+               "mode": [k for k in aug_ops.NV12_MODES
+                        if went[f"nv12_clip_augment_{k}"]],
+               "fired": fired, "chain_bit_equal": chain_equal,
+               "relaunch_bit_equal": bytes_equal(runs[0], runs[1]), **nums}
+        rows.append(row)
+        if not (ok and chain_ok and row["relaunch_bit_equal"]):
+            raise AssertionError(f"nv12_clip_augment_vs_plain {name}: {row}")
+        for k in AUG_MUST_FIRE.get(name, ()):
+            if not fired[k]:
+                raise AssertionError(f"nv12_clip_augment_vs_plain {name}: "
+                                     f"no clip drew the {k}")
+        key = str(out_dt)[6:]
+        worst[key] = max(worst.get(key, 0.0), nums["max_abs_err"])
+    if not (modes["gather"] and modes["staged"]):
+        raise AssertionError(f"nv12_clip_augment_vs_plain: launches by "
+                             f"mode {modes}: both ways must run")
+    emit({"phase": "nv12_clip_augment_vs_plain", "cases": rows,
+          "launches_by_mode": modes,
+          "reference": "nv12_clip_augment_plain on the host copy of the "
+                       "inputs; the chain nv12_rgb -> clip_augment on the "
+                       "card",
+          "rule": "chain: bit-equal (within augment_rule with contrast); "
+                  "host: augment_rule", "max_abs_err": worst})
+    return worst
+
+
 AUG_OPS_PER_PIXEL = {  # float32 operations an output pixel (3 channels)
     "spatial": 36,      # 3 lerps a channel, 4 operations each
     "brightness": 3, "contrast": 15,  # 9, and 6 for the clip's gray sum
     "saturation": 14, "hue": 36, "clamp": 6, "normalize": 6}
+# float32 operations of one NV12 pixel's conversion (nv12.cuh Rgb: the luma
+# offset, clamp and scale; R, B one multiply and two adds, G two of each).
+NV12_OPS_PER_PIXEL = 13
 
 
-def augment_work(cfg, params, frames, h, w, planar, in_size, out_size):
+def augment_work(cfg, params, frames, h, w, planar, in_size, out_size,
+                 nv12=False):
     """(bytes, operations) of one kernel call on `params` ([B, 14] numpy):
     every 32-byte sector of the source that the taps touch read once
     (frames start 32-byte aligned), the parameters, and the output written
-    once; AUG_OPS_PER_PIXEL of each operation the config applies."""
+    once; AUG_OPS_PER_PIXEL of each operation the config applies. With
+    `nv12` the source is NV12 planes: Y at 1 byte a pixel, and the U/V
+    pairs of the chroma rows and columns that the taps read, each pixel
+    they touch converted once (NV12_OPS_PER_PIXEL)."""
     ops = aug_ops.op_flags(cfg)
     on = {k: bool(ops & bit) for k, bit in aug_ops.OP_BITS.items()}
     out_w, out_h = cfg.output_size(w, h)
     col = {k: i for i, k in enumerate(aug_ops.PARAMS)}
-    sectors = 0
+    sectors = touched = 0
     for row in params:
         if on["resize"] or on["flip"]:
             y0, x0, rh, rw = (row[:4] if on["rect"] else
@@ -1163,7 +1299,13 @@ def augment_work(cfg, params, frames, h, w, planar, in_size, out_size):
         else:
             rows, cols = np.arange(h), np.arange(w)
         pix = rows[:, None] * w + cols[None, :]
-        if planar:  # 3 planes of the same sectors
+        if nv12:
+            chroma = (np.unique(rows >> 1)[:, None] * w
+                      + np.unique(cols & ~1)[None, :])
+            sectors += np.unique(pix // 32).size + np.unique(
+                np.concatenate([chroma, chroma + 1]).ravel() // 32).size
+            touched += pix.size
+        elif planar:  # 3 planes of the same sectors
             sectors += 3 * np.unique(pix * in_size // 32).size
         else:
             sectors += np.unique(np.concatenate([
@@ -1178,13 +1320,67 @@ def augment_work(cfg, params, frames, h, w, planar, in_size, out_size):
                if on[k])
            + AUG_OPS_PER_PIXEL["clamp"] * any(on[k] for k in (
                "brightness", "contrast", "saturation", "hue")))
-    return nbytes, pixels * per
+    return nbytes, pixels * per + frames * touched * NV12_OPS_PER_PIXEL
 
 
 def aug_counts():
     return {"clip_augment": aug_ops.launches,
             **{f"clip_augment_{k}": v
                for k, v in aug_ops.launches_by_pass.items()}}
+
+
+def pass_split(fn, calls=20):
+    """Device µs a call of each kernel that `fn` launches, by kernel name,
+    from torch.profiler over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.search(r"(\w+)[<(]", e.key).group(1):
+            e.device_time_total / e.count
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def nv12_kernel_run(device, cfg, flat, p0, params0):
+    """The NV12 augmentation kernel alone on a batch's planes after the
+    VPP's crop and resize: checked against its plain version on the host
+    (augment_rule), timed beside the plain version on the card and its
+    bound, its time split by pass."""
+    n = AUG_CLIPS * AUG_CLIP_LEN
+    h, w = cfg.src_height, cfg.src_width
+    ys, uvs = split(flat, n, h, w)
+    y, uv = (t.contiguous() for t in make_nv12_stage_fn(cfg)(ys, uvs))
+    fn = aug_ops.make_nv12_clip_augment_fn(BENCH_AUG, SIDE, SIDE, True,
+                                           False, True, 0, torch.float32)
+    ops = aug_ops.op_flags(BENCH_AUG)
+    args = (False, True, 0, True, SIDE, SIDE, ops, list(BENCH_AUG.mean),
+            list(BENCH_AUG.std), 1.0, torch.float32)
+    got = fn(y, uv, p0)
+    want = aug_ops.nv12_clip_augment_plain(y.cpu(), uv.cpu(), p0.cpu(),
+                                           *args)
+    ok, nums = augment_rule(got.cpu(), want, torch.float32)
+    if not ok:
+        raise AssertionError(f"nv12_clip_augment vs plain on the VPP's "
+                             f"planes: {nums}")
+    before = dict(aug_ops.nv12_launches_by_mode)
+    ms, p10, p90 = time_ms(lambda: fn(y, uv, p0), device)
+    mode = [k for k, v in aug_ops.nv12_launches_by_mode.items()
+            if v != before[k]]
+    plain_ms = time_ms(lambda: aug_ops.nv12_clip_augment_plain(
+        y, uv, p0, *args), device, iters=20, warmup=3)[0]
+    nbytes, flops = augment_work(BENCH_AUG, params0, AUG_CLIP_LEN, SIDE,
+                                 SIDE, True, 1, 4, nv12=True)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    return {"ms": ms, "p10_ms": p10, "p90_ms": p90, "plain_ms": plain_ms,
+            "mode": mode, "split_us": pass_split(lambda: fn(y, uv, p0)),
+            "vs_plain": nums, "bytes": nbytes, "ops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": max(bytes_ms, ops_ms) / ms}
 
 
 def clip_augment_run(device, source):
@@ -1199,7 +1395,8 @@ def clip_augment_run(device, source):
     aug_ops.reset_counts()
     outs = [fn(flat, aug_ids(k)) for k in range(AUG_CALLS)]
     torch.cuda.synchronize()
-    graphed_launches = {**resize_counts(), **aug_counts()}
+    graphed_launches = {**resize_counts(), **aug_counts(),
+                        **nv12_aug_counts()}
     check_replays(graph, AUG_CALLS, f"clip_augment {source}")
     want_shape = (AUG_CLIPS, AUG_CLIP_LEN, 3, SIDE, SIDE)
     for o in outs:
@@ -1214,33 +1411,38 @@ def clip_augment_run(device, source):
         if not bitwise_equal(graph.fn(flat, params), o):
             raise AssertionError(f"clip_augment {source}: batch {k}, "
                                  "graphed != eager")
-    eager_launches = {**resize_counts(), **aug_counts()}
-    # The augmentation kernel ran every batch, graphed and eager: pass 1
-    # (the clip's mean gray, with contrast) and pass 2.
+    eager_launches = {**resize_counts(), **aug_counts(),
+                      **nv12_aug_counts()}
+    # Every batch, graphed and eager, went through the NV12 augmentation
+    # kernel, pass 1 (the clip's mean gray, with contrast) and pass 2, and
+    # through neither the NV12 conversion nor the tensor augmentation
+    # kernel: no RGB frames were written between the two.
     passes = 1 + (BENCH_AUG.contrast > 0)
     for label, got in (("graphed", graphed_launches),
                        ("eager", eager_launches)):
-        want = {"clip_augment": passes * AUG_CALLS,
-                "clip_augment_mean": (passes - 1) * AUG_CALLS,
-                "clip_augment_apply": AUG_CALLS}
+        want = {"nv12_clip_augment": passes * AUG_CALLS,
+                "nv12_clip_augment_mean": (passes - 1) * AUG_CALLS,
+                "nv12_clip_augment_apply": AUG_CALLS,
+                "nv12_rgb": 0, "clip_augment": 0,
+                "resize_bilinear_nv12": AUG_CALLS * (source != "224")}
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"clip_augment {source} {label}: launches "
                                  f"{got}, want {want}: the path bypassed "
-                                 "the augmentation kernel")
+                                 "the NV12 augmentation kernel")
     if not bitwise_equal(fn(flat, aug_ids(0)), outs[0]):
         raise AssertionError(f"clip_augment {source}: the same ids gave "
                              "other bytes")
     # The identity config is the plain VPP, bit for bit.
     plain_vpp = build_vpp_batched_flat(cfg, n, device)
     plain = plain_vpp(flat)
-    before = aug_ops.launches
+    before = (aug_ops.launches, aug_ops.nv12_launches)
     ident = build_vpp_clip_augment(cfg, AugmentConfig(), AUG_CLIPS,
                                    AUG_CLIP_LEN, 0, device)(flat, aug_ids(0))
     if not bitwise_equal(ident, plain.view(want_shape)):
         raise AssertionError(f"clip_augment {source}: identity != plain VPP")
-    if aug_ops.launches != before:
+    if (aug_ops.launches, aug_ops.nv12_launches) != before:
         raise AssertionError(f"clip_augment {source}: the identity config "
-                             "launched the augmentation kernel")
+                             "launched an augmentation kernel")
     # One transform a clip: a clip of one repeated frame stays so.
     rep = torch.from_numpy(repeated_frame_staging(n, h, w, AUG_CLIP_LEN,
                                                   43)).to(device)
@@ -1279,6 +1481,7 @@ def clip_augment_run(device, source):
                                  SIDE, True, 4, 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOP_PER_S * 1e3
+    fused = nv12_kernel_run(device, cfg, flat, p0, params0)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for k in range(20):
@@ -1303,16 +1506,44 @@ def clip_augment_run(device, source):
             "kernel_bound_by": "bytes" if bytes_ms >= ops_ms
             else "operations",
             "kernel_share_of_bound": max(bytes_ms, ops_ms) / kernel_ms,
+            "nv12_kernel": fused,
             "wall_ms_per_call": wall * 1e3, "wall_frames_per_s": n / wall}
+
+
+def sass_mix(source="clip_augment", kernels=("ClipApply", "Nv12ClipApply",
+                                               "ClipGraySum")):
+    """Each named kernel of csrc/<source>.cu by its SASS (cuobjdump -sass
+    of the built library; every instantiation of the name): instructions
+    and the float operations among them (FADD, FMUL, FFMA). On the card's
+    machine, after the build."""
+    path = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([path, "-sass", _build.lib_path(source)],
+                          capture_output=True, text=True, check=True).stdout
+    rows = []
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        # A mangled name holds the kernel's as <length><name>I<args>.
+        kernel = next((k for k in kernels if f"{len(k)}{k}I" in name), None)
+        if kernel is None:
+            continue
+        # "/*0a40*/  @!P0 FMUL R1, ..." -> FMUL
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)
+        rows.append({"kernel": kernel, "symbol": name.strip(),
+                     "instructions": len(ops), "float_ops": sum(
+                         op in ("FADD", "FMUL", "FFMA") for op in ops)})
+    emit({"phase": "sass_mix", "source": source, "kernels": rows})
+    return rows
 
 
 def phase_clip_augment(device, smi):
     """bench_device_augment's configuration, (a) on 224² frames and (b)
     from 1080p through the device bilinear resize; graphed and eager
-    bit-equal, each batch through the augmentation kernel; identity =
-    plain VPP; one transform a clip; the same ids the same bytes; the
-    kernel alone on the VPP's output beside the plain version and the
-    bound."""
+    bit-equal, each batch through the NV12 augmentation kernel and no
+    NV12 conversion; identity = plain VPP; one transform a clip; the same
+    ids the same bytes; the NV12 kernel alone on the batch's planes, and
+    the tensor kernel on the VPP's output, each beside its plain version
+    and its bound."""
     runs = {src: clip_augment_run(device, src) for src in ("224", "1080p")}
     emit({"phase": "clip_augment", "card": smi,
           "augment": {k: v for k, v in BENCH_AUG.__dict__.items()},
@@ -3305,6 +3536,63 @@ def ab_turns(other_root, code, blocks):
     return got, order, roots
 
 
+# bench_device_augment's batches as clip_augment_run makes them (seed 41,
+# the ids of batch k), through the checkout's build_vpp_clip_augment: (a)
+# and (b)'s device ms a batch (the graph's replay) and wall ms a call over
+# 200 calls; the NV12 augmentation kernel alone on (a)'s planes, where the
+# checkout has it, with its split by pass.
+AUGMENT_AB_SNIPPET = """
+import json, time, numpy as np, torch, chip_smoke as c
+from tensor_stream_torch.ops import augment as aug_ops
+HOLD_CYCLES = {hold}
+{timer}
+dev = torch.device("cuda", 0)
+n = c.AUG_CLIPS * c.AUG_CLIP_LEN
+row = {{}}
+for source in ("224", "1080p"):
+    cfg = c.aug_cfg(source)
+    flat = torch.from_numpy(c.seeded_nv12(n, cfg.src_height, cfg.src_width,
+                                          41)).to(dev)
+    fn = c.build_vpp_clip_augment(cfg, c.BENCH_AUG, c.AUG_CLIPS,
+                                  c.AUG_CLIP_LEN, 0, dev)
+    for k in range(c.AUG_CALLS):
+        fn(flat, c.aug_ids(k))
+    device_ms = time_ms(fn.graphed.graphs[0].replay, dev, iters=50)[0]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for k in range(200):
+        fn(flat, c.aug_ids(k))
+    torch.cuda.synchronize()
+    row[source] = {{"device_ms": device_ms,
+                   "wall_ms": (time.monotonic() - t0) / 200 * 1e3}}
+if hasattr(aug_ops, "make_nv12_clip_augment_fn"):
+    y, uv = (t.contiguous() for t in c.split(
+        torch.from_numpy(c.seeded_nv12(n, c.SIDE, c.SIDE, 41)).to(dev), n,
+        c.SIDE, c.SIDE))
+    p0 = torch.from_numpy(c.sample_clip_params(
+        c.BENCH_AUG, c.SIDE, c.SIDE, 0, c.aug_ids(0))).to(dev)
+    kern = aug_ops.make_nv12_clip_augment_fn(c.BENCH_AUG, c.SIDE, c.SIDE,
+                                             True, False, True, 0,
+                                             torch.float32)
+    row["kernel"] = {{"ms": time_ms(lambda: kern(y, uv, p0), dev),
+                     "split_us": c.pass_split(lambda: kern(y, uv, p0))}}
+print(json.dumps(row))
+"""
+
+
+def augment_ab(other_root, blocks=1):
+    """bench_device_augment in the checkout at `other_root` against this
+    one's (ab_turns; AUGMENT_AB_SNIPPET): (a) and (b)'s device and wall ms
+    a batch, and the NV12 augmentation kernel alone where both have it.
+    Prints and returns {"other": [...], "this": [...]}, a row a turn."""
+    code = AUGMENT_AB_SNIPPET.format(hold=HOLD_CYCLES,
+                                     timer=inspect.getsource(time_ms))
+    got, order, roots = ab_turns(other_root, code, blocks)
+    emit({"phase": "augment_ab", "card": nvidia_smi(), "order": order,
+          **got, "roots": roots})
+    return got
+
+
 def flash_ab(other_root, blocks=1):
     """The headline flash time of the checkout at `other_root` against
     this one's (ab_turns). Prints and returns {"other": [...], "this":
@@ -4889,6 +5177,7 @@ def run(device):
     resize_worst = phase_resize_vs_plain(device)
     resized = phase_resized_main_path(device, smi, main)
     aug_worst = phase_clip_augment_vs_plain(device)
+    nv12_aug_worst = phase_nv12_clip_augment_vs_plain(device)
     clip_aug = phase_clip_augment(device, smi)
     resize_rows = phase_resize_times(device, smi)
     phase_area_variants(device, smi)
@@ -4962,7 +5251,10 @@ def run(device):
     aug_runs = {f"clip_augment_{src}{'' if g == 'graphed' else '_eager'}":
                 r[f"{g}_launches"] for src, r in clip_aug.items()
                 for g in ("graphed", "eager")}
-    aug_paths = {k: v["clip_augment"] for k, v in aug_runs.items()}
+    # The augmented loaders run the NV12 kernel; ts::clip_augment (the
+    # same source, on tensors) is on no main path any more: both counted.
+    aug_paths = {k: v["clip_augment"] + v["nv12_clip_augment"]
+                 for k, v in aug_runs.items()}
     aug_head = clip_aug["224"]
     model_runs = {"generation": generation["input_launches"],
                   "style": style["eager"]["launches"],
@@ -4972,7 +5264,6 @@ def run(device):
                   quant["int8_weights"]["launches"]}
     nv12_paths = {"main_path": main[3]["total"],
                   **{k: v["nv12_rgb"] for k, v in resized_runs.items()},
-                  **{k: v["nv12_rgb"] for k, v in aug_runs.items()},
                   **{k: r["launches"]["nv12_rgb"]
                      for k, r in serve_runs.items()},
                   **pool_runs, **stream_runs,
@@ -5069,16 +5360,36 @@ def run(device):
         "replaces": "tensor_stream_tpu/ops/augment.py:198",
         "replaces_note": "make_clip_augment_fn, an XLA fusion (not a "
                          "Pallas kernel)",
+        "variant": "nv12",
+        "variant_note": "ts::nv12_clip_augment, the route of every "
+                        "augmenting loader, reads the VPP's NV12 planes; "
+                        "the numbers beside 'launches' are its; 'f32' is "
+                        "ts::clip_augment on the VPP's f32 output",
         "launches": sum(aug_paths.values()), "launches_by_path": aug_paths,
+        "launches_by_kernel": {
+            "nv12": sum(v["nv12_clip_augment"] for v in aug_runs.values()),
+            "f32": sum(v["clip_augment"] for v in aug_runs.values())},
         "launches_by_pass": {k: sum(v[f"clip_augment_{k}"]
+                                    + v[f"nv12_clip_augment_{k}"]
                                     for v in aug_runs.values())
                              for k in aug_ops.PASSES},
-        "max_abs_err": aug_worst["float32"],
-        "max_abs_err_by_dtype": aug_worst,
+        "launches_by_mode": {k: sum(v[f"nv12_clip_augment_{k}"]
+                                    for v in aug_runs.values())
+                             for k in aug_ops.NV12_MODES},
+        "max_abs_err": max(aug_worst["float32"],
+                           nv12_aug_worst["float32"]),
+        "max_abs_err_by_dtype": {"nv12": nv12_aug_worst, "f32": aug_worst},
         "shape": [AUG_CLIPS, AUG_CLIP_LEN, 3, SIDE, SIDE],
-        "ms": aug_head["kernel_ms"], "plain_ms": aug_head["kernel_plain_ms"],
-        "bound_ms": aug_head["kernel_bound_ms"],
-        "bound_by": aug_head["kernel_bound_by"], "library_ms": None}]})
+        "ms": aug_head["nv12_kernel"]["ms"],
+        "plain_ms": aug_head["nv12_kernel"]["plain_ms"],
+        "bound_ms": aug_head["nv12_kernel"]["bound_ms"],
+        "bound_by": aug_head["nv12_kernel"]["bound_by"],
+        "split_us": aug_head["nv12_kernel"]["split_us"],
+        "f32": {"ms": aug_head["kernel_ms"],
+                "plain_ms": aug_head["kernel_plain_ms"],
+                "bound_ms": aug_head["kernel_bound_ms"],
+                "bound_by": aug_head["kernel_bound_by"]},
+        "library_ms": None}]})
     print(smi, flush=True)
 
 

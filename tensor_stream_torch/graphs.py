@@ -60,7 +60,9 @@ from .ops import augment, flash_attention, nv12_rgb, resize, ring_attention
 COUNTERS = tuple(
     [(nv12_rgb, name) for name in ("launches", "launches_by_variant")]
     + [(resize, name) for name in ("launches", "area_launches_by_variant")]
-    + [(augment, name) for name in ("launches", "launches_by_pass")]
+    + [(augment, name) for name in (
+        "launches", "launches_by_pass", "nv12_launches",
+        "nv12_launches_by_pass", "nv12_launches_by_mode")]
     + [(flash_attention, name) for name in (
         "launches", "launches_by_mode", "recompute_launches", "bwd_launches",
         "bwd_launches_by_design", "dout_copies")]

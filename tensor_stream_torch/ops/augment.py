@@ -19,12 +19,24 @@ reproduce ``jax.random``, so the transform is split in two:
   epoch, identity) always gives the same parameters, so a resumed loader
   replays the same augmentation, and the device program reads no random
   state and nothing on the host (a CUDA graph can capture it).
-- ``apply_clip_augment`` applies given parameters to a batch of clips
-  through the operator ``ts::clip_augment`` (``ops/_library.py``): on CUDA
-  tensors the hand-written kernel of ``csrc/clip_augment.cu`` (two passes
-  with contrast, one without; ``launches`` and ``launches_by_pass`` count
-  them), on CPU tensors ``clip_augment_plain``, the float32 torch ops.
-  There is no fallback between the two.
+- Two operators (``ops/_library.py``) apply given parameters, both
+  through the hand-written kernels of ``csrc/clip_augment.cu`` on CUDA
+  tensors (two passes with contrast, one without) and through the plain
+  float32 torch ops on CPU tensors; there is no fallback between the two:
+
+  - ``ts::clip_augment`` (``apply_clip_augment``, ``make_clip_augment_fn``,
+    ``make_frame_augment_fn``) takes a batch of clips as a tensor, u8, f32
+    or any other real dtype (cast to f32 first); its plain version is
+    ``clip_augment_plain``; ``launches`` and ``launches_by_pass`` count
+    its kernels;
+  - ``ts::nv12_clip_augment`` (``make_nv12_clip_augment_fn``, the route of
+    ``ops/vpp.py::build_vpp_clip_augment`` and so of every augmenting
+    loader) takes the VPP's NV12 planes, after its crop and resize, and
+    converts each pixel that a tap reads as ``ops/nv12_rgb.py`` converts
+    it, so an augmented batch never holds the RGB frames; its plain
+    version is ``nv12_clip_augment_plain`` (``nv12_to_rgb_plain``, then
+    ``clip_augment_plain``); ``nv12_launches``, ``nv12_launches_by_pass``
+    and ``nv12_launches_by_mode`` count its kernels.
 
 The distributions and clamps are the JAX package's (its ``_sample_rect``,
 ``_factor`` and the erase draw); only the random bits differ.
@@ -39,7 +51,7 @@ import torch
 
 from .. import _build
 from .._device import kernel_device
-from . import _library
+from . import _library, nv12_rgb
 
 # ITU-R BT.601 luma weights (torchvision rgb_to_grayscale).
 _GRAY_RGB = (0.299, 0.587, 0.114)
@@ -383,28 +395,44 @@ SMEM = 227 * 1024  # shared memory a block can hold
 MEAN_BLOCKS = 32  # pass 1's blocks a clip
 PASSES = ("mean", "apply")
 
+# How the NV12 kernel's pass 2 reads its source (``nv12_plan``): taps
+# gathered from device memory, converting each, or the rows a block's taps
+# touch staged in shared memory by TMA and converted once.
+NV12_MODES = ("gather", "staged")
+
 launches = 0
 launches_by_pass = dict.fromkeys(PASSES, 0)
+nv12_launches = 0
+nv12_launches_by_pass = dict.fromkeys(PASSES, 0)
+nv12_launches_by_mode = dict.fromkeys(NV12_MODES, 0)
 
-_FN = None
+_FNS = None
 
 
 def reset_counts():
-    global launches
-    launches = 0
+    global launches, nv12_launches
+    launches = nv12_launches = 0
     for k in PASSES:
         launches_by_pass[k] = 0
+        nv12_launches_by_pass[k] = 0
+    for k in NV12_MODES:
+        nv12_launches_by_mode[k] = 0
 
 
 def _lib():
-    global _FN
-    if _FN is None:
-        fn = _build.load("clip_augment").ts_clip_augment
+    global _FNS
+    if _FNS is None:
+        lib = _build.load("clip_augment")
         v = ctypes.c_void_p
-        fn.restype = ctypes.c_int
-        fn.argtypes = [v, v, v, v, v, v, v]
-        _FN = fn
-    return _FN
+        fns = {}
+        for name, n_args in (("ts_clip_augment", 7),
+                             ("ts_nv12_clip_augment", 9)):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [v] * n_args
+            fns[name] = fn
+        _FNS = fns
+    return _FNS
 
 
 def output_shape(shape, planar: bool, out_h: int, out_w: int):
@@ -498,10 +526,11 @@ def _clip_augment_cuda(clips, params, planar, out_h, out_w, ops, mean, std,
                                 dtype=torch.float32) if contrast else None)
     consts = pack_constants(tuple(mean), tuple(std), float(unit), bool(bgr))
     with kernel_device(clips.device):
-        rc = _lib()(clips.data_ptr(), params.data_ptr(),
-                    partials.data_ptr() if contrast else None,
-                    out.data_ptr(), dims.ctypes.data, consts.ctypes.data,
-                    torch.cuda.current_stream(clips.device).cuda_stream)
+        rc = _lib()["ts_clip_augment"](
+            clips.data_ptr(), params.data_ptr(),
+            partials.data_ptr() if contrast else None, out.data_ptr(),
+            dims.ctypes.data, consts.ctypes.data,
+            torch.cuda.current_stream(clips.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ts_clip_augment launch failed: cudaError {rc}")
     global launches
@@ -525,6 +554,223 @@ _OP = _library.define(
     cuda=_clip_augment_cuda, cpu=_clip_augment_cpu,
     fake=lambda clips, params, planar, out_h, out_w, ops, mean, std, unit,
     bgr, out_dtype: _empty_out(clips, planar, out_h, out_w, out_dtype))
+
+
+# ------------------------------------------------------ the NV12 kernel
+
+# Dynamic shared memory a block of the NV12 pass 2 may take: the rest of
+# SMEM holds its value table and barriers. A block takes NV12_RUN frames of
+# a clip (csrc/clip_augment.cu kRun), each staged on its own.
+NV12_SMEM = SMEM - 2048
+NV12_RUN = 2
+
+
+def nv12_frames(y_shape, uv_shape, params_shape):
+    """(clips, frames a clip, H, W) of NV12 planes y [clips * T, H, W] and
+    uv [clips * T, H/2, W] with parameter rows [clips, len(PARAMS)];
+    raises on anything else."""
+    if len(y_shape) != 3 or len(uv_shape) != 3:
+        raise ValueError(f"expected y [N, H, W] and uv [N, H/2, W], got "
+                         f"{tuple(y_shape)} and {tuple(uv_shape)}")
+    n, h, w = y_shape
+    if h % 2 or w % 2 or tuple(uv_shape) != (n, h // 2, w):
+        raise ValueError(f"NV12 needs even H, W and uv of shape "
+                         f"{(n, h // 2, w)}; got y {tuple(y_shape)}, uv "
+                         f"{tuple(uv_shape)}")
+    if len(params_shape) != 2 or params_shape[1] != len(PARAMS):
+        raise ValueError(f"params {tuple(params_shape)}: expected "
+                         f"(clips, {len(PARAMS)})")
+    clips = params_shape[0]
+    if clips < 1 or n % clips:
+        raise ValueError(f"{n} frames do not split into {clips} clips")
+    return clips, n // clips, h, w
+
+
+@functools.lru_cache(maxsize=256)
+def nv12_plan(h: int, w: int, out_h: int, out_w: int, ops: int,
+              aligned: bool):
+    """The launch plan of the NV12 kernel's pass 2 (csrc/clip_augment.cu
+    Nv12ClipApply), as the dict of its fields.
+
+    A warp takes 32 output columns by 4 rows at a time, a lane a column;
+    a block has as many warps as cover whole rows of such chunks, up to 8
+    (7 at 224 wide), and writes a band of output rows, two passes of its
+    warps, of 2 frames of one clip. "staged" keeps a stage a frame of the
+    rows the band's taps can touch (Y rows, then their UV rows: at most
+    ceil((band - 1) * H / out H) + 3 Y rows, since a drawn rect is never
+    taller than the frame) and those rows converted, 16 bytes a pixel;
+    the band halves until they fit, down to one pass of the warps, or the
+    plan gathers. Staging needs W % 16 == 0 and 16-byte aligned planes
+    (`aligned`), as the 1-D bulk copies do; "gather" takes the rest."""
+    chunks = -(-out_w // 32)
+    warps = chunks * (8 // chunks) if chunks <= 8 else 8
+    threads = 32 * warps
+    rows_pass = 4 * max(1, warps // chunks)
+    groups = -(-out_w // 4)
+    spatial = bool(ops & (OP_BITS["resize"] | OP_BITS["flip"]))
+
+    def fields(band, staged):
+        rows = (min(h, -(-(band - 1) * h // out_h) + 3) if spatial
+                else band)
+        stage_y = rows * w if staged else 0
+        stage_uv = min(h // 2, rows // 2 + 1) * w if staged else 0
+        rgb = rows * w * 16 if staged else 0
+        tables = -(-(3 * 4 * groups + 3 * (-(-band // 4) * 4)) * 4
+                   // 128) * 128
+        return {"mode": "staged" if staged else "gather", "band": band,
+                "stage_y": stage_y, "stage_uv": stage_uv, "rgb": rgb,
+                "threads": threads,
+                "smem": tables + NV12_RUN * (stage_y + stage_uv) + rgb}
+
+    least, band = min(rows_pass, out_h), min(2 * rows_pass, out_h)
+    if w % 16 == 0 and aligned:
+        b = band
+        while fields(b, True)["smem"] > NV12_SMEM and b > least:
+            b = max(least, b // 2)
+        if fields(b, True)["smem"] <= NV12_SMEM:
+            return fields(b, True)
+    if fields(band, False)["smem"] > NV12_SMEM:
+        raise ValueError(f"frames of {h}x{w} -> {out_h}x{out_w}: the "
+                         "kernel's tap tables exceed a block's shared memory")
+    return fields(band, False)
+
+
+def nv12_output_shape(y_shape, params_shape, planar: bool, out_h: int,
+                      out_w: int):
+    clips = params_shape[0]
+    return output_shape((clips, y_shape[0] // clips), planar, out_h, out_w)
+
+
+def _empty_nv12_out(y, params, planar, out_h, out_w, out_dtype):
+    return y.new_empty(nv12_output_shape(y.shape, params.shape, planar,
+                                         out_h, out_w), dtype=out_dtype)
+
+
+def nv12_clip_augment_plain(y, uv, params, swap_rb: bool, normalization: bool,
+                            standard: int, planar: bool, out_h: int,
+                            out_w: int, ops: int, mean, std, unit: float,
+                            out_dtype):
+    """The plain version of ``ts::nv12_clip_augment``: the NV12 conversion
+    (``nv12_rgb.nv12_to_rgb_plain``) of the clips' frames, then
+    ``clip_augment_plain`` with the R/B swap as its BGR order."""
+    clips = params.shape[0]
+    rgb = nv12_rgb.nv12_to_rgb_plain(y, uv, swap_rb, planar, normalization,
+                                     standard)
+    rgb = rgb.reshape((clips, rgb.shape[0] // clips) + tuple(rgb.shape[1:]))
+    return clip_augment_plain(rgb, params, planar, out_h, out_w, ops, mean,
+                              std, unit, swap_rb, out_dtype)
+
+
+def _nv12_clip_augment_cuda(y, uv, params, swap_rb, normalization, standard,
+                            planar, out_h, out_w, ops, mean, std, unit,
+                            out_dtype):
+    """The kernel: checks the planes and the device, plans (``nv12_plan``),
+    launches pass 1 (with contrast) and pass 2, and counts."""
+    if y.dtype != torch.uint8 or uv.dtype != torch.uint8:
+        raise TypeError(f"NV12 planes must be uint8, got {y.dtype}/"
+                        f"{uv.dtype}")
+    clips, t, h, w = nv12_frames(y.shape, uv.shape, params.shape)
+    if not (y.is_contiguous() and uv.is_contiguous()):
+        raise ValueError("the kernel reads contiguous NV12 planes")
+    if standard not in (0, 1, 2, 3):
+        raise ValueError(f"colour standard {standard} must be resolved "
+                         "(0..3) before the kernel")
+    _library.on_one_device(y, uv, params, cuda=True)
+    params = params.to(torch.float32).contiguous()
+    # The augmentation's dims, on the values the NV12 kernel would write
+    # (f32 x/255 with normalization, u8 without).
+    value_dtype = torch.float32 if normalization else torch.uint8
+    shape = (clips, t, 3, h, w) if planar else (clips, t, h, w, 3)
+    dims = launch_dims(shape, value_dtype, tuple(params.shape), bool(planar),
+                       int(out_h), int(out_w), int(ops), out_dtype)
+    aligned = (y.data_ptr() | uv.data_ptr()) % 16 == 0
+    plan = nv12_plan(h, w, int(out_h), int(out_w), int(ops), aligned)
+    fields = np.asarray([int(swap_rb), int(standard), int(normalization),
+                         plan["mode"] == "staged", plan["band"],
+                         plan["stage_y"], plan["stage_uv"], plan["rgb"],
+                         plan["threads"]], np.int32)
+    out = _empty_nv12_out(y, params, planar, out_h, out_w, out_dtype)
+    contrast = bool(ops & OP_BITS["contrast"])
+    partials = (y.new_empty(int(dims[0] * dims[10]), dtype=torch.float32)
+                if contrast else None)
+    consts = pack_constants(tuple(mean), tuple(std), float(unit),
+                            bool(swap_rb))
+    with kernel_device(y.device):
+        rc = _lib()["ts_nv12_clip_augment"](
+            y.data_ptr(), uv.data_ptr(), params.data_ptr(),
+            partials.data_ptr() if contrast else None, out.data_ptr(),
+            dims.ctypes.data, fields.ctypes.data, consts.ctypes.data,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ts_nv12_clip_augment launch failed: cudaError "
+                           f"{rc}")
+    global nv12_launches
+    nv12_launches += 1 + contrast
+    nv12_launches_by_pass["mean"] += contrast
+    nv12_launches_by_pass["apply"] += 1
+    nv12_launches_by_mode[plan["mode"]] += 1
+    return out
+
+
+def _nv12_clip_augment_cpu(y, uv, params, swap_rb, normalization, standard,
+                           planar, out_h, out_w, ops, mean, std, unit,
+                           out_dtype):
+    nv12_frames(y.shape, uv.shape, params.shape)
+    return nv12_clip_augment_plain(
+        y, uv, params, swap_rb, normalization, standard, planar, out_h,
+        out_w, ops, mean, std, unit, out_dtype).contiguous()
+
+
+_NV12_OP = _library.define(
+    "nv12_clip_augment(Tensor y, Tensor uv, Tensor params, bool swap_rb, "
+    "bool normalization, int standard, bool planar, int out_h, int out_w, "
+    "int ops, float[] mean, float[] std, float unit, ScalarType out_dtype) "
+    "-> Tensor",
+    cuda=_nv12_clip_augment_cuda, cpu=_nv12_clip_augment_cpu,
+    fake=lambda y, uv, params, swap_rb, normalization, standard, planar,
+    out_h, out_w, ops, mean, std, unit, out_dtype: _empty_nv12_out(
+        y, params, planar, out_h, out_w, out_dtype))
+
+
+def make_nv12_clip_augment_fn(cfg: AugmentConfig, src_h: int, src_w: int,
+                              planar: bool, swap_rb: bool,
+                              normalization: bool, standard: int,
+                              out_dtype=None):
+    """``fn(y, uv, params) -> clips``: the NV12 conversion of
+    ``ops/nv12_rgb.py`` (`swap_rb`, `normalization`, colour `standard`)
+    and then `cfg`'s augmentation, in one operator.
+
+    `y` [clips * T, src_h, src_w] and `uv` [clips * T, src_h/2, src_w]
+    are uint8 planes, frame-major by clip, and `params` float32 [clips,
+    len(PARAMS)] on the same device; the result is what
+    ``make_clip_augment_fn(cfg, src_h, src_w, planar, unit, bgr=swap_rb,
+    out_dtype)`` returns on the converted frames, with `unit` 1.0 with
+    normalization and 255.0 without, and `out_dtype` by default the
+    conversion's (float32 with normalization, else uint8). Calls
+    ``ts::nv12_clip_augment``: on CUDA tensors the kernel of
+    csrc/clip_augment.cu, on CPU tensors the plain version. `cfg` must
+    change some pixel: the identity is the NV12 conversion alone."""
+    ops = op_flags(cfg)
+    if not ops:
+        raise ValueError("the identity config needs no augmentation kernel: "
+                         "convert the planes with ops/nv12_rgb.py")
+    out_w, out_h = cfg.output_size(src_w, src_h)
+    mean = [float(v) for v in cfg.mean or (0.0,) * 3]
+    std = [float(v) for v in cfg.std or (1.0,) * 3]
+    unit = 1.0 if normalization else 255.0
+    dt = out_dtype if out_dtype is not None else (
+        torch.float32 if normalization else torch.uint8)
+
+    def fn(y, uv, params):
+        if tuple(y.shape[1:]) != (src_h, src_w):
+            raise ValueError(f"y {tuple(y.shape)}: expected frames of "
+                             f"{src_h}x{src_w}")
+        _library.on_one_device(y, uv, params)
+        return _NV12_OP(y, uv, params, bool(swap_rb), bool(normalization),
+                        int(standard), bool(planar), out_h, out_w, ops, mean,
+                        std, unit, dt)
+
+    return fn
 
 
 def make_clip_augment_fn(cfg: AugmentConfig, src_h: int, src_w: int,

@@ -14,7 +14,9 @@ colour formats and NEAREST run torch ops, and every config on the CPU
 runs the plain torch versions.
 
 ``build_vpp_clip_augment`` adds the training augmentation of
-ops/augment.py after the VPP, one CUDA graph a batch.
+ops/augment.py, one CUDA graph a batch: after the crop and resize, one
+operator converts and augments the NV12 planes
+(``ts::nv12_clip_augment``).
 """
 import dataclasses
 from dataclasses import dataclass
@@ -99,32 +101,45 @@ class VPPConfig:
         return torch.float32 if self.normalization else torch.uint8
 
 
-def make_vpp_fn(cfg: VPPConfig):
-    """The NV12 -> tensor conversion for `cfg`: (y [..., H, W],
-    uv [..., H/2, W]) uint8 -> [..., *cfg.output_shape()], on y's device."""
+def make_nv12_stage_fn(cfg: VPPConfig):
+    """The VPP's NV12 stages for `cfg`: (y [..., H, W], uv [..., H/2, W])
+    -> the planes after the crop (a strided view) and the NV12-domain
+    resize, at cfg.output_size()."""
     cw = cfg.crop[2] - cfg.crop[0]
     ch = cfg.crop[3] - cfg.crop[1]
     do_crop = 0 < cw < cfg.src_width and 0 < ch < cfg.src_height
     cur_w, cur_h = (cw, ch) if do_crop else (cfg.src_width, cfg.src_height)
     do_resize = bool(cfg.width and cfg.height and
                      (cfg.width != cur_w or cfg.height != cur_h))
-    out_w, out_h = cfg.output_size()
-    four = cfg.fourcc
-    if four in (FourCC.RGB24, FourCC.BGR24, FourCC.HSV) and \
+    if cfg.fourcc in (FourCC.RGB24, FourCC.BGR24, FourCC.HSV) and \
             cfg.standard is ColorStandard.AUTO:
         raise ValueError("ColorStandard.AUTO must be resolved from the "
                          "stream before the VPP is built")
     resize = (make_resize_fn(cur_w, cur_h, cfg.width, cfg.height,
                              cfg.resize_type) if do_resize else None)
+
+    def stage_fn(y, uv):
+        if do_crop:
+            y, uv = crop_nv12(y, uv, *cfg.crop)
+        if do_resize:
+            y, uv = resize(y, uv)
+        return y, uv
+
+    return stage_fn
+
+
+def make_vpp_fn(cfg: VPPConfig):
+    """The NV12 -> tensor conversion for `cfg`: (y [..., H, W],
+    uv [..., H/2, W]) uint8 -> [..., *cfg.output_shape()], on y's device."""
+    stage_fn = make_nv12_stage_fn(cfg)
+    out_w, out_h = cfg.output_size()
+    four = cfg.fourcc
     rgb = four in (FourCC.RGB24, FourCC.BGR24)
     swap_rb = four == FourCC.BGR24
     planar = cfg.planes == Planes.PLANAR
 
     def base_fn(y, uv):
-        if do_crop:
-            y, uv = crop_nv12(y, uv, *cfg.crop)
-        if do_resize:
-            y, uv = resize(y, uv)
+        y, uv = stage_fn(y, uv)
         if rgb:
             # The NV12 kernel for CUDA tensors (it takes contiguous planes:
             # a crop that is not resized is copied first), plain on the CPU.
@@ -231,7 +246,12 @@ def build_vpp_clip_augment(cfg: VPPConfig, aug, clips: int, clip_len: int,
     Returns ``fn(flat, ids) -> [clips, clip_len, ...]``, where `ids` is an
     integer [clips, 2] array of (epoch, clip identity). The VPP runs
     without the dtype override, the augmentation (ops/augment.py) on its
-    contract values, and one final cast gives cfg's dtype. Each clip's
+    contract values, and one final cast gives cfg's dtype. A config that
+    changes pixels runs the crop and resize, then one operator,
+    ``ts::nv12_clip_augment`` (``augment.make_nv12_clip_augment_fn``),
+    which converts each pixel that the augmentation reads as the NV12
+    kernel would: no RGB frames are written between the two. The
+    identity config is the plain VPP and its cast. Each clip's
     parameters are drawn on the host from (aug_seed, epoch, identity)
     (``augment.sample_clip_params``), so a resumed loader replays the same
     bytes for the same clips. On CUDA the VPP and the augmentation are one
@@ -248,21 +268,35 @@ def build_vpp_clip_augment(cfg: VPPConfig, aug, clips: int, clip_len: int,
                          "pass normalization=True or dtype='bfloat16'/"
                          "'float32'")
     device = resolve_device(device, device_index)
-    fn = make_vpp_fn(dataclasses.replace(cfg, dtype=""))
     h, w = cfg.src_height, cfg.src_width
     out_w, out_h = cfg.output_size()
-    clip_fn = augment.make_clip_augment_fn(
-        aug, out_h, out_w, planar=(cfg.planes == Planes.PLANAR),
-        unit=1.0 if cfg.normalization else 255.0,
-        bgr=(cfg.fourcc == FourCC.BGR24), out_dtype=cfg.output_dtype())
+    planar = cfg.planes == Planes.PLANAR
     batch = clips * clip_len
     y_size = batch * h * w
+    if augment.op_flags(aug):
+        stage_fn = make_nv12_stage_fn(cfg)
+        aug_fn = augment.make_nv12_clip_augment_fn(
+            aug, out_h, out_w, planar, swap_rb=(cfg.fourcc == FourCC.BGR24),
+            normalization=cfg.normalization, standard=cfg.standard.value,
+            out_dtype=cfg.output_dtype())
 
-    def convert(flat, params):
-        ys = flat[:y_size].view(batch, h, w)
-        uvs = flat[y_size:].view(batch, h // 2, w)
-        t = fn(ys, uvs)
-        return clip_fn(t.reshape((clips, clip_len) + t.shape[1:]), params)
+        def convert(flat, params):
+            y, uv = stage_fn(flat[:y_size].view(batch, h, w),
+                             flat[y_size:].view(batch, h // 2, w))
+            # The kernel takes contiguous planes: a crop that is not
+            # resized is copied first.
+            return aug_fn(y.contiguous(), uv.contiguous(), params)
+    else:
+        fn = make_vpp_fn(dataclasses.replace(cfg, dtype=""))
+        clip_fn = augment.make_clip_augment_fn(
+            aug, out_h, out_w, planar=planar,
+            out_dtype=cfg.output_dtype())
+
+        def convert(flat, params):
+            t = fn(flat[:y_size].view(batch, h, w),
+                   flat[y_size:].view(batch, h // 2, w))
+            return clip_fn(t.reshape((clips, clip_len) + t.shape[1:]),
+                           params)
 
     graphed = cuda_graph(convert)
 

@@ -10,7 +10,12 @@ the kernel on the rank's local shard, with no collective:
   checks divides);
 * ``ts::nv12_to_rgb`` and ``ts::resize_*_nv12``: the batch (dim 0);
 * ``ts::clip_augment``: clips and their parameter rows (dim 0 of both),
-  since each clip is transformed alone (the contrast mean is per clip).
+  since each clip is transformed alone (the contrast mean is per clip);
+* ``ts::nv12_clip_augment``: the frames of the NV12 planes and the
+  parameter rows (dim 0 of all three), over the same mesh dimension, so
+  that each rank holds whole clips: its share of the frames is its clips'
+  frames, clip_len frames a clip (the operator refuses frames that do not
+  split into its rows' clips).
 
 Anything else is replicated first (DTensor redistributes to the all-
 replicate strategy). Importing this module registers the rules.
@@ -64,3 +69,9 @@ for _name in ("resize_bilinear_nv12", "resize_bicubic_nv12",
 def _clip_augment(clips, params, planar, out_h, out_w, ops, mean, std, unit,
                   bgr, out_dtype):
     return _rules(1, 2, 9, (0,))
+
+
+@register_sharding(torch.ops.ts.nv12_clip_augment.default)
+def _nv12_clip_augment(y, uv, params, swap_rb, normalization, standard,
+                       planar, out_h, out_w, ops, mean, std, unit, out_dtype):
+    return _rules(1, 3, 11, (0,))

@@ -25,7 +25,7 @@ import torch
 
 from tensor_stream_tpu.ops import color as jcolor
 from tensor_stream_tpu.ops.pallas_color import build_pallas_nv12_to_rgb
-from tensor_stream_torch import _native
+from tensor_stream_torch import _build, _native
 from tensor_stream_torch.ops import color, nv12_rgb
 
 SIZES = [(64, 256), (36, 128), (24, 256)]  # (H, W); 36 and 24: H % 16 != 0
@@ -181,10 +181,11 @@ def test_coefficients_match_jax_and_kernel_source():
         ours = np.array(color._STANDARD_COEFS[std], np.float32)
         theirs = np.array(jcolor._STANDARD_COEFS[std], np.float32)
         assert np.array_equal(ours.view(np.uint32), theirs.view(np.uint32))
-    src = os.path.join(os.path.dirname(nv12_rgb.__file__), os.pardir, "csrc",
-                       "nv12_rgb.cu")
-    with open(src) as f:
-        text = f.read()
+    # The table lives in csrc/nv12.cuh, which nv12_rgb.cu includes.
+    text = ""
+    for src in _build.sources_of("nv12_rgb"):
+        with open(src) as f:
+            text += f.read()
     table = text[text.index("kCoefs[4]"):text.index("};", text.index("kCoefs[4]"))]
     lits = re.findall(r"-?0x[0-9a-f.]+p[+-]\d+f", table)
     assert len(lits) == 24

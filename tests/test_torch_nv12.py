@@ -19,11 +19,13 @@ from tensor_stream_torch.ops import color, nv12_rgb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "tensor_stream_torch", "csrc", "nv12_rgb.cu")
+HEADER = os.path.join(ROOT, "tensor_stream_torch", "csrc", "nv12.cuh")
 
 
 def kernel_table() -> np.ndarray:
-    """The 256 hex float literals of kDiv255 in nv12_rgb.cu, as float32."""
-    with open(SOURCE) as f:
+    """The 256 hex float literals of kDiv255 in nv12.cuh (the header of
+    nv12_rgb.cu and clip_augment.cu), as float32."""
+    with open(HEADER) as f:
         text = f.read()
     start = text.index("kDiv255[256]")
     body = text[start:text.index("};", start)]
