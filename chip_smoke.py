@@ -41,8 +41,8 @@ kernels:
   heads, MHA and GQA with 2 kv heads, a ring KV cache of 16 steps),
   eagerly and through cuda_graph(..., carry=True), bit-equal at every
   tick past the ring's wrap, and held against its windowed causal batch
-  twin, whose spatial and temporal attention run the flash_fwd kernel in
-  its full and band modes;
+  twin, whose spatial attention runs the flash_fwd kernel in its full
+  mode and whose temporal band (16 steps) its short-sequence design;
 * training: bench.py's joint training configurations (ViT-B width, 16
   frames, B=4 at 224² and B=1 at 448² with remat) through init_vit and
   make_vit_train_step with SGD, flash and materialized attention, every
@@ -1776,43 +1776,84 @@ FLASH_CASES = [
     # Batch x heads past 65535 (factorized temporal attention over 28 or
     # more 224² clips): the grid is (tiles, heads, batch).
     ("grid_bh_over_65535", (5600, 12, 12, 16, 16, 64), True, None, "bshd"),
+    # Short sequences (Sq, Sk <= 64: the "short" design in bf16) beyond the
+    # twin's: d = 128 at the limit, d = 32 at S = 8 (ViT-B's temporal
+    # length), a ragged band under GQA, and cross-attention.
+    ("short_full_d128", (64, 6, 6, 64, 64, 128), False, None, "bshd"),
+    ("short_causal_d32", (128, 4, 4, 8, 8, 32), True, None, "bshd"),
+    ("short_ragged_band_gqa", (96, 6, 2, 13, 13, 64), True, 5, "bshd"),
+    ("short_cross_16_to_48", (64, 4, 2, 16, 48, 64), False, None, "bhsd"),
+    # The short design's multi-tile arms: a causal band whose low edge
+    # leaves whole column pairs out (GQA, 4 q tiles a head), a symmetric
+    # band, and MHA heads of 2 q tiles packed 2 to a block.
+    ("short_band_past_one_tile", (64, 6, 2, 64, 64, 64), True, 8, "bshd"),
+    ("short_symmetric_band", (64, 4, 4, 40, 40, 32), False, 6, "bhsd"),
+    ("short_mha_32", (64, 4, 4, 32, 32, 64), False, None, "bshd"),
 ]
 # Cases held in bf16 only (the model's dtype at the training shapes).
 BF16_ONLY = ("headline", "train", "train_long")
+# Sq and Sk up to which bf16 runs the "short" design (csrc/flash_fwd.cu,
+# kShortMax).
+SHORT_MAX = 64
+
+
+def fwd_design(dtype, sq, sk):
+    """The forward design that must serve (dtype, Sq, Sk): "f32", "short"
+    for bf16 at Sq and Sk <= SHORT_MAX, else "tiled"."""
+    if dtype == torch.float32:
+        return "f32"
+    return "short" if max(sq, sk) <= SHORT_MAX else "tiled"
 
 
 def phase_flash_vs_plain():
     """The flash kernel against flash_attention_plain on the same CUDA
     tensors, o, l and m, in bf16 and f32: o elementwise and as a whole,
     l and m at the f32 rule. TF32 is off for the plain version's f32
-    products (its stated numerics are full f32). Returns the worst o error
-    of the cases without a window and of those with one (the band mode)."""
+    products (its stated numerics are full f32). Each case must launch the
+    design fwd_design names; a "short" case is launched twice and must
+    give the same bytes. Returns the worst o error of the cases without a
+    window and of those with one (the band mode), and of the "short"
+    design's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    worst = {"no_window": 0.0, "window": 0.0}
+    worst = {"no_window": 0.0, "window": 0.0, "short": 0.0}
     for i, (name, shape, causal, window, layout) in enumerate(FLASH_CASES):
         dtypes = (torch.bfloat16,) if name in BF16_ONLY else \
             (torch.bfloat16, torch.float32)
         for dtype in dtypes:
             q, k, v = _flash_case(*shape, dtype, 200 + i, layout)
-            before = fa.launches
+            design = fwd_design(dtype, shape[3], shape[4])
+            before = fa.launches_by_design[design]
             o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
                                              window=window)
-            if fa.launches != before + 1:
-                raise AssertionError(f"flash {name}: kernel did not launch")
+            relaunch = None
+            if design == "short":
+                relaunch = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                  window=window)
+            want_launches = before + (2 if relaunch else 1)
+            if fa.launches_by_design[design] != want_launches:
+                raise AssertionError(
+                    f"flash {name} {dtype}: the {design!r} kernel did not "
+                    f"launch: {fa.launches_by_design}")
             wo, wl, wm = fa.flash_attention_plain(q, k, v, causal, window,
                                                   residuals=True)
             torch.cuda.synchronize()
             checks, errs = flash_rule((o, l, m), (wo, wl, wm))
+            if relaunch is not None:
+                checks["relaunch_bit_equal"] = all(
+                    bytes_equal(a, b) for a, b in zip((o, l, m), relaunch))
             ok = all(checks.values())
             mode = "no_window" if window is None else "window"
             worst[mode] = max(worst[mode], errs["o"])
+            if design == "short":
+                worst["short"] = max(worst["short"], errs["o"])
             rows.append({"case": name, "shape": list(shape),
                          "dtype": str(dtype).split(".")[-1],
                          "causal": causal, "window": window,
-                         "layout": layout, "tol": FLASH_TOL[dtype], **errs,
-                         "ok": ok})
+                         "layout": layout, "design": design,
+                         "tol": FLASH_TOL[dtype], **errs,
+                         "checks": checks, "ok": ok})
             if not ok:
                 emit({"phase": "flash_vs_plain", "cases": rows})
                 raise AssertionError(f"flash kernel != plain: {rows[-1]}")
@@ -1897,6 +1938,14 @@ def bytes_equal(a, b):
     return a.shape == b.shape and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
+
+# Which flash forward design serves which inputs (csrc/flash_fwd.cu).
+FWD_DESIGN_NOTES = {
+    "tiled": "bf16: TMA ring, warp-specialised wgmma, 192 or 128 q rows a "
+             "block",
+    "short": "bf16 at Sq and Sk <= 64: a warp a 16-row head on mma.sync, "
+             "the whole row in one softmax pass, K/V once a kv head",
+    "f32": "f32: FMAs (no TF32)"}
 
 # Which flash backward design serves which inputs (csrc/flash_bwd.cu).
 BWD_DESIGN_NOTES = {
@@ -2067,6 +2116,30 @@ def serving_cfg():
                            normalization=True).to_config(SIDE, SIDE)
 
 
+def fwd_counts():
+    """The flash forward's launches and their split by design, as a
+    path's launches dict holds them."""
+    return {"flash_fwd": fa.launches,
+            "flash_fwd_by_design": dict(fa.launches_by_design)}
+
+
+def add_counts(into, more):
+    """Adds the launches dict `more` into `into`, key by key (the split by
+    design entry by entry)."""
+    for k, v in more.items():
+        if isinstance(v, dict):
+            add_counts(into[k], v)
+        else:
+            into[k] += v
+
+
+def tiled_launches(n):
+    """fwd_counts() of a path whose n forwards all run the "tiled" design
+    (bf16 with Sq or Sk past 64: every main path but the twin's band)."""
+    return {"flash_fwd": n, "flash_fwd_by_design": {
+        d: n if d == "tiled" else 0 for d in fa.FWD_DESIGNS}}
+
+
 def drive_engine(eng, warmup, timed, inflight=1):
     """`warmup` then `timed` ticks of `eng` with the kernels' counts at 0
     just before; returns (results, seconds of the timed ticks, launches,
@@ -2079,7 +2152,7 @@ def drive_engine(eng, warmup, timed, inflight=1):
     results += list(eng.stream(max_batches=timed, inflight=inflight))
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = {"nv12_rgb": nv12_rgb.launches, "flash_fwd": fa.launches}
+    launches = {"nv12_rgb": nv12_rgb.launches, **fwd_counts()}
     lat = np.asarray(eng._lat_ms[warmup:])
     return (results, seconds, launches, dict(nv12_rgb.launches_by_variant),
             lat)
@@ -2220,7 +2293,7 @@ def serve_vit(device, model, graphed, pipeline="per-stream"):
         loader.close()
     check_replays(graph, ticks, label)
     if launches != {"nv12_rgb": want_nv12,
-                    "flash_fwd": ticks * VIT["depth"]}:
+                    **tiled_launches(ticks * VIT["depth"])}:
         raise AssertionError(f"{label}: launches {launches} over {ticks} "
                              "ticks: the serving path bypassed a kernel")
     check_clocks(results, ticks, CLIP, label)
@@ -2378,7 +2451,7 @@ def pool_run(device, pipeline, infer_fn):
     label = f"pooled phase, {pipeline} {getattr(infer_fn, '__name__', '')}"
     check_replays(graph, ticks, label)
     want = ticks * (STREAMS if pipeline == "per-stream" else 1)
-    if launches != {"nv12_rgb": want, "flash_fwd": 0}:
+    if launches != {"nv12_rgb": want, **tiled_launches(0)}:
         raise AssertionError(f"{label}: launches {launches} over {ticks} "
                              f"ticks, want {want} NV12")
     if variants["vector"] != want:
@@ -2572,7 +2645,7 @@ def serve_stream(device, name, model, graphed):
                                          "version")
     finally:
         loader.close()
-    if launches != {"nv12_rgb": ticks * STREAMS, "flash_fwd": 0}:
+    if launches != {"nv12_rgb": ticks * STREAMS, **tiled_launches(0)}:
         raise AssertionError(f"{label}: launches {launches} over "
                              f"{ticks} ticks, want 2 NV12 a tick and no flash")
     check_clocks(results, ticks, TUBELET, label)
@@ -2662,19 +2735,31 @@ def twin_check(model, clips, name, dtype):
         got = torch.stack([stream_step(model, cache, f)[1] for f in tubelets],
                           dim=1)
         before = dict(fa.launches_by_mode)
+        before_design = dict(fa.launches_by_design)
         want = twins["windowed"](clips)
         modes = {m: fa.launches_by_mode[m] - before[m] for m in fa.MODES}
+        designs = {k: fa.launches_by_design[k] - before_design[k]
+                   for k in fa.FWD_DESIGNS}
         full = twins["unwindowed"](clips)
     torch.cuda.synchronize()
     if modes != {"full": depth, "causal": 0, "band": depth}:
         raise AssertionError(f"twin {name} {dtype}: flash launches {modes}, "
                              f"want {depth} full and {depth} band")
+    # The spatial attention (S = 196) runs "tiled" and the temporal band
+    # (S = TWIN_STEPS) "short" in bf16; f32 runs "f32" for both.
+    want_designs = ({"tiled": depth, "short": depth, "f32": 0}
+                    if dtype == torch.bfloat16 else
+                    {"tiled": 0, "short": 0, "f32": 2 * depth})
+    if designs != want_designs:
+        raise AssertionError(f"twin {name} {dtype}: flash launches by "
+                             f"design {designs}, want {want_designs}")
     rule = logit_rule(got, want, rel)
     steps = (got.double() - want.double()).abs().amax(dim=(0, 2))
     before_wrap = max_abs_err(got[:, :TWIN_RING], full[:, :TWIN_RING])
     past_wrap = max_abs_err(got[:, TWIN_RING:], full[:, TWIN_RING:])
     return {"kv": name, "dtype": str(dtype).split(".")[-1],
             "flash_launches_by_mode": modes,
+            "flash_launches_by_design": designs,
             "max_abs_err": rule["max_abs_err"], "bound": rule["bound"],
             "rel_bound": rel, "max_abs_logit": rule["max_abs_logit"],
             "rows_decided": rule["rows_decided"],
@@ -2796,7 +2881,12 @@ FLASH_TIMED = [
     ("twin_spatial", (32, 6, 196, 64), False, None, "bshd"),
     ("twin_temporal", (392, 6, 16, 64), True, TWIN_RING, "bshd"),
     ("twin_temporal_gqa", (392, 6, 16, 64), True, TWIN_RING, "bshd", 2),
+    # The factorized ViT-B's temporal attention (16 frames, tubelet 2: 8
+    # steps) over 4 clips of 196 tokens: 784 sequences of 12 heads.
+    ("vit_b_temporal", (784, 12, 8, 64), False, None, "bshd"),
 ]
+# flash_ab's shapes: the headline and the twin's temporal band, MHA and GQA.
+FLASH_AB_TIMED = ("headline", "twin_temporal", "twin_temporal_gqa")
 
 
 def time_flash(device, name, shape, causal, window, layout, kv_heads=None):
@@ -3040,7 +3130,7 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
         out += [step(clips, mask) for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         seconds = time.monotonic() - t0
-        launches = {"flash_fwd": fa.launches,
+        launches = {**fwd_counts(),
                     "flash_fwd_recompute": fa.recompute_launches,
                     "flash_bwd": fa.bwd_launches,
                     "flash_bwd_by_design": dict(fa.bwd_launches_by_design),
@@ -3128,7 +3218,7 @@ def phase_training(device, smi):
                 continue
             n = row["steps"]
             fwd = depth * n * (2 if remat else 1) if use_flash else 0
-            want = {"flash_fwd": fwd,
+            want = {**tiled_launches(fwd),
                     "flash_fwd_recompute": depth * n if use_flash and remat
                     else 0,
                     "flash_bwd": depth * n if use_flash else 0}
@@ -3397,9 +3487,12 @@ import json, numpy as np, torch, chip_smoke as c
 from tensor_stream_torch.ops import flash_attention as fa
 HOLD_CYCLES = {hold}
 {timer}
-q, k, v = c._flash_case(*{shape}, torch.bfloat16, 7, {layout!r})
-print(json.dumps(time_ms(lambda: fa.flash_attention(q, k, v),
-                         torch.device("cuda", 0))))
+rows = []
+for shape, causal, window, layout in {cases}:
+    q, k, v = c._flash_case(*shape, torch.bfloat16, 7, layout)
+    rows.append(time_ms(lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window), torch.device("cuda", 0)))
+print(json.dumps(rows))
 """
 
 # Seeds as seeded_nv12 (seed 5, as phase_times) so both checkouts convert
@@ -3594,17 +3687,26 @@ def augment_ab(other_root, blocks=1):
 
 
 def flash_ab(other_root, blocks=1):
-    """The headline flash time of the checkout at `other_root` against
-    this one's (ab_turns). Prints and returns {"other": [...], "this":
-    [...]} of (median, p10, p90) ms."""
-    b, h, s, d = FLASH_HEADLINE
+    """The flash forward's time at each FLASH_AB_TIMED case in the
+    checkout at `other_root` against this one's (ab_turns), on the inputs
+    time_flash makes. Prints and returns {"other": [...], "this": [...]}:
+    a list a turn of (median, p10, p90) ms a case."""
+    timed = {row[0]: row for row in FLASH_TIMED}
+    cases = []
+    for name in FLASH_AB_TIMED:
+        _, (b, h, s, d), causal, window, layout, *kv = timed[name]
+        hk = kv[0] if kv else h
+        cases.append(((b, h, hk, s, s, d), causal, window, layout))
     code = FLASH_AB_SNIPPET.format(hold=HOLD_CYCLES,
                                    timer=inspect.getsource(time_ms),
-                                   shape=(b, h, h, s, s, d), layout="bhsd")
+                                   cases=cases)
     got, order, roots = ab_turns(other_root, code, blocks)
-    emit({"phase": "flash_ab", "card": nvidia_smi(),
-          "shape": list(FLASH_HEADLINE), "order": order, **got,
-          "roots": roots})
+    emit({"phase": "flash_ab", "card": nvidia_smi(), "cases":
+          [{"case": name, "shape": list(shape), "causal": causal,
+            "window": window, "layout": layout}
+           for name, (shape, causal, window, layout) in zip(FLASH_AB_TIMED,
+                                                            cases)],
+          "order": order, **got, "roots": roots})
     return got
 
 
@@ -4084,7 +4186,7 @@ def style_run(device, net, graphed):
         loader.close()
     check_replays(graph, ticks, label)
     expect_launches(label, launches, {"nv12_rgb": ticks * STREAMS,
-                                      "flash_fwd": 0})
+                                      **tiled_launches(0)})
     check_clocks(results, ticks, STYLE_PER_STREAM, label)
     outs = by_tick(results, STREAMS)
     if (outs.shape[2:] != (STYLE_PER_STREAM, STYLE_SIDE, STYLE_SIDE, 3)
@@ -4142,8 +4244,8 @@ def quant_run(device, infer, label):
         eng.close()
         loader.close()
     check_replays(graph, ticks, label)
-    expect_launches(label, launches, {"nv12_rgb": ticks * STREAMS,
-                                      "flash_fwd": ticks * VIT["depth"]})
+    expect_launches(label, launches, {
+        "nv12_rgb": ticks * STREAMS, **tiled_launches(ticks * VIT["depth"])})
     check_clocks(results, ticks, CLIP, label)
     frames = TIMED_TICKS * STREAMS * CLIP
     return by_tick(results, STREAMS), {
@@ -4258,18 +4360,18 @@ def phase_export_serving(device, smi, serving):
         raise AssertionError(f"export_serving: the artifact calls {ops}, "
                              "not 12 ts::flash_fwd")
     batches = {}
-    launches = {"nv12_rgb": 0, "flash_fwd": 0}
+    launches = {"nv12_rgb": 0, **tiled_launches(0)}
     for b in EXPORT_BATCHES:
         clips = export_clips(b, device)
         fa.reset_counts()
         with torch.no_grad():
             got = loaded(clips)
-            launched = fa.launches
+            launched = fwd_counts()
             want = model(clips)
-        if launched != VIT["depth"]:
+        if launched != tiled_launches(VIT["depth"]):
             raise AssertionError(f"export_serving: batch {b} launched "
-                                 f"{launched} flash kernels, not 12")
-        launches["flash_fwd"] += launched
+                                 f"{launched}, not 12 tiled flash kernels")
+        add_counts(launches, launched)
         same = torch.equal(got.view(torch.int16), want.view(torch.int16))
         batches[b] = {"shape": list(got.shape), "bit_equal": same,
                       "max_abs_err": max_abs_err(got, want)}
@@ -4283,8 +4385,7 @@ def phase_export_serving(device, smi, serving):
         row["bit_equal_to_serving_graphed"] = bit_equal_ticks(
             logits, serving["graphed_logits"])
         runs[pipeline] = row
-        for k in launches:
-            launches[k] += row["launches"][k]
+        add_counts(launches, row["launches"])
         if not all(row["bit_equal_to_serving_graphed"]):
             raise AssertionError(f"export_serving {pipeline}: logits differ "
                                  "from phase serving's graphed ones")
@@ -4456,10 +4557,10 @@ def phase_resume(device, smi):
     rows = {"vit": resume_runs(
         "resume vit", vit_build,
         lambda m, o, g: make_vit_train_step(m, o), (clips, mask))}
-    vit_launches = {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+    vit_launches = flash_counts()
     calls = 4 * RESUME_STEPS
     expect_launches("resume vit", vit_launches,
-                    {"flash_fwd": calls * TRAIN_VIT["depth"],
+                    {**tiled_launches(calls * TRAIN_VIT["depth"]),
                      "flash_bwd": calls * TRAIN_VIT["depth"]})
     lat_shape = (GEN_CLIPS, GEN_CLIP_LEN // 2, GEN_SIDE // 4, GEN_SIDE // 4,
                  GEN_VAE["latent"])
@@ -4483,7 +4584,7 @@ def phase_resume(device, smi):
             lambda m, o, g: make_conditional_diffusion_train_step(
                 m, sched, o, GEN_LABEL_DROPOUT, generator=g),
             (latents, labels))
-    dit_launches = {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+    dit_launches = flash_counts()
     out = {"phase": "resume", "card": smi, "lr": RESUME_LR,
            "vit": {"config": "joint B=4 16x224² bf16 flash, Adam",
                    **rows["vit"], "launches": vit_launches},
@@ -4562,7 +4663,7 @@ def phase_accum(device, smi):
         fa.reset_counts()
         out = [step(clips, mask) for _ in range(ACCUM_STEPS)]
         torch.cuda.synchronize()
-        launches = {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+        launches = flash_counts()
         peak = torch.cuda.max_memory_allocated()
         params = {k: p.detach().clone() for k, p in model.named_parameters()}
         check_replays(step.graphed, ACCUM_STEPS, f"accum n={n}")
@@ -4592,7 +4693,7 @@ def phase_accum(device, smi):
             "peak_memory_gib": peak / 2 ** 30, "step_ms": step_ms,
             "tokens_per_s": n_tok / (step_ms / 1e3), "launches": launches}
         expect_launches(f"accum n={n}", launches,
-                        {"flash_fwd": want, "flash_bwd": want})
+                        {**tiled_launches(want), "flash_bwd": want})
         if not runs[f"n{n}"]["grads_vs_full_batch"]["ok"]:
             raise AssertionError(f"accum n={n}: gradients leave the rule: "
                                  f"{runs[f'n{n}']['grads_vs_full_batch']}")
@@ -4786,7 +4887,7 @@ PAR_VPP = (("headline", BATCH, (SIDE, SIDE), None),
 
 
 def flash_counts():
-    return {"flash_fwd": fa.launches, "flash_bwd": fa.bwd_launches}
+    return {**fwd_counts(), "flash_bwd": fa.bwd_launches}
 
 
 def virtual_ring_case(device, causal):
@@ -4890,7 +4991,7 @@ def world1_ring(device, mesh, causal):
     equal = {"o": bitwise_equal(o, w),
              **{f"d{n}": bitwise_equal(a.grad, b.grad)
                 for n, a, b in zip("qkv", ours, theirs)}}
-    if not all(equal.values()) or launches != {"flash_fwd": 1,
+    if not all(equal.values()) or launches != {**tiled_launches(1),
                                                "flash_bwd": 1}:
         raise AssertionError(f"world-1 ring causal={causal}: bit-equal "
                              f"{equal}, launches {launches}")
@@ -5292,12 +5393,10 @@ def run(device):
                        for r in resized.values())
                 for v in resize_ops.AREA_VARIANTS}
         return entry
-    fwd_paths = {**{k: r["launches"]["flash_fwd"]
-                    for k, r in serve_runs.items()},
-                 **{k: v["flash_fwd"] for k, v in train.items()},
-                 **{k: v["flash_fwd"] for k, v in model_runs.items()
-                    if k.startswith("quantized")},
-                 **infra_paths("flash_fwd")}
+    fwd_runs = {**{k: r["launches"] for k, r in serve_runs.items()},
+                **train, **{k: v for k, v in model_runs.items()
+                            if k.startswith("quantized")}, **infra}
+    fwd_paths = {k: v.get("flash_fwd", 0) for k, v in fwd_runs.items()}
     bwd_paths = {**{k: v["flash_bwd"] for k, v in train.items()},
                  **infra_paths("flash_bwd")}
     emit({"kernels": [{
@@ -5314,6 +5413,10 @@ def run(device):
         "replaces": "tensor_stream_tpu/ops/flash_attention.py:83",
         "launches": sum(fwd_paths.values()),
         "launches_by_path": {**fwd_paths, "streaming_twin": twin["full"]},
+        "launches_by_design": {
+            d: sum(v["flash_fwd_by_design"][d] for v in fwd_runs.values()
+                   if "flash_fwd_by_design" in v) for d in fa.FWD_DESIGNS},
+        "designs": FWD_DESIGN_NOTES,
         "recompute_launches": {k: v["flash_fwd_recompute"]
                                for k, v in train.items()},
         "max_abs_err": flash_worst["no_window"], "ms": flash["ms"],
@@ -5321,6 +5424,9 @@ def run(device):
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}, {
         "name": "flash_fwd_band", "route": "cuda", "source": source,
         "replaces": "tensor_stream_tpu/ops/flash_attention.py:230",
+        "design": fwd_design(torch.bfloat16, band["shape"][2],
+                             band["shape"][2]),
+        "max_abs_err_short": flash_worst["short"],
         "launches": twin["band"],
         "launches_by_path": {"serving": 0, "streaming_twin": twin["band"],
                              **infra_paths("flash_fwd_band")},

@@ -73,6 +73,34 @@
 // multicast across a cluster of two blocks (each K/V tile is read from L2
 // by 9 blocks), and a TMA store of O.
 //
+// bf16 at short sequences (Sq <= 64 and Sk <= 64, every mode): FlashFwdShort,
+// the design of _band_kernel (a q tile's whole live band fetched as one kv
+// block, one plain softmax pass, no online m and l), cut to Hopper's
+// sizes. It replaces _band_kernel and _kernel where a head holds at most
+// 64 rows: the factorized VideoViT's temporal attention, whose sequence is
+// the clip's tubelet steps ([392, 6, 16, 64] with W = 8 in the windowed
+// causal twin of the streaming model). There the work is some 77 MFLOP
+// against 19.3 MB of q, k, v and o, so it is bound by bytes (5.75 us at
+// 3.35 TB/s), and the tiled kernel above, which fills 16 of a block's
+// 192 q rows and runs one 512-thread block an SM, pays its fixed cost in
+// 18 waves of blocks. The design:
+//   * A warp computes 16 q rows of one head on mma.sync m16n8k16 (bf16
+//     in, f32 accumulate): S = Q K^T over the columns KvRange gives those
+//     rows (all of them but the band's), masked by Live; the row max and
+//     exp2 in f32 as above, l the f32 sum of p, P cast to bf16 from the S
+//     fragments straight into P V's A fragments. A wgmma tile would be 64
+//     rows, 75% empty at S = 16; the tensor cores' rate does not matter
+//     here, bytes do.
+//   * A block of 4 warps takes the q heads of one kv head (GQA's group), or
+//     of as many kv heads as give its warps a 16-row tile each (4 heads
+//     under MHA at S <= 16), and loads their K and V once into shared
+//     memory with 16-byte cp.async copies (zeros past Sk), the caller's
+//     [B, S, H, d] strides read in place. Each warp stages its Q rows and
+//     its O rows through 16 padded rows of its own, so the loads and
+//     stores are 16 bytes a lane too.
+//   * A 1-D grid over the kv heads: no 65535 limit on y or z; at
+//     [392, 6, 16, 64] 588 blocks of 27 KB, one wave.
+//
 // f32: plain f32 FMAs, no TF32 (wgmma has no f32 without TF32). 128
 // threads, 32 q rows (4 threads a row), kv tiles of 32.
 #include <cuda.h>
@@ -81,6 +109,7 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -143,10 +172,7 @@ __device__ __forceinline__ bool Live(const Params& p, int row, int col) {
 
 // --------------------------------------------------------------- bf16
 
-__device__ __forceinline__ uint32_t PackBf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using mma_sync::PackBf16;
 
 constexpr int kWgRows = 64;  // q rows a consumer warpgroup
 constexpr int kBk = 128;     // kv columns a tile: the N of S = Q K^T
@@ -497,6 +523,249 @@ cudaError_t LaunchBf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16, short sequences
+
+constexpr int kShortMax = 64;   // Sq and Sk up to which FlashFwdShort runs
+constexpr int kShortWarps = 4;  // warps a block
+constexpr int kShortPad = 8;    // bf16 of row padding: conflict-free ldmatrix
+
+// Blocks an SM must hold at once: 6 at d <= 64 (80 registers a thread), so
+// that [392, 6, 16, 64]'s 588 blocks and its GQA twin's 784 run in one
+// wave; 4 at d = 128, whose O takes twice the registers.
+template <int D>
+constexpr int ShortBlocksPerSm() {
+  return D <= 64 ? 6 : 4;
+}
+
+// Shared memory of a block that takes `heads` kv heads: K and V of each,
+// Sk rounded up to 16 rows, and a 16-row Q/O stage a warp.
+template <int D>
+int SmemShort(int heads, int sk) {
+  return (2 * heads * ((sk + 15) / 16 * 16) + kShortWarps * 16) *
+         (D + kShortPad) * 2;
+}
+
+// Which rows a warp task covers: task t of a block whose first kv head is
+// `first` (kv heads b * Hk + hk in order) is kv head first + t / per_kv,
+// q head hk * group + (t % per_kv) / tiles of it, rows 16 * (t % tiles).
+struct ShortTask {
+  int j, b, h, r0;
+};
+
+__device__ __forceinline__ ShortTask TaskOf(const Params& p, long long first,
+                                            int group, int tiles, int t) {
+  const int per_kv = group * tiles;
+  ShortTask k;
+  k.j = t / per_kv;
+  const long long kv = first + k.j;
+  k.b = static_cast<int>(kv / p.Hk);
+  k.h = static_cast<int>(kv % p.Hk) * group + (t % per_kv) / tiles;
+  k.r0 = 16 * (t % tiles);
+  return k;
+}
+
+// The task's 16 q rows into the warp's stage, zeros past Sq.
+template <int D>
+__device__ __forceinline__ void StageQ(const Params& p, const ShortTask& k,
+                                       __nv_bfloat16* stage, int lane) {
+  constexpr int LD = D + kShortPad;
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + k.b * p.qsb + k.h * p.qsh;
+  for (int i = lane; i < 16 * D / 8; i += 32) {
+    const int r = i / (D / 8), col = (i % (D / 8)) * 8;
+    const bool in = k.r0 + r < p.Sq;
+    mma_sync::CpAsync16(stage + r * LD + col,
+                        in ? q + (k.r0 + r) * p.qss + col : q, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kShortWarps * 32, ShortBlocksPerSm<D>())
+    FlashFwdShort(const Params p, int heads) {
+  constexpr int LD = D + kShortPad;
+  constexpr int NP = kShortMax / 16;  // 16-column pairs of n-tiles
+  using mma_sync::LoadA;
+  using mma_sync::LoadB;
+  using mma_sync::LoadBt;
+  using mma_sync::Mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int skp = (p.Sk + 15) / 16 * 16;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + heads * skp * LD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __nv_bfloat16* stage = vs + heads * skp * LD + warp * 16 * LD;
+  const int group = p.H / p.Hk;
+  const int tiles = (p.Sq + 15) / 16;
+  const long long first = static_cast<long long>(blockIdx.x) * heads;
+  const int live =
+      static_cast<int>(min(static_cast<long long>(heads),
+                           static_cast<long long>(p.B) * p.Hk - first));
+  const int tasks = live * group * tiles;
+
+  // K and V of the block's kv heads, and the first task's Q rows.
+  for (int i = threadIdx.x; i < live * skp * (D / 8); i += blockDim.x) {
+    const int j = i / (skp * (D / 8)), r = (i / (D / 8)) % skp;
+    const int col = (i % (D / 8)) * 8;
+    const long long kv = first + j;
+    const int b = static_cast<int>(kv / p.Hk);
+    const int hk = static_cast<int>(kv % p.Hk);
+    const bool in = r < p.Sk;
+    const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
+                              b * p.ksb + hk * p.ksh + (in ? r * p.kss : 0);
+    const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
+                              b * p.vsb + hk * p.vsh + (in ? r * p.vss : 0);
+    mma_sync::CpAsync16(ks + (j * skp + r) * LD + col, kg + col, in);
+    mma_sync::CpAsync16(vs + (j * skp + r) * LD + col, vg + col, in);
+  }
+  if (warp < tasks) StageQ<D>(p, TaskOf(p, first, group, tiles, warp), stage,
+                              lane);
+  mma_sync::CpAsyncCommit();
+  mma_sync::CpAsyncWait<0>();
+  __syncthreads();
+
+  const int g = lane >> 2, c = lane & 3;
+  const float c2 = p.scale * kLog2e;
+  for (int t = warp; t < tasks; t += kShortWarps) {
+    const ShortTask k = TaskOf(p, first, group, tiles, t);
+    if (t != warp) {
+      StageQ<D>(p, k, stage, lane);
+      mma_sync::CpAsyncCommit();
+      mma_sync::CpAsyncWait<0>();
+      __syncwarp();
+    }
+    uint32_t qa[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      LoadA(qa[kk], stage, LD, 0, 16 * kk, lane);
+    const __nv_bfloat16* kt = ks + k.j * skp * LD;
+    const __nv_bfloat16* vt = vs + k.j * skp * LD;
+    int lo, hi;
+    KvRange(p, k.r0, 16, &lo, &hi);
+    const int plo = lo / 16, phi = (hi + 15) / 16;  // the warp's column pairs
+
+    // S = Q K^T over the live column pairs (raw dot products).
+    float s[2 * NP][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NP; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      if (np < plo || np >= phi) continue;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bk[4];
+        LoadBt(bk, kt, LD, 16 * np, 16 * kk, lane);
+        Mma(s[2 * np], qa[kk], bk[0], bk[1]);
+        Mma(s[2 * np + 1], qa[kk], bk[2], bk[3]);
+      }
+    }
+
+    // One softmax pass over the whole row: s[j][e] is row r0 + g + 8 (e/2),
+    // column 8j + 2c + (e%2).
+    float l_row[2], m_row[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = k.r0 + g + 8 * r;
+      float mx = kMask;
+#pragma unroll
+      for (int j = 0; j < 2 * NP; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * c + e;
+          if (j < 2 * plo || j >= 2 * phi || !Live(p, row, col))
+            s[j][2 * r + e] = kMask;
+          mx = fmaxf(mx, s[j][2 * r + e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mc = mx > kMask ? mx * c2 : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * NP; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sm90::Exp2(fmaf(s[j][2 * r + e], c2, -mc));
+          s[j][2 * r + e] = x;
+          sum += x;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_row[r] = sum;
+      m_row[r] = mx;
+    }
+
+    // O = P V, P rounded to bf16 pairs in registers (s is dead after).
+    uint32_t pa[NP][4];
+    mma_sync::PackA<2 * NP>(pa, s);
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      if (np < plo || np >= phi) continue;
+#pragma unroll
+      for (int n0 = 0; n0 < D; n0 += 16) {
+        uint32_t bv[4];
+        LoadB(bv, vt, LD, 16 * np, n0, lane);
+        Mma(o[n0 / 8], pa[np], bv[0], bv[1]);
+        Mma(o[n0 / 8 + 1], pa[np], bv[2], bv[3]);
+      }
+    }
+
+    // O through the stage to 16-byte stores; l and m beside it.
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = l_row[r] == 0.f ? 1.f : 1.f / l_row[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * LD + 8 * j +
+                                     2 * c) =
+            PackBf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      const int row = k.r0 + g + 8 * r;
+      if (c == 0 && p.l != nullptr && row < p.Sq) {
+        const long long at =
+            (static_cast<long long>(k.b) * p.H + k.h) * p.Sq + row;
+        p.l[at] = l_row[r];
+        p.m[at] = m_row[r] * p.scale;
+      }
+    }
+    __syncwarp();
+    __nv_bfloat16* og =
+        static_cast<__nv_bfloat16*>(p.o) + k.b * p.osb + k.h * p.osh;
+    for (int i = lane; i < 16 * D / 8; i += 32) {
+      const int r = i / (D / 8), col = (i % (D / 8)) * 8;
+      if (k.r0 + r < p.Sq)
+        *reinterpret_cast<uint4*>(og + (k.r0 + r) * p.oss + col) =
+            *reinterpret_cast<const uint4*>(stage + r * LD + col);
+    }
+    __syncwarp();
+  }
+}
+
+template <int D>
+cudaError_t LaunchShort(const Params& p, cudaStream_t stream) {
+  const int tasks = p.H / p.Hk * ((p.Sq + 15) / 16);
+  const int heads = tasks >= kShortWarps ? 1 : kShortWarps / tasks;
+  const long long blocks =
+      (static_cast<long long>(p.B) * p.Hk + heads - 1) / heads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const int smem = SmemShort<D>(heads, p.Sk);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        FlashFwdShort<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  FlashFwdShort<D><<<static_cast<int>(blocks), kShortWarps * 32, smem,
+                     stream>>>(p, heads);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- f32
 
 constexpr int kBqF = 32;  // q rows a block (4 threads a row)
@@ -623,10 +892,18 @@ cudaError_t Launch(Kernel kernel, int smem, dim3 grid, const Params& p,
   return cudaGetLastError();
 }
 
+// The design ts_flash_fwd launches: 0 "tiled" (TMA and wgmma), 1 "short"
+// (mma.sync, Sq and Sk <= kShortMax), 2 "f32". The shape alone chooses.
+int Design(int dtype, int sq, int sk) {
+  if (dtype == 1) return 2;
+  return sq <= kShortMax && sk <= kShortMax ? 1 : 0;
+}
+
 }  // namespace
 
 // dtype: 0 bf16, 1 f32. d: 32, 64 or 128. Strides in elements; the last
 // dimension of every tensor is contiguous. l and m may both be null.
+// *design is set to the design launched (Design() above).
 // Returns a cudaError_t (0 on success, cudaErrorInvalidValue for a head
 // dim or dtype the kernel does not take, or for bf16 strides that TMA
 // cannot describe).
@@ -637,23 +914,36 @@ extern "C" int ts_flash_fwd(
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, void* stream, int* design) {
   Params p{q, k, v, o, l, m, B, H, Hk, Sq, Sk,
            qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
            scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (d) {
-      case 32: return LaunchBf16<32>(p, s);
-      case 64: return LaunchBf16<64>(p, s);
-      case 128: return LaunchBf16<128>(p, s);
-    }
-  } else if (dtype == 1) {
-    const dim3 grid((Sq + kBqF - 1) / kBqF, H, B);
-    switch (d) {
-      case 32: return Launch(FlashFwdF32<32>, SmemF32<32>(), grid, p, s);
-      case 64: return Launch(FlashFwdF32<64>, SmemF32<64>(), grid, p, s);
-      case 128: return Launch(FlashFwdF32<128>, SmemF32<128>(), grid, p, s);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  *design = Design(dtype, Sq, Sk);
+  switch (*design) {
+    case 0:
+      switch (d) {
+        case 32: return LaunchBf16<32>(p, s);
+        case 64: return LaunchBf16<64>(p, s);
+        case 128: return LaunchBf16<128>(p, s);
+      }
+      break;
+    case 1:
+      switch (d) {
+        case 32: return LaunchShort<32>(p, s);
+        case 64: return LaunchShort<64>(p, s);
+        case 128: return LaunchShort<128>(p, s);
+      }
+      break;
+    case 2: {
+      const dim3 grid((Sq + kBqF - 1) / kBqF, H, B);
+      switch (d) {
+        case 32: return Launch(FlashFwdF32<32>, SmemF32<32>(), grid, p, s);
+        case 64: return Launch(FlashFwdF32<64>, SmemF32<64>(), grid, p, s);
+        case 128: return Launch(FlashFwdF32<128>, SmemF32<128>(), grid, p, s);
+      }
+      break;
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

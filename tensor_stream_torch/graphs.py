@@ -64,8 +64,9 @@ COUNTERS = tuple(
         "launches", "launches_by_pass", "nv12_launches",
         "nv12_launches_by_pass", "nv12_launches_by_mode")]
     + [(flash_attention, name) for name in (
-        "launches", "launches_by_mode", "recompute_launches", "bwd_launches",
-        "bwd_launches_by_design", "dout_copies")]
+        "launches", "launches_by_mode", "launches_by_design",
+        "recompute_launches", "bwd_launches", "bwd_launches_by_design",
+        "dout_copies")]
     + [(ring_attention, name) for name in ("launches_by_mode",
                                            "bwd_launches_by_mode")])
 

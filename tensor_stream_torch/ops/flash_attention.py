@@ -18,7 +18,11 @@ and strides, so ``torch.export`` traces them without storage.
 anywhere; ``"cuda"`` calls the ops and raises off CUDA. Nothing falls back
 from one to the other. Each forward launch adds one to ``launches`` and to
 its mode's entry of ``launches_by_mode``: "band" with a window (the mode
-that serves ``_band_kernel``), else "causal" or "full"; a forward launched
+that serves ``_band_kernel``), else "causal" or "full", and to its
+design's entry of ``launches_by_design``: "tiled" (bf16: TMA and
+warp-specialised wgmma), "short" (bf16 at Sq and Sk <= 64: a warp a 16-row
+head on mma.sync, one softmax pass) or "f32" (FMAs), as the library's
+``ts_flash_fwd`` reports the kernel it launched; a forward launched
 while a checkpointed block is recomputed (``recomputing()``) also adds one
 to ``recompute_launches``. Each backward launch adds one to
 ``bwd_launches`` and to its design's entry of ``bwd_launches_by_design``:
@@ -47,11 +51,13 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 MODES = ("full", "causal", "band")
+FWD_DESIGNS = ("tiled", "short", "f32")
 BWD_DESIGNS = ("wgmma", "mma_sync", "f32")
 BWD_TILE = 64  # rows of the backward's q tiles, whose statistics it pads
 
 launches = 0
 launches_by_mode = dict.fromkeys(MODES, 0)
+launches_by_design = dict.fromkeys(FWD_DESIGNS, 0)
 recompute_launches = 0
 bwd_launches = 0
 bwd_launches_by_design = dict.fromkeys(BWD_DESIGNS, 0)
@@ -70,6 +76,8 @@ def reset_counts():
     launches = recompute_launches = bwd_launches = dout_copies = 0
     for mode in MODES:
         launches_by_mode[mode] = 0
+    for design in FWD_DESIGNS:
+        launches_by_design[design] = 0
     for design in BWD_DESIGNS:
         bwd_launches_by_design[design] = 0
 
@@ -95,7 +103,7 @@ def _kernel():
         fn = lib.ts_flash_fwd
         fn.restype = i
         fn.argtypes = ([v] * 6 + [i] * 7 + [ll] * 12
-                       + [ctypes.c_float, i, i, v])
+                       + [ctypes.c_float, i, i, v, ctypes.POINTER(i)])
         _FN = fn
     return _FN
 
@@ -240,6 +248,7 @@ def _flash_fwd_cuda(q, k, v, causal, window, sm_scale, residuals):
     if o.numel() == 0:
         return (o, l, m) if residuals else o
     fn = _kernel()
+    design = ctypes.c_int()
     with kernel_device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 l.data_ptr() if residuals else None,
@@ -247,12 +256,14 @@ def _flash_fwd_cuda(q, k, v, causal, window, sm_scale, residuals):
                 _DTYPES[q.dtype], b, h, hk, sq, sk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *o.stride()[:3], sm_scale, int(causal),
-                window, torch.cuda.current_stream(q.device).cuda_stream)
+                window, torch.cuda.current_stream(q.device).cuda_stream,
+                ctypes.byref(design))
     if rc != 0:
         raise RuntimeError(f"ts_flash_fwd launch failed: cudaError {rc}")
     global launches, recompute_launches
     launches += 1
     launches_by_mode["band" if window else "causal" if causal else "full"] += 1
+    launches_by_design[FWD_DESIGNS[design.value]] += 1
     if _RECOMPUTING:
         recompute_launches += 1
     return (o, l, m) if residuals else o
@@ -461,9 +472,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``block_q``/``block_k`` choose the TPU kernel's tiles in the JAX
     package and are accepted for the same signature; the CUDA kernels'
     tiles are fixed: forward bf16 192 q rows x 128 kv at d <= 64 and
-    128 x 128 at d = 128 (TMA and wgmma), f32 32 x 32; backward bf16 128
-    rows a block against 64-row steps at d = 64 (TMA and wgmma), 64 x 64
-    at d = 32 and 128 (mma.sync), f32 32 x 32."""
+    128 x 128 at d = 128 (TMA and wgmma), 16 q rows a warp against the
+    whole row where Sq and Sk <= 64 (mma.sync), f32 32 x 32; backward
+    bf16 128 rows a block against 64-row steps at d = 64 (TMA and wgmma),
+    64 x 64 at d = 32 and 128 (mma.sync), f32 32 x 32."""
     sm_scale, window = _check(q, k, v, causal, window, sm_scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, sm_scale, impl)
