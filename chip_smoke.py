@@ -1789,20 +1789,39 @@ FLASH_CASES = [
     ("short_band_past_one_tile", (64, 6, 2, 64, 64, 64), True, 8, "bshd"),
     ("short_symmetric_band", (64, 4, 4, 40, 40, 32), False, 6, "bhsd"),
     ("short_mha_32", (64, 4, 4, 32, 32, 64), False, None, "bshd"),
+    # Mid-length sequences (64 < max(Sq, Sk) <= 256: the "mid" design in
+    # bf16 at d <= 64; ragged_100 and ragged_200_causal above and the
+    # twin's spatial attention are mid too): the factorized ViT-B's
+    # spatial attention, a causal S = 200, a band, cross-attention, and
+    # both edges; d = 128 at the upper edge stays "tiled".
+    ("vit_b_spatial", (32, 12, 12, 196, 196, 64), False, None, "bshd"),
+    ("mid_causal_200", (16, 6, 6, 200, 200, 64), True, None, "bshd"),
+    ("mid_band_150", (16, 6, 6, 150, 150, 64), False, 32, "bhsd"),
+    ("mid_cross_100_to_196", (16, 6, 2, 100, 196, 64), False, None, "bhsd"),
+    ("mid_edge_65_d32", (16, 4, 4, 65, 65, 32), True, None, "bshd"),
+    ("edge_256_d128", (8, 4, 4, 256, 256, 128), False, None, "bshd"),
 ]
 # Cases held in bf16 only (the model's dtype at the training shapes).
 BF16_ONLY = ("headline", "train", "train_long")
-# Sq and Sk up to which bf16 runs the "short" design (csrc/flash_fwd.cu,
-# kShortMax).
+# Sq and Sk up to which bf16 runs the "short" design, and the "mid" one
+# (csrc/flash_fwd.cu, kShortMax and kMidMax; the backward's "short" design
+# takes the same SHORT_MAX, csrc/flash_bwd.cu).
 SHORT_MAX = 64
+MID_MAX = 256
+# Designs launched twice a case and held bit-equal (one writer an output,
+# the order of every sum fixed).
+RELAUNCHED = ("short", "mid")
 
 
-def fwd_design(dtype, sq, sk):
-    """The forward design that must serve (dtype, Sq, Sk): "f32", "short"
-    for bf16 at Sq and Sk <= SHORT_MAX, else "tiled"."""
+def fwd_design(dtype, d, sq, sk):
+    """The forward design that must serve (dtype, d, Sq, Sk): "f32",
+    "short" for bf16 at Sq and Sk <= SHORT_MAX, "mid" for bf16 at both <=
+    MID_MAX and d <= 64, else "tiled"."""
     if dtype == torch.float32:
         return "f32"
-    return "short" if max(sq, sk) <= SHORT_MAX else "tiled"
+    if max(sq, sk) <= SHORT_MAX:
+        return "short"
+    return "mid" if max(sq, sk) <= MID_MAX and d <= 64 else "tiled"
 
 
 def phase_flash_vs_plain():
@@ -1810,25 +1829,25 @@ def phase_flash_vs_plain():
     tensors, o, l and m, in bf16 and f32: o elementwise and as a whole,
     l and m at the f32 rule. TF32 is off for the plain version's f32
     products (its stated numerics are full f32). Each case must launch the
-    design fwd_design names; a "short" case is launched twice and must
-    give the same bytes. Returns the worst o error of the cases without a
-    window and of those with one (the band mode), and of the "short"
-    design's."""
+    design fwd_design names; a "short" or "mid" case is launched twice and
+    must give the same bytes. Returns the worst o error of the cases
+    without a window and of those with one (the band mode), and of the
+    "short" and "mid" designs'."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    worst = {"no_window": 0.0, "window": 0.0, "short": 0.0}
+    worst = {"no_window": 0.0, "window": 0.0, "short": 0.0, "mid": 0.0}
     for i, (name, shape, causal, window, layout) in enumerate(FLASH_CASES):
         dtypes = (torch.bfloat16,) if name in BF16_ONLY else \
             (torch.bfloat16, torch.float32)
         for dtype in dtypes:
             q, k, v = _flash_case(*shape, dtype, 200 + i, layout)
-            design = fwd_design(dtype, shape[3], shape[4])
+            design = fwd_design(dtype, shape[5], shape[3], shape[4])
             before = fa.launches_by_design[design]
             o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
                                              window=window)
             relaunch = None
-            if design == "short":
+            if design in RELAUNCHED:
                 relaunch = fa.flash_attention_fwd(q, k, v, causal=causal,
                                                   window=window)
             want_launches = before + (2 if relaunch else 1)
@@ -1846,8 +1865,8 @@ def phase_flash_vs_plain():
             ok = all(checks.values())
             mode = "no_window" if window is None else "window"
             worst[mode] = max(worst[mode], errs["o"])
-            if design == "short":
-                worst["short"] = max(worst["short"], errs["o"])
+            if design in RELAUNCHED:
+                worst[design] = max(worst[design], errs["o"])
             rows.append({"case": name, "shape": list(shape),
                          "dtype": str(dtype).split(".")[-1],
                          "causal": causal, "window": window,
@@ -1904,6 +1923,20 @@ FLASH_BWD_CASES = [
     ("full_d32", (1, 4, 4, 384, 384, 32), False, None, "bhsd"),
     ("causal_d128", (1, 4, 4, 384, 384, 128), True, None, "bhsd"),
     ("grid_bh_over_65535", (5600, 12, 12, 16, 16, 64), True, None, "bshd"),
+    # Sq, Sk <= 64 (the "short" design in bf16), as the models' views: the
+    # factorized ViT-B's temporal attention at 8 and 16 frames, the
+    # streaming twin's band (MHA and GQA 6:2), a ragged band, cross 16 ->
+    # 48, d = 32 and d = 128; and its spatial backward, which stays wgmma.
+    ("vit_b_temporal", (1568, 12, 12, 4, 4, 64), False, None, "bshd"),
+    ("vit_b_temporal_16f", (784, 12, 12, 8, 8, 64), False, None, "bshd"),
+    ("twin_temporal", (392, 6, 6, 16, 16, 64), True, 8, "bshd"),
+    ("twin_temporal_gqa", (392, 6, 2, 16, 16, 64), True, 8, "bshd"),
+    ("short_ragged_band_gqa", (96, 6, 2, 13, 13, 64), True, 5, "bshd"),
+    ("short_cross_16_to_48", (64, 4, 2, 16, 48, 64), False, None, "bhsd"),
+    ("short_causal_d32", (128, 4, 4, 8, 8, 32), True, None, "bshd"),
+    ("short_full_d128", (64, 6, 6, 64, 64, 128), False, None, "bshd"),
+    ("short_mqa_64_d128", (16, 12, 1, 64, 64, 128), True, 20, "bshd"),
+    ("vit_b_spatial", (32, 12, 12, 196, 196, 64), False, None, "bshd"),
 ]
 
 
@@ -1941,24 +1974,33 @@ def bytes_equal(a, b):
 
 # Which flash forward design serves which inputs (csrc/flash_fwd.cu).
 FWD_DESIGN_NOTES = {
-    "tiled": "bf16: TMA ring, warp-specialised wgmma, 192 or 128 q rows a "
-             "block",
+    "tiled": "bf16 past S = 256: TMA ring, warp-specialised wgmma, 192 or "
+             "128 q rows a block",
     "short": "bf16 at Sq and Sk <= 64: a warp a 16-row head on mma.sync, "
              "the whole row in one softmax pass, K/V once a kv head",
+    "mid": "bf16 at 64 < max(Sq, Sk) <= 256, d <= 64: K/V of a kv head "
+           "staged once, a warp a 16-row q tile on mma.sync, m and l "
+           "online over 32-column chunks, one wave of blocks",
     "f32": "f32: FMAs (no TF32)"}
 
 # Which flash backward design serves which inputs (csrc/flash_bwd.cu).
 BWD_DESIGN_NOTES = {
+    "short": "bf16 at Sq and Sk <= 64: one launch, a block stages its kv "
+             "heads' K, V and their q heads' Q, dO, o; delta in the block; "
+             "a warp a 16-row kv slice (dK, dV), then a 16-row q tile (dQ)",
     "wgmma": "bf16 at d = 64: TMA ring, warp-specialised wgmma",
     "mma_sync": "bf16 at d = 32 and 128: mma.sync, cp.async stages",
     "f32": "f32: FMAs (no TF32)"}
 
 
-def bwd_design(dtype, d):
-    """The backward design that must serve (dtype, head dim): "wgmma" for
-    bf16 at d = 64, "mma_sync" for bf16 at d = 32 and 128, "f32"."""
+def bwd_design(dtype, d, sq, sk):
+    """The backward design that must serve (dtype, head dim, Sq, Sk):
+    "short" for bf16 at Sq and Sk <= SHORT_MAX, else "wgmma" for bf16 at
+    d = 64 and "mma_sync" at d = 32 and 128; "f32"."""
     if dtype == torch.float32:
         return "f32"
+    if max(sq, sk) <= SHORT_MAX:
+        return "short"
     return "wgmma" if d == 64 else "mma_sync"
 
 
@@ -1983,7 +2025,7 @@ def phase_flash_bwd_vs_plain():
             do = _grad_out(b, h, sq, d, dtype, 400 + i, layout)
             o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
                                              window=window)
-            design = bwd_design(dtype, d)
+            design = bwd_design(dtype, d, sq, sk)
             before = fa.bwd_launches_by_design[design]
             got = fa.flash_attention_bwd(q, k, v, o, l, m, do, causal=causal,
                                          window=window)
@@ -2745,11 +2787,11 @@ def twin_check(model, clips, name, dtype):
     if modes != {"full": depth, "causal": 0, "band": depth}:
         raise AssertionError(f"twin {name} {dtype}: flash launches {modes}, "
                              f"want {depth} full and {depth} band")
-    # The spatial attention (S = 196) runs "tiled" and the temporal band
+    # The spatial attention (S = 196) runs "mid" and the temporal band
     # (S = TWIN_STEPS) "short" in bf16; f32 runs "f32" for both.
-    want_designs = ({"tiled": depth, "short": depth, "f32": 0}
-                    if dtype == torch.bfloat16 else
-                    {"tiled": 0, "short": 0, "f32": 2 * depth})
+    want_designs = {d: 0 for d in fa.FWD_DESIGNS}
+    want_designs.update({"mid": depth, "short": depth}
+                        if dtype == torch.bfloat16 else {"f32": 2 * depth})
     if designs != want_designs:
         raise AssertionError(f"twin {name} {dtype}: flash launches by "
                              f"design {designs}, want {want_designs}")
@@ -2864,6 +2906,32 @@ def phase_streaming(device, smi):
     return out
 
 
+def flash_plan(design, b, h, hk, sq, sk, d, device):
+    """The launch plan of a "mid" forward or a "short" backward at a shape,
+    as the library computes it (ts_flash_fwd_mid_plan,
+    ts_flash_bwd_short_plan), with the waves it makes on this card; None
+    for another design."""
+    if design == "mid":
+        keys = ("blocks_an_sm", "blocks_a_kv_head", "blocks", "warps_a_block",
+                "smem_a_block")
+        fn = _build.load("flash_fwd").ts_flash_fwd_mid_plan
+    elif design == "short_bwd":
+        keys = ("kv_heads_a_block", "q_heads_staged", "warps_a_kv_slice",
+                "smem_a_block", "blocks", "blocks_an_sm", "heads_a_tile")
+        fn = _build.load("flash_bwd").ts_flash_bwd_short_plan
+    else:
+        return None
+    out = (ctypes.c_int * len(keys))()
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    rc = fn(d, b, h, hk, sq, sk, out)
+    if rc != 0:
+        raise RuntimeError(f"{design} plan: cudaError {rc}")
+    plan = dict(zip(keys, out))
+    plan["waves"] = plan["blocks"] / (sm_count(device) * plan["blocks_an_sm"])
+    return plan
+
+
 def flash_flops(b, h, live_pairs, d):
     """4·d FLOP per live (row, col) pair a head: Q K^T and P V."""
     return 4.0 * b * h * live_pairs * d
@@ -2884,22 +2952,47 @@ FLASH_TIMED = [
     # The factorized ViT-B's temporal attention (16 frames, tubelet 2: 8
     # steps) over 4 clips of 196 tokens: 784 sequences of 12 heads.
     ("vit_b_temporal", (784, 12, 8, 64), False, None, "bshd"),
+    # The factorized ViT-B's training (B = 8 clips of 8 x 224², tubelet 2):
+    # spatial attention over 32 frames of 196 tokens, temporal over 1,568
+    # tokens' 4 steps, 12 heads.
+    ("vit_b_spatial", (32, 12, 196, 64), False, None, "bshd"),
+    ("vit_b_temporal_8f", (1568, 12, 4, 64), False, None, "bshd"),
+    # The rest of the mid design's range: causal at a ragged S = 200, a
+    # band, cross-attention (b, h, sq, sk, d), d = 32; and d = 128 in that
+    # range, which stays "tiled".
+    ("mid_causal_200", (32, 12, 200, 64), True, None, "bshd"),
+    ("mid_band_150", (32, 12, 150, 64), False, 32, "bhsd"),
+    ("mid_cross_100_to_196", (32, 12, 100, 196, 64), False, None, "bhsd", 4),
+    ("mid_d32_196", (32, 12, 196, 32), False, None, "bshd"),
+    ("tiled_d128_256", (32, 12, 256, 128), False, None, "bshd"),
+    ("tiled_d128_196", (32, 12, 196, 128), False, None, "bshd"),
 ]
-# flash_ab's shapes: the headline and the twin's temporal band, MHA and GQA.
-FLASH_AB_TIMED = ("headline", "twin_temporal", "twin_temporal_gqa")
+# flash_ab's shapes: every FLASH_TIMED case but the headline as views (the
+# headline's kernel as the other layout).
+FLASH_AB_TIMED = ("headline", "band_causal", "band_symmetric",
+                  "twin_spatial", "twin_temporal", "twin_temporal_gqa",
+                  "vit_b_temporal", "vit_b_spatial", "vit_b_temporal_8f",
+                  "mid_causal_200", "mid_band_150", "mid_cross_100_to_196",
+                  "mid_d32_196", "tiled_d128_256", "tiled_d128_196")
 
 
-def time_flash(device, name, shape, causal, window, layout, kv_heads=None):
+def timed_shape(shape, kv):
+    """(b, h, hk, sq, sk, d) of a FLASH_TIMED row's shape ((b, h, s, d),
+    or (b, h, sq, sk, d) for cross-attention) and kv heads."""
+    b, h, *s, d = shape
+    return b, h, kv[0] if kv else h, s[0], s[-1], d
+
+
+def time_flash(device, name, shape, causal, window, layout, *kv):
     """Kernel, plain version and scaled_dot_product_attention (a yardstick
     only: the port never calls it; it gets the boolean band mask where
     there is one, and GQA's kv heads as they are) on the same bf16 inputs.
     The bound counts the live (row, col) pairs that band_mask counts, each
     input read once and o written once."""
-    b, h, s, d = shape
-    hk = kv_heads or h
-    q, k, v = _flash_case(b, h, hk, s, s, d, torch.bfloat16, 7, layout)
-    mask = fa.band_mask(s, s, causal, window, q.device)
-    live = s * s if mask is None else int(mask.sum())
+    b, h, hk, sq, sk, d = timed_shape(shape, kv)
+    q, k, v = _flash_case(b, h, hk, sq, sk, d, torch.bfloat16, 7, layout)
+    mask = fa.band_mask(sq, sk, causal, window, q.device)
+    live = sq * sk if mask is None else int(mask.sum())
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = {"enable_gqa": True} if hk != h else {}
     with torch.no_grad():
@@ -2910,13 +3003,15 @@ def time_flash(device, name, shape, causal, window, layout, kv_heads=None):
         library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, **gqa),
                              device)[0]
     flops = flash_flops(b, h, live, d)
+    design = fwd_design(torch.bfloat16, d, sq, sk)
+    plan = flash_plan(design, b, h, hk, sq, sk, d, device)
     # q and o at h heads, k and v at hk, each moved once.
-    nbytes = 2 * b * (h + hk) * s * d * q.element_size()
+    nbytes = 2 * b * (h * sq + hk * sk) * d * q.element_size()
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(flop_ms, byte_ms)
     return {"case": name, "shape": list(shape), "kv_heads": hk,
-            "dtype": "bf16",
+            "dtype": "bf16", "design": design, "plan": plan,
             "causal": causal, "window": window, "layout": layout,
             "live_pairs_a_head": live, "ms": ms, "p10_ms": p10,
             "p90_ms": p90, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -2975,8 +3070,19 @@ TRAIN_LOSS_TOL = 2e-2
 # the bound sits at about twice the largest reading (0.158). In f32 both
 # paths compute the same sums in other orders (read: 6.4e-6, 1.3e-7).
 TRAIN_GRAD_BOUNDS = {torch.bfloat16: (0.3, 1e-2), torch.float32: (1e-4, 1e-5)}
-FLASH_BWD_TIMED = (("train_joint", (4, 12, 1568, 64)),
-                   ("train_joint_long", (1, 12, 6272, 64)))
+# The backward's timed shapes, as the models' [B, S, H, d] views: the two
+# joint training shapes, the factorized ViT-B's (spatial, and temporal at
+# 8 and 16 frames) and the streaming twin's temporal band, MHA and GQA.
+FLASH_BWD_TIMED = (
+    # name, (b, h, s, d), causal, window[, kv heads]
+    ("train_joint", (4, 12, 1568, 64), False, None),
+    ("train_joint_long", (1, 12, 6272, 64), False, None),
+    ("vit_b_spatial", (32, 12, 196, 64), False, None),
+    ("vit_b_temporal", (1568, 12, 4, 64), False, None),
+    ("vit_b_temporal_16f", (784, 12, 8, 64), False, None),
+    ("twin_temporal", (392, 6, 16, 64), True, TWIN_RING),
+    ("twin_temporal_gqa", (392, 6, 16, 64), True, TWIN_RING, 2),
+)
 
 
 def train_flops(batch, size):
@@ -2994,15 +3100,15 @@ def train_flops(batch, size):
     return 3 * (depth * per_block + embed), n_tok, s_joint
 
 
-def ramp_clips(batch, size, device):
+def ramp_clips(batch, size, device, frames=TRAIN_VIT["frames"]):
     """The memorizable batch: uniform noise in [0, 0.25) plus a brightness
-    ramp from 0 to 1 over the 16 frames, and its flip mask."""
-    frames = TRAIN_VIT["frames"]
+    ramp from 0 to 1 over the frames, and its flip mask [T, F, T, F, ...]
+    cut to the batch."""
     rng = np.random.default_rng(2)
     ramp = np.linspace(0, 1, frames, dtype=np.float32)
     clips = (rng.uniform(0, .25, (batch, frames, size, size, 3))
              .astype(np.float32) + ramp[None, :, None, None, None])
-    mask = np.array([True, False, True, False])[:batch]
+    mask = np.arange(batch) % 2 == 0
     return (torch.from_numpy(clips).to(device),
             torch.from_numpy(mask).to(device))
 
@@ -3079,14 +3185,14 @@ def eager_step(model, opt):
 
 
 def first_grads(device, size, remat, clips, mask, dtype, use_flash,
-                flash_impl="auto"):
+                flash_impl="auto", vit=TRAIN_VIT):
     """The first step's gradients of make_vit_train_step from train_run's
     weights and clips, in `dtype` (compute and residual); flash_impl
     "plain" runs the flash path's plain versions (the kernels' cast
     points, in torch ops, no launch)."""
     model = VideoViT(compute_dtype=dtype, residual_dtype=dtype,
                      use_flash=use_flash, flash_impl=flash_impl,
-                     remat=remat, size=size, device=device, **TRAIN_VIT)
+                     remat=remat, size=size, device=device, **vit)
     init_vit(torch.Generator().manual_seed(0), model, tuple(clips.shape))
     opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR,
                           momentum=TRAIN_MOMENTUM)
@@ -3098,7 +3204,7 @@ def first_grads(device, size, remat, clips, mask, dtype, use_flash,
 
 
 def train_run(device, name, batch, size, remat, use_flash, clips, mask,
-              graphed=True):
+              graphed=True, vit=TRAIN_VIT, flops=None, profile=False):
     """TRAIN_WARMUP + TRAIN_STEPS steps of make_vit_train_step (through
     its CUDA graph, or eagerly with `graphed` False) with the kernels'
     counts at 0 just before; returns the run's row (an "outcome" of "OOM"
@@ -3106,8 +3212,11 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
     (first_step_grads) and every parameter after those steps on the host
     (both None after an OOM). A graphed run's row has its device ms a
     step from its own graph, replayed (the replays train the model on,
-    after the parameters were read)."""
-    flops, n_tok, s_joint = train_flops(batch, size)
+    after the parameters were read). `vit` is the model's configuration
+    and `flops` its (FLOP a step, tokens a step, tokens a sequence),
+    train_flops's for the joint one. With `profile`, a graphed run's row
+    also has one replay under torch.profiler (replay_split)."""
+    flops, n_tok, s_joint = flops or train_flops(batch, size)
     row = {"config": name, "use_flash": use_flash, "remat": remat,
            "graphed": graphed, "batch": batch, "size": size,
            "tokens": s_joint}
@@ -3116,7 +3225,7 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
     try:
         model = VideoViT(compute_dtype=torch.bfloat16,
                          residual_dtype=torch.bfloat16, use_flash=use_flash,
-                         remat=remat, size=size, device=device, **TRAIN_VIT)
+                         remat=remat, size=size, device=device, **vit)
         init_vit(torch.Generator().manual_seed(0), model, tuple(clips.shape))
         opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR,
                               momentum=TRAIN_MOMENTUM)
@@ -3149,6 +3258,9 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
                        replays=step.graphed.replays)
             device_ms = time_ms(step.graphed.graphs[0].replay, device,
                                 iters=5, warmup=1)[0]
+            if profile:
+                row["replay_profile"] = replay_split(
+                    step.graphed.graphs[0].replay, device_ms)
     except torch.cuda.OutOfMemoryError as e:
         row.update(outcome="OOM", error=str(e)[:200])
         return row, None, None
@@ -3305,6 +3417,185 @@ def phase_training(device, smi):
     return out
 
 
+# bench.py's bench_vit_train (:676-746), nothing cut: ViT-B (dim 768,
+# depth 12, 12 heads, tubelet 2, MLP x4) with the model's default
+# factorized attention, bf16 compute and residual, SGD lr 1e-3 momentum
+# 0.9, B = 8 clips of 8 x 224²: spatial attention at [32, 12, 196, 64]
+# ("mid" forward, "wgmma" backward), temporal at [1568, 12, 4, 64]
+# ("short" both ways). The clips are bench.py's: normal noise of std 1
+# (noise_clips), with ramp_clips's flip mask as the labels. On the ramp
+# clips, whose frames are spatially uniform, the spatial attention's query
+# and key gradients are some 1e-4 of the other leaves' (a query weight's
+# 1.9e-4 against its value weight's 3.5 on an H100), so the gradient gate
+# there reads the bf16 rounding of dS alone: the flash contract's plain
+# torch version lands 10.39 from the materialized path, the kernels 7.84.
+# The phase prints that reading beside its gates.
+FACTORIZED_VIT = dict(TRAIN_VIT, attention="factorized", frames=8)
+FACTORIZED_CONFIG = ("factorized", 8, 224, False)  # name, batch, size, remat
+
+
+def noise_clips(batch, size, device, frames):
+    """bench.py's clips (bench_vit_train, :703): normal noise of std
+    1, seeded with numpy; and ramp_clips's flip mask."""
+    rng = np.random.default_rng(2)
+    clips = rng.standard_normal((batch, frames, size, size, 3),
+                                dtype=np.float32)
+    return (torch.from_numpy(clips).to(device),
+            torch.from_numpy(np.arange(batch) % 2 == 0).to(device))
+
+
+def vit_train_flops(batch, t_tok, s_tok, dim, depth, mult, patch, tub):
+    """bench.py's _vit_train_flops (:661-673), copied: 3x the forward's
+    matmuls, a block's two attention sublayers' q, k, v, o (8 N d² each),
+    its MLP (4 mult N d²), the score products 4 N d (S + T), and the
+    tubelet embedding; no recompute, no elementwise work."""
+    n_tok = batch * t_tok * s_tok
+    per_block = (16 * dim * dim + 4 * mult * dim * dim) * n_tok \
+        + 4 * n_tok * dim * (s_tok + t_tok)
+    embed = 2 * n_tok * (patch * patch * 3 * tub) * dim
+    return 3 * (depth * per_block + embed)
+
+
+def factorized_flops():
+    """(FLOP a step, tokens a step, tokens a clip) of FACTORIZED_CONFIG:
+    6,272 tokens a step."""
+    v, (_, batch, size, _) = FACTORIZED_VIT, FACTORIZED_CONFIG
+    t_tok, s_tok = v["frames"] // v["tubelet_t"], (size // v["patch"]) ** 2
+    return (vit_train_flops(batch, t_tok, s_tok, v["dim"], v["depth"],
+                            v["hidden_mult"], v["patch"], v["tubelet_t"]),
+            batch * t_tok * s_tok, t_tok * s_tok)
+
+
+def factorized_launches(n, use_flash):
+    """The launches n factorized steps must make: a step's 12 spatial
+    forwards "mid" and 12 temporal "short", its 12 spatial backwards
+    "wgmma" and 12 temporal "short"; none on the materialized path."""
+    k = FACTORIZED_VIT["depth"] * n if use_flash else 0
+    return {"flash_fwd": 2 * k, "flash_fwd_by_design": {
+                d: k if d in ("mid", "short") else 0 for d in fa.FWD_DESIGNS},
+            "flash_fwd_recompute": 0, "flash_bwd": 2 * k,
+            "flash_bwd_by_design": {
+                d: k if d in ("short", "wgmma") else 0
+                for d in fa.BWD_DESIGNS}}
+
+
+def phase_factorized_training(device, smi):
+    """FACTORIZED_CONFIG through init_vit and make_vit_train_step, 2 + 8
+    steps each: flash through the step's CUDA graph, flash eagerly,
+    materialized through the graph (bench.py's use_flash=False). Gates, as
+    phase_training's: launches by design exactly factorized_launches (and
+    1 capture, a replay for every step but the first), the graphed flash
+    run bit-equal to the eager one (every loss, every parameter), a finite
+    loss at every step, the two paths' first losses within the bf16 model
+    rule, their first-step gradients within TRAIN_GRAD_BOUNDS, the flash
+    path's loss falling over its first 8 steps. Printed: each run's step
+    ms, tokens/s, MFU (vit_train_flops over the dense bf16 peak), peak
+    memory, graph replay device ms and idle share, one replay of each
+    graphed run split by kernel (torch.profiler: the flash kernels by
+    design, GEMMs, the rest); the flash path's first-step gradients
+    against its plain versions' (the kernels' part), and on the ramp clips
+    the kernels' and the plain versions' against the materialized path's,
+    none of these gated."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, batch, size, remat = FACTORIZED_CONFIG
+    clips, mask = noise_clips(batch, size, device, FACTORIZED_VIT["frames"])
+    rows, grads, params, failures = {}, {}, {}, []
+    for key, use_flash, graphed in TRAIN_RUNS:
+        row, grads[key], params[key] = train_run(
+            device, name, batch, size, remat, use_flash, clips, mask,
+            graphed, vit=FACTORIZED_VIT, flops=factorized_flops(),
+            profile=True)
+        rows[key] = row
+        if row["outcome"] != "ran":
+            failures.append(f"{name} {key}: {row['outcome']}")
+            continue
+        n = row["steps"]
+        want = factorized_launches(n, use_flash)
+        got = {k: row["launches"][k] for k in want}
+        if got != want:
+            failures.append(f"{name} {key}: launches {got}, want {want}")
+        if graphed and (row["captures"], row["replays"]) != (1, n + 2):
+            failures.append(f"{name} {key}: {row['captures']} captures, "
+                            f"{row['replays']} replays over {n} + 3 steps, "
+                            "want 1 and all but the first")
+        if not np.isfinite(row["loss"]).all():
+            failures.append(f"{name} {key}: loss {row['loss']}")
+    flash, eager, plain = (rows["flash"], rows["flash_eager"],
+                           rows["materialized"])
+    if all(r["outcome"] == "ran" for r in rows.values()):
+        eager["idle_share"] = 1 - flash["step_device_ms"] / eager["step_ms"]
+        flash["graphed_vs_eager"] = check = {
+            "losses_bit_equal": flash["loss"] == eager["loss"],
+            "params_differing": params_equal(params["flash"],
+                                             params["flash_eager"]),
+            "params": len(params["flash_eager"])}
+        if not check["losses_bit_equal"] or check["params_differing"]:
+            failures.append(f"{name}: graphed flash steps differ from eager "
+                            f"ones: {check}")
+        losses = flash["loss"]
+        flash["descends_over_8"] = losses[7] < losses[0]
+        if not flash["descends_over_8"]:
+            failures.append(f"{name}: loss did not fall over 8 steps "
+                            f"{losses[:8]}")
+        a, b = flash["loss"][0], plain["loss"][0]
+        bound = TRAIN_LOSS_TOL + TRAIN_LOSS_TOL * abs(b)
+        flash["first_loss_vs_materialized"] = {
+            "flash": a, "materialized": b, "abs_err": abs(a - b),
+            "bound": bound}
+        if abs(a - b) > bound:
+            failures.append(f"{name}: first loss {a} (flash) against {b} "
+                            "(materialized)")
+        flash["speedup_over_materialized"] = (plain["step_ms"]
+                                              / flash["step_ms"])
+        flash["first_grads_vs_materialized"] = grad_summary(
+            grads["flash"], grads["materialized"], torch.bfloat16)
+        if not flash["first_grads_vs_materialized"]["ok"]:
+            failures.append(f"{name}: first_grads_vs_materialized: "
+                            f"{flash['first_grads_vs_materialized']}")
+        flash["first_grads_vs_plain_flash"] = grad_summary(
+            grads["flash"], first_grads(device, size, remat, clips, mask,
+                                        torch.bfloat16, True, "plain",
+                                        FACTORIZED_VIT), torch.bfloat16)
+    del params, grads
+    ramp, ramp_mask = ramp_clips(batch, size, device, FACTORIZED_VIT["frames"])
+    ramp_grads = {key: first_grads(device, size, remat, ramp, ramp_mask,
+                                   torch.bfloat16, use_flash, impl,
+                                   FACTORIZED_VIT)
+                  for key, use_flash, impl in (
+                      ("kernels", True, "auto"), ("plain", True, "plain"),
+                      ("materialized", False, "auto"))}
+    del ramp, ramp_mask
+    ramp_read = {
+        "kernels_vs_materialized": grad_summary(
+            ramp_grads["kernels"], ramp_grads["materialized"],
+            torch.bfloat16),
+        "plain_flash_vs_materialized": grad_summary(
+            ramp_grads["plain"], ramp_grads["materialized"], torch.bfloat16),
+        "spatial_query_grad_norm": float(ramp_grads["materialized"][
+            "blocks.11.attn_s.query.weight"].norm()),
+        "spatial_value_grad_norm": float(ramp_grads["materialized"][
+            "blocks.11.attn_s.value.weight"].norm())}
+    del ramp_grads
+    out = {"phase": "factorized_training", "card": smi,
+           "model": FACTORIZED_VIT, "batch": batch, "size": size,
+           "compute": "bf16", "residual": "bf16",
+           "attention_shapes": {"spatial": [batch * 4, 12, 196, 64],
+                                "temporal": [batch * 196, 12, 4, 64]},
+           "optimizer": {"sgd_lr": TRAIN_LR, "momentum": TRAIN_MOMENTUM},
+           "peak_flop_per_s": BF16_FLOP_PER_S,
+           "flops": "bench.py:661-673 (_vit_train_flops, copied as "
+                    "vit_train_flops; no recompute counted)",
+           "clips": "normal noise, std 1 (bench.py:703), seed 2",
+           "runs": list(rows.values()),
+           "ramp_clips_first_grads_not_gated": ramp_read,
+           "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"factorized training phase failed: {failures}")
+    return out
+
+
 BWD_SPLIT_CALLS = 20
 
 
@@ -3327,39 +3618,56 @@ def bwd_split(call):
     return split
 
 
-def time_flash_bwd(device, name, shape):
+def time_flash_bwd(device, name, shape, causal=False, window=None,
+                   kv_heads=None):
     """The backward kernel at a training shape (bf16, the model's [B, S,
     H, d] views, residuals from the forward kernel) beside its plain
     version and the backward of scaled_dot_product_attention (a yardstick
-    only: the port never calls it), and its kernels apart (bwd_split).
-    The bound counts the five products, 10 * B*H*S*S*d FLOP, and each
-    input (q, k, v, o, dO, l, m) read and each gradient written once; the
-    seven products the two kernels run (S and dP in both) are beside
-    it."""
+    only: the port never calls it; it gets the boolean band mask where
+    there is one, and GQA's kv heads as they are), and its kernels apart
+    (bwd_split). The bound counts the five products over the live (row,
+    col) pairs that band_mask counts, 10 * B*H*live*d FLOP, and each input
+    (q, k, v, o, dO, l, m) read and each gradient written once; the seven
+    products the wgmma design's two kernels run (S and dP in both) are
+    beside it."""
     b, h, s, d = shape
-    q, k, v = _flash_case(b, h, h, s, s, d, torch.bfloat16, 8, "bshd")
+    hk = kv_heads or h
+    q, k, v = _flash_case(b, h, hk, s, s, d, torch.bfloat16, 8, "bshd")
     do = _grad_out(b, h, s, d, torch.bfloat16, 9, "bshd")
-    o, l, m = fa.flash_attention_fwd(q, k, v)
+    o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    mask = fa.band_mask(s, s, causal, window, q.device)
+    live = s * s if mask is None else int(mask.sum())
     before = dict(fa.bwd_launches_by_design)
-    ms, p10, p90 = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, l, m,
-                                                          do), device)
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, o, l, m, do, causal=causal,
+                                      window=window)
+    ms, p10, p90 = time_ms(call, device)
     designs = [x for x in fa.BWD_DESIGNS
                if fa.bwd_launches_by_design[x] != before[x]]
-    split = bwd_split(lambda: fa.flash_attention_bwd(q, k, v, o, l, m, do))
+    split = bwd_split(call)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, o, l, m, do), device, iters=10, warmup=2)[0]
+        q, k, v, o, l, m, do, causal, window), device, iters=10,
+        warmup=2)[0]
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    gqa = {"enable_gqa": True} if hk != h else {}
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=mask, **gqa)
     library_ms = time_ms(lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True), device)[0]
     del out, leaves
-    flops = 10.0 * b * h * s * s * d
-    nbytes = 8 * b * h * s * d * q.element_size() + 2 * b * h * s * 4
+    flops = 10.0 * b * h * live * d
+    # q, o, dO and dQ at h heads, k, v, dK and dV at hk; l and m.
+    nbytes = 4 * b * (h + hk) * s * d * q.element_size() + 2 * b * h * s * 4
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(flop_ms, byte_ms)
-    run_flops = 14.0 * b * h * s * s * d
-    return {"case": name, "shape": list(shape), "dtype": "bf16",
+    run_flops = 14.0 * b * h * live * d
+    return {"case": name, "shape": list(shape), "kv_heads": hk,
+            "causal": causal, "window": window, "live_pairs_a_head": live,
+            "dtype": "bf16", "plan": flash_plan(
+                "short_bwd" if designs == ["short"] else None, b, h, hk, s, s,
+                d, device),
             "layout": "bshd", "designs": designs, "split_ms": split,
             "ms": ms, "p10_ms": p10, "p90_ms": p90,
             "plain_ms": plain_ms, "library_ms": library_ms, "flops": flops,
@@ -3376,8 +3684,8 @@ def time_flash_bwd(device, name, shape):
 
 # The flash backward's kernels (csrc/flash_bwd.cu), each name before any
 # that it contains.
-BWD_KERNELS = ("DeltaTiles", "Delta", "DkvWgmma", "DqWgmma", "DkvBf16",
-               "DqBf16", "DkvF32", "DqF32")
+BWD_KERNELS = ("FlashBwdShort", "FlashBwdPacked", "DeltaTiles", "Delta",
+               "DkvWgmma", "DqWgmma", "DkvBf16", "DqBf16", "DkvF32", "DqF32")
 
 
 def bwd_kernel(key):
@@ -3399,12 +3707,60 @@ def kernel_group(key):
     return "other"
 
 
+# The flash kernels' device records by design: each name before any that
+# it contains (csrc/flash_fwd.cu, csrc/flash_bwd.cu; Delta serves both
+# the mma_sync and the f32 backward).
+FLASH_DESIGN_OF = (("FlashFwdMid", "fwd_mid"), ("FlashFwdShort", "fwd_short"),
+                   ("FlashFwdBf16", "fwd_tiled"), ("FlashFwdF32", "fwd_f32"),
+                   ("FlashBwdShort", "bwd_short"),
+                   ("FlashBwdPacked", "bwd_short"),
+                   ("DeltaTiles", "bwd_wgmma"), ("DkvWgmma", "bwd_wgmma"),
+                   ("DqWgmma", "bwd_wgmma"), ("DkvBf16", "bwd_mma_sync"),
+                   ("DqBf16", "bwd_mma_sync"), ("DkvF32", "bwd_f32"),
+                   ("DqF32", "bwd_f32"), ("Delta", "bwd_delta"))
+
+
+def split_kernels(kernels, top=8):
+    """{kernel: ms} of one step summed by group (kernel_group: the flash
+    kernels, cuBLAS GEMMs, the rest, which is the elementwise ops,
+    reductions and copies), the flash kernels by design, and the `top`
+    kernels."""
+    groups, designs = {}, {}
+    for key, ms in kernels.items():
+        groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + ms
+        design = next((d for w, d in FLASH_DESIGN_OF if w in key), None)
+        if design is not None:
+            designs[design] = designs.get(design, 0.0) + ms
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ms": sum(kernels.values()), "groups_ms": groups,
+            "flash_by_design_ms": designs, "kernels": len(kernels),
+            "top_ms": dict(ranked)}
+
+
+def replay_split(replay, replay_ms):
+    """One call of a CUDA graph's `replay` under torch.profiler, split by
+    split_kernels, beside its timed device ms; "recorded" False where the
+    profiler saw no device record of the replay's kernels."""
+    replay()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        replay()
+        torch.cuda.synchronize()
+    out = split_kernels(kernel_ms(prof))
+    out.update(source="torch.profiler, one graph replay",
+               recorded=out["device_ms"] > 0, graph_replay_ms=replay_ms)
+    return out
+
+
 def train_profile(device, name, use_flash, replay_ms, top=8):
     """Where a training step's device time goes: one eager step of a
     TRAIN_CONFIGS run after 3 warm-up steps, under torch.profiler; the
     device's records (kernel_ms) summed by group (the flash kernels,
-    cuBLAS GEMMs, the rest) and the `top` kernels, in ms, beside
-    `replay_ms`, the phase training's graph replay of the same step."""
+    cuBLAS GEMMs, the rest), the flash kernels by design and the `top`
+    kernels, in ms, beside `replay_ms`, the phase training's graph replay
+    of the same step."""
     _, batch, size, remat = next(c for c in TRAIN_CONFIGS if c[0] == name)
     clips, mask = ramp_clips(batch, size, device)
     model = VideoViT(compute_dtype=torch.bfloat16,
@@ -3423,17 +3779,10 @@ def train_profile(device, name, use_flash, replay_ms, top=8):
     kernels = kernel_ms(prof)
     del model, step, clips, mask, prof
     torch.cuda.empty_cache()
-
-    groups = {}
-    for key, ms in kernels.items():
-        groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + ms
-    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
-    device_ms = sum(kernels.values())
-    return {"config": name, "use_flash": use_flash, "device_ms": device_ms,
+    split = split_kernels(kernels, top)
+    return {"config": name, "use_flash": use_flash,
             "graph_replay_ms": replay_ms,
-            "device_over_replay": device_ms / replay_ms,
-            "groups_ms": groups, "kernels": len(kernels),
-            "top_ms": dict(ranked)}
+            "device_over_replay": split["device_ms"] / replay_ms, **split}
 
 
 def phase_train_profile(device, training):
@@ -3460,9 +3809,10 @@ def phase_flash_bwd_times(device, smi):
     return out
 
 
-# The training shapes as the model hands them over ([B, S, H, d] views),
-# seeded as time_flash_bwd seeds them; needs nothing of the other
-# checkout but its wrapper.
+# FLASH_BWD_TIMED's shapes as the models hand them over ([B, S, H, d]
+# views), k and v at their kv heads, one generator of seed 8 for q, k, v
+# and dO in that order; needs nothing of the other checkout but its
+# wrapper.
 FLASH_BWD_AB_SNIPPET = """
 import json, numpy as np, torch
 from tensor_stream_torch.ops import flash_attention as fa
@@ -3470,15 +3820,16 @@ HOLD_CYCLES = {hold}
 {timer}
 dev = torch.device("cuda", 0)
 rows = []
-for b, h, s, d in {shapes}:
+for (b, h, hk, s, d), causal, window in {cases}:
     gen = torch.Generator().manual_seed(8)
-    q, k, v = [(torch.randn((b, s, h, d), generator=gen) * std).to(
-        dev, torch.bfloat16).transpose(1, 2) for std in {stds}]
+    q, k, v = [(torch.randn((b, s, heads, d), generator=gen) * std).to(
+        dev, torch.bfloat16).transpose(1, 2)
+        for heads, std in zip((h, hk, hk), {stds})]
     do = torch.randn((b, s, h, d), generator=gen).to(
         dev, torch.bfloat16).transpose(1, 2)
-    o, l, m = fa.flash_attention_fwd(q, k, v)
-    rows.append(time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, l, m, do),
-                        dev))
+    o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    rows.append(time_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, o, l, m, do, causal=causal, window=window), dev))
 print(json.dumps(rows))
 """
 
@@ -3694,9 +4045,8 @@ def flash_ab(other_root, blocks=1):
     timed = {row[0]: row for row in FLASH_TIMED}
     cases = []
     for name in FLASH_AB_TIMED:
-        _, (b, h, s, d), causal, window, layout, *kv = timed[name]
-        hk = kv[0] if kv else h
-        cases.append(((b, h, hk, s, s, d), causal, window, layout))
+        _, shape, causal, window, layout, *kv = timed[name]
+        cases.append((timed_shape(shape, kv), causal, window, layout))
     code = FLASH_AB_SNIPPET.format(hold=HOLD_CYCLES,
                                    timer=inspect.getsource(time_ms),
                                    cases=cases)
@@ -3711,18 +4061,23 @@ def flash_ab(other_root, blocks=1):
 
 
 def flash_bwd_ab(other_root, blocks=1):
-    """The flash backward's time at each training shape (FLASH_BWD_TIMED)
-    in the checkout at `other_root` against this one's (ab_turns). Prints
-    and returns {"other": [...], "this": [...]}: a list a turn of (median,
+    """The flash backward's time at each FLASH_BWD_TIMED shape in the
+    checkout at `other_root` against this one's (ab_turns). Prints and
+    returns {"other": [...], "this": [...]}: a list a turn of (median,
     p10, p90) ms a shape."""
-    shapes = [shape for _, shape in FLASH_BWD_TIMED]
+    cases = []
+    for _, (b, h, s, d), causal, window, *kv in FLASH_BWD_TIMED:
+        cases.append(((b, h, kv[0] if kv else h, s, d), causal, window))
     code = FLASH_BWD_AB_SNIPPET.format(
-        hold=HOLD_CYCLES, timer=inspect.getsource(time_ms), shapes=shapes,
+        hold=HOLD_CYCLES, timer=inspect.getsource(time_ms), cases=cases,
         stds=(FLASH_QK_STD, FLASH_QK_STD, FLASH_V_STD))
     got, order, roots = ab_turns(other_root, code, blocks)
     emit({"phase": "flash_bwd_ab", "card": nvidia_smi(),
-          "shapes": [list(s) for s in shapes], "order": order, **got,
-          "roots": roots})
+          "cases": [{"case": row[0], "shape": list(shape), "causal": causal,
+                     "window": window}
+                    for row, (shape, causal, window) in zip(FLASH_BWD_TIMED,
+                                                            cases)],
+          "order": order, **got, "roots": roots})
     return got
 
 
@@ -5290,6 +5645,7 @@ def run(device):
     bwd_worst = phase_flash_bwd_vs_plain()
     training = phase_training(device, smi)
     phase_train_profile(device, training)
+    factorized = phase_factorized_training(device, smi)
     bwd = phase_flash_bwd_times(device, smi)
     generation = phase_generation(device, smi)
     phase_moe_training(device, smi)
@@ -5328,8 +5684,16 @@ def run(device):
     twin = streaming["flash_launches"]
     train = {f"train_{r['config']}"
              f"{'' if r['graphed'] else '_eager'}": r["launches"]
-             for r in training["runs"]
+             for r in training["runs"] + factorized["runs"]
              if r["use_flash"] and r["outcome"] == "ran"}
+    fwd_cases = {r["case"]: r for r in flash["cases"]}
+    bwd_cases = {r["case"]: r for r in bwd["cases"]}
+
+    def timed(row):
+        """A timed case's numbers, as a design's entry of the line."""
+        return {k: row[k] for k in (
+            "case", "shape", "kv_heads", "causal", "window", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms") if k in row}
     source = "tensor_stream_torch/csrc/flash_fwd.cu"
     serve_runs = {"serving": serving, "serving_graphed":
                   serving["graphed_run"], "serving_fused":
@@ -5417,6 +5781,13 @@ def run(device):
             d: sum(v["flash_fwd_by_design"][d] for v in fwd_runs.values()
                    if "flash_fwd_by_design" in v) for d in fa.FWD_DESIGNS},
         "designs": FWD_DESIGN_NOTES,
+        "by_design": {"tiled": timed(fwd_cases["headline"]),
+                      "short": timed(fwd_cases["vit_b_temporal"]),
+                      "short_vit_b_temporal_8f":
+                          timed(fwd_cases["vit_b_temporal_8f"]),
+                      "mid": timed(fwd_cases["vit_b_spatial"]),
+                      "mid_twin_spatial": timed(fwd_cases["twin_spatial"])},
+        "max_abs_err_by_design": {d: flash_worst[d] for d in RELAUNCHED},
         "recompute_launches": {k: v["flash_fwd_recompute"]
                                for k, v in train.items()},
         "max_abs_err": flash_worst["no_window"], "ms": flash["ms"],
@@ -5424,8 +5795,8 @@ def run(device):
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}, {
         "name": "flash_fwd_band", "route": "cuda", "source": source,
         "replaces": "tensor_stream_tpu/ops/flash_attention.py:230",
-        "design": fwd_design(torch.bfloat16, band["shape"][2],
-                             band["shape"][2]),
+        "design": fwd_design(torch.bfloat16, band["shape"][3],
+                             band["shape"][2], band["shape"][2]),
         "max_abs_err_short": flash_worst["short"],
         "launches": twin["band"],
         "launches_by_path": {"serving": 0, "streaming_twin": twin["band"],
@@ -5445,6 +5816,10 @@ def run(device):
         "launches_by_path": bwd_paths,
         "launches_by_design": {k: v["flash_bwd_by_design"]
                                for k, v in train.items()},
+        "by_design": {"wgmma": timed(bwd_cases["train_joint"]),
+                      "short": timed(bwd_cases["vit_b_temporal"]),
+                      "short_twin_temporal":
+                          timed(bwd_cases["twin_temporal"])},
         "shape": bwd["shape"], "max_abs_err": bwd_worst["wgmma"],
         "max_abs_err_by_design": bwd_worst, "ms": bwd["ms"],
         "split_ms": bwd["split_ms"],

@@ -42,8 +42,20 @@
 // run here are 105.7 GFLOP, 107 us), against ~77 MB of q, k, v, o, dO, l,
 // m and the three outputs (23 us at 3.35 TB/s): the tensor cores bound it.
 //
-// Three designs, chosen by dtype and head dim (Design(), which the wrapper
-// reads to count launches by design):
+// Four designs, chosen by dtype, head dim and length (Design(), which the
+// wrapper reads to count launches by design):
+//   * "short", bf16 at Sq and Sk <= 64 (any d): FlashBwdShort, one launch
+//     for the three kernels below. It serves the factorized VideoViT's
+//     temporal attention ([1568, 12, 4, 64] in ViT-B training, [392, 6,
+//     16, 64] W = 8 in the streaming twin), where the wgmma design's
+//     128-row tiles hold 4 or 16 live rows, each of its 18,816 Dkv and Dq
+//     blocks (64,512 registers) runs one an SM, some 143 waves a kernel,
+//     against about 78 MB of bytes (23 us at 3.35 TB/s) and few products:
+//     bound by bytes. A block of 4 warps stages the K and V of its kv heads
+//     and the Q, dO and o of their q heads once (cp.async), computes delta
+//     and each row's exp2 bias itself, and runs the dK/dV pass (a warp a
+//     16-row kv slice) and the dQ pass (a warp a 16-row q tile) on
+//     mma.sync from shared memory; see FlashBwdShort.
 //   * "wgmma", bf16 at d = 64 (the model's head dim): TMA and warp-
 //     specialised wgmma, after csrc/flash_fwd.cu and FA3's backward. The
 //     mma.sync design below is bound by shared-memory reads: every operand
@@ -1404,13 +1416,668 @@ cudaError_t LaunchWgmma(const Params& p, cudaStream_t s) {
   return LaunchWgmmaKernel(DqWgmma, dq, maps, p, s);
 }
 
+// ------------------------------------------------ bf16, short sequences
+
+constexpr int kShortMax = 64;     // Sq and Sk up to which FlashBwdShort runs
+constexpr int kShortWarps = 4;    // warps a block
+constexpr int kSmemMax = 232448;  // shared memory a block may take (227 KB)
+
+// Shared memory of a FlashBwdShort block: K and V of `heads` kv heads (Sk
+// rounded up to 16 rows), then either the staged q side of `qc` q heads of
+// each (Q, dO, o, and each row's b and delta) or, once those are done,
+// the dK/dV partials of the warps past the first of each split.
+template <int D>
+int SmemBwdShort(int heads, int qc, int split, int skp, int sqp) {
+  const int kv = 2 * heads * skp * (D + kPad) * 2;
+  const int stage = heads * qc * sqp * (3 * (D + kPad) * 2 + 2 * 4);
+  const int red = (split - 1) * (kShortWarps / split) * 32 * D * 4;
+  return kv + (stage > red ? stage : red);
+}
+
+// Each staged row's bias b = m log2(e) + log2(l) (l == 0: m log2(e)) and
+// delta = rowsum(dO * o), written over the row's l (`bl`) and m (`dm`),
+// which the staging copied there: eight lanes a row, each a D / 8 slice of
+// o and dO. `live_row(r)` says whether staged row r is a row of a live
+// head below Sq; the others get b = delta = 0 (Live masks their P). Every
+// lane of the block runs the same passes, so every lane reaches the
+// shuffles.
+template <int D, typename LiveRow>
+__device__ __forceinline__ void RowStats(const __nv_bfloat16* os,
+                                         const __nv_bfloat16* dos, float* bl,
+                                         float* dm, int rows,
+                                         LiveRow live_row) {
+  constexpr int LD = D + kPad, PER = D / 8;
+  const int part = threadIdx.x % 8;
+  for (int base = 0; base < rows; base += blockDim.x / 8) {
+    const int r = base + threadIdx.x / 8;
+    const bool in = r < rows && live_row(r);
+    float sum = 0.f;
+    if (in) {
+      const __nv_bfloat162* o2 =
+          reinterpret_cast<const __nv_bfloat162*>(os + r * LD + part * PER);
+      const __nv_bfloat162* d2 =
+          reinterpret_cast<const __nv_bfloat162*>(dos + r * LD + part * PER);
+#pragma unroll
+      for (int x = 0; x < PER / 2; ++x) {
+        const float2 of = __bfloat1622float2(o2[x]);
+        const float2 df = __bfloat1622float2(d2[x]);
+        sum = fmaf(df.x, of.x, sum);
+        sum = fmaf(df.y, of.y, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (r < rows && part == 0) {
+      const float l = bl[r];
+      bl[r] = in ? dm[r] * kLog2e + (l == 0.f ? 0.f : log2f(l)) : 0.f;
+      dm[r] = in ? sum : 0.f;
+    }
+  }
+}
+
+// dQ, dK and dV of `heads` kv heads (b * Hk + hk, from blockIdx.x * heads)
+// in one launch, for Sq and Sk <= 64. The block stages each kv head's K
+// and V once; then, `qc` q heads of each group at a time, their Q, dO and
+// o, and computes each row's delta = rowsum(dO * o) and b = m log2(e) +
+// log2(l) (l == 0: b = m log2(e)), so that P = exp2(S scale log2(e) - b)
+// = exp(S scale - m) * l_inv. Two passes a step, each warp on 16 rows:
+//   * dK, dV: warp w owns the 16-row kv slice w % (heads * tk) (tk = its
+//     head's 16-row slices) and, where a slice has more warps than one
+//     (`split`), the group's q heads h with h % split == w / (heads * tk).
+//     It walks the 16-column q chunks of its band in order, computing S^T
+//     = K Q^T and dP^T = V dO^T; P^T and dS^T, packed to bf16 in
+//     registers, are the A fragments of dV += P^T dO and dK += dS^T Q,
+//     whose sums stay in f32 registers across the whole group. At the end
+//     the split's partials add into the first warp's, in order, through
+//     shared memory.
+//   * dQ: the staged q heads' 16-row q tiles, a warp a tile: S = Q K^T and
+//     dP = dO V^T over the tile's 16-column kv chunks, dQ += dS K.
+// S and dP are computed in both passes (no bytes, a few products: the
+// block holds every operand). Each output element has one writer, in a
+// fixed order, and nothing uses atomics: two launches give the same bytes.
+// At d <= 64 registers are capped for 3 blocks an SM (168 a thread),
+// which runs faster than 2 at the twin's band on an H100
+// (tools/flash_variants.py); the row statistics come in with the
+// staging's cp.async, and eight lanes a row sum delta.
+template <int D>
+__global__ void __launch_bounds__(kShortWarps * 32, D <= 64 ? 3 : 1)
+    FlashBwdShort(const Params p, int heads, int qc, int split) {
+  constexpr int LD = D + kPad, DT = D / 8, KD = D / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int skp = (p.Sk + 15) / 16 * 16, sqp = (p.Sq + 15) / 16 * 16;
+  const int tk = skp / 16, tq = sqp / 16;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + heads * skp * LD;
+  __nv_bfloat16* qs = vs + heads * skp * LD;  // [heads * qc][sqp][LD]
+  __nv_bfloat16* dos = qs + heads * qc * sqp * LD;
+  __nv_bfloat16* os = dos + heads * qc * sqp * LD;
+  float* bst = reinterpret_cast<float*>(os + heads * qc * sqp * LD);
+  float* dst = bst + heads * qc * sqp;
+  float* red = reinterpret_cast<float*>(qs);  // after the last step
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = p.H / p.Hk;
+  const long long first = static_cast<long long>(blockIdx.x) * heads;
+  const int live =
+      static_cast<int>(min(static_cast<long long>(heads),
+                           static_cast<long long>(p.B) * p.Hk - first));
+  const float c2 = p.scale * kLog2e;
+
+  for (int jj = 0; jj < live; ++jj) {
+    const int b = static_cast<int>((first + jj) / p.Hk);
+    const int hk = static_cast<int>((first + jj) % p.Hk);
+    LoadTile<D>(ks + jj * skp * LD, LD, Base<__nv_bfloat16>(p, p.k, kK, b, hk),
+                p.st[kK][2], 0, skp, p.Sk);
+    LoadTile<D>(vs + jj * skp * LD, LD, Base<__nv_bfloat16>(p, p.v, kV, b, hk),
+                p.st[kV][2], 0, skp, p.Sk);
+  }
+
+  // The dK/dV pass's slice of this warp.
+  const int kv_tasks = heads * tk;
+  const int kvt = warp % kv_tasks, sp = warp / kv_tasks;
+  const int own = kvt / tk, k0 = (kvt % tk) * 16;
+  const bool owner = warp < kv_tasks * split && own < live;
+  int qlo, qhi;
+  QRange(p, k0, 16, &qlo, &qhi);
+  const int qp_lo = qlo / 16, qp_hi = min((qhi + 15) / 16, tq);
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int c0 = 0; c0 < group; c0 += qc) {
+    const int n = min(qc, group - c0);
+    __syncthreads();  // the last step's readers are done with the stage
+    for (int jj = 0; jj < live; ++jj) {
+      const int b = static_cast<int>((first + jj) / p.Hk);
+      const int h0 = static_cast<int>((first + jj) % p.Hk) * group + c0;
+      for (int i = 0; i < n; ++i) {
+        const int at = ((jj * qc + i) * sqp) * LD;
+        LoadTile<D>(qs + at, LD, Base<__nv_bfloat16>(p, p.q, kQ, b, h0 + i),
+                    p.st[kQ][2], 0, sqp, p.Sq);
+        LoadTile<D>(dos + at, LD,
+                    Base<__nv_bfloat16>(p, p.dout, kDo, b, h0 + i),
+                    p.st[kDo][2], 0, sqp, p.Sq);
+        LoadTile<D>(os + at, LD, Base<__nv_bfloat16>(p, p.o, kO, b, h0 + i),
+                    p.st[kO][2], 0, sqp, p.Sq);
+        const long long stat = (static_cast<long long>(b) * p.H + h0 + i) *
+                               p.Sq;
+        LoadStat(bst + at / LD, p.l + stat, 0, sqp, p.Sq);
+        LoadStat(dst + at / LD, p.m + stat, 0, sqp, p.Sq);
+      }
+    }
+    CpAsyncCommit();
+    CpAsyncWait<0>();
+    __syncthreads();
+    RowStats<D>(os, dos, bst, dst, heads * qc * sqp, [&](int r) {
+      const int slot = r / sqp;
+      return slot / qc < live && slot % qc < n && r % sqp < p.Sq;
+    });
+    __syncthreads();
+
+    // dK, dV: this warp's kv slice against its q heads of the step.
+    if (owner) {
+      const __nv_bfloat16* kt = ks + own * skp * LD;
+      const __nv_bfloat16* vt = vs + own * skp * LD;
+      for (int i = 0; i < n; ++i) {
+        if ((c0 + i) % split != sp) continue;
+        const int at = (own * qc + i) * sqp;
+        const __nv_bfloat16* qt = qs + at * LD;
+        const __nv_bfloat16* dot = dos + at * LD;
+        const float* bs = bst + at;
+        const float* ds = dst + at;
+        for (int qp = qp_lo; qp < qp_hi; ++qp) {
+          const int q0 = qp * 16;
+          float sT[2][4], dpt[2][4];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sT[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+          for (int kd = 0; kd < KD; ++kd) {
+            uint32_t ak[4], av[4], bq[4], bd[4];
+            LoadA(ak, kt, LD, k0, kd * 16, lane);
+            LoadBt(bq, qt, LD, q0, kd * 16, lane);
+            Mma(sT[0], ak, bq[0], bq[1]);
+            Mma(sT[1], ak, bq[2], bq[3]);
+            LoadA(av, vt, LD, k0, kd * 16, lane);
+            LoadBt(bd, dot, LD, q0, kd * 16, lane);
+            Mma(dpt[0], av, bd[0], bd[1]);
+            Mma(dpt[1], av, bd[2], bd[3]);
+          }
+          // sT[nt][e]: kv row k0 + g + 8 (e / 2), q column q0 + 8 nt + 2t +
+          // (e % 2).
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc_ = q0 + 8 * nt + 2 * t + (e & 1);
+              const int kvrow = k0 + g + 8 * (e >> 1);
+              float pe = 0.f;
+              if (Live(p, qc_, kvrow))
+                pe = sm90::Exp2(fmaf(sT[nt][e], c2, -bs[qc_]));
+              sT[nt][e] = pe;
+              dpt[nt][e] = (pe * (dpt[nt][e] - ds[qc_])) * p.scale;
+            }
+          }
+          uint32_t pa[1][4], sa[1][4];
+          PackA<2>(pa, sT);
+          PackA<2>(sa, dpt);
+#pragma unroll
+          for (int dt = 0; dt < DT; dt += 2) {
+            uint32_t bd[4], bq[4];
+            LoadB(bd, dot, LD, q0, dt * 8, lane);
+            Mma(dv[dt], pa[0], bd[0], bd[1]);
+            Mma(dv[dt + 1], pa[0], bd[2], bd[3]);
+            LoadB(bq, qt, LD, q0, dt * 8, lane);
+            Mma(dk[dt], sa[0], bq[0], bq[1]);
+            Mma(dk[dt + 1], sa[0], bq[2], bq[3]);
+          }
+        }
+      }
+    }
+
+    // dQ: the step's q tiles, a warp a tile.
+    for (int task = warp; task < live * n * tq; task += kShortWarps) {
+      const int si = task / tq, r0 = (task % tq) * 16;
+      const int jj = si / n, i = si % n, at = (jj * qc + i) * sqp;
+      const __nv_bfloat16* kt = ks + jj * skp * LD;
+      const __nv_bfloat16* vt = vs + jj * skp * LD;
+      const __nv_bfloat16* qt = qs + at * LD;
+      const __nv_bfloat16* dot = dos + at * LD;
+      float br[2], dr[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        br[half] = bst[at + r0 + g + 8 * half];
+        dr[half] = dst[at + r0 + g + 8 * half];
+      }
+      int lo, hi;
+      KvRange(p, r0, 16, &lo, &hi);
+      const int kp_hi = min((hi + 15) / 16, tk);
+      float acc[DT][4];
+#pragma unroll
+      for (int x = 0; x < DT; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[x][e] = 0.f;
+      for (int kp = lo / 16; kp < kp_hi; ++kp) {
+        const int kc = kp * 16;
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          uint32_t aq[4], ad[4], bk[4], bv[4];
+          LoadA(aq, qt, LD, r0, kd * 16, lane);
+          LoadBt(bk, kt, LD, kc, kd * 16, lane);
+          Mma(s[0], aq, bk[0], bk[1]);
+          Mma(s[1], aq, bk[2], bk[3]);
+          LoadA(ad, dot, LD, r0, kd * 16, lane);
+          LoadBt(bv, vt, LD, kc, kd * 16, lane);
+          Mma(dp[0], ad, bv[0], bv[1]);
+          Mma(dp[1], ad, bv[2], bv[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1;
+            const int row = r0 + g + 8 * half;
+            const int col = kc + 8 * nt + 2 * t + (e & 1);
+            float pe = 0.f;
+            if (Live(p, row, col))
+              pe = sm90::Exp2(fmaf(s[nt][e], c2, -br[half]));
+            s[nt][e] = (pe * (dp[nt][e] - dr[half])) * p.scale;
+          }
+        }
+        uint32_t sa[1][4];
+        PackA<2>(sa, s);
+#pragma unroll
+        for (int dt = 0; dt < DT; dt += 2) {
+          uint32_t bk[4];
+          LoadB(bk, kt, LD, kc, dt * 8, lane);
+          Mma(acc[dt], sa[0], bk[0], bk[1]);
+          Mma(acc[dt + 1], sa[0], bk[2], bk[3]);
+        }
+      }
+      const long long kv = first + jj;
+      const int b = static_cast<int>(kv / p.Hk);
+      const int h = static_cast<int>(kv % p.Hk) * group + c0 + i;
+      __nv_bfloat16* dqg = OutBase<__nv_bfloat16>(p, p.dq, kDq, b, h);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + g + 8 * half;
+        if (row >= p.Sq) continue;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt)
+          *reinterpret_cast<uint32_t*>(dqg + row * p.st[kDq][2] + dt * 8 +
+                                       2 * t) =
+              PackBf16(acc[dt][2 * half], acc[dt][2 * half + 1]);
+      }
+    }
+  }
+
+  // The split's partials into its first warp's, in order of the split.
+  if (split > 1) {
+    __syncthreads();  // the stage is free: the partials go there
+    if (owner && sp > 0) {
+      float* mine = red + ((sp - 1) * kv_tasks + kvt) * 2 * DT * 4 * 32;
+#pragma unroll
+      for (int x = 0; x < DT; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mine[(x * 4 + e) * 32 + lane] = dk[x][e];
+          mine[((DT + x) * 4 + e) * 32 + lane] = dv[x][e];
+        }
+    }
+    __syncthreads();
+    if (owner && sp == 0) {
+      for (int o = 1; o < split; ++o) {
+        const float* theirs = red + ((o - 1) * kv_tasks + kvt) * 2 * DT * 4 * 32;
+#pragma unroll
+        for (int x = 0; x < DT; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dk[x][e] += theirs[(x * 4 + e) * 32 + lane];
+            dv[x][e] += theirs[((DT + x) * 4 + e) * 32 + lane];
+          }
+      }
+    }
+  }
+  if (!owner || sp != 0) return;
+  const long long kv = first + own;
+  const int b = static_cast<int>(kv / p.Hk), hk = static_cast<int>(kv % p.Hk);
+  __nv_bfloat16* dkg = OutBase<__nv_bfloat16>(p, p.dk, kDk, b, hk);
+  __nv_bfloat16* dvg = OutBase<__nv_bfloat16>(p, p.dv, kDv, b, hk);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = k0 + g + half * 8;
+    if (row >= p.Sk) continue;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int col = dt * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkg + row * p.st[kDk][2] + col) =
+          PackBf16(dk[dt][2 * half], dk[dt][2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dvg + row * p.st[kDv][2] + col) =
+          PackBf16(dv[dt][2 * half], dv[dt][2 * half + 1]);
+    }
+  }
+}
+
+// Heads of S <= kPackMax rows (MHA self-attention) packed 16 / S to a
+// 16-row tile: FlashBwdPacked.
+constexpr int kPackMax = 8;
+
+// Whether rows rq and rk of a tile of packed heads of s rows each are a
+// live pair: the same head, one of the tile's `pack`, and Live there.
+__device__ __forceinline__ bool LivePacked(const Params& p, int pack, int s,
+                                           int rq, int rk) {
+  const int hq = rq / s;
+  return hq == rk / s && hq < pack && Live(p, rq - hq * s, rk - hq * s);
+}
+
+// FlashBwdShort for MHA self-attention at S <= kPackMax, where a 16-row
+// tile of one head would be at least half padding (three quarters at the
+// factorized ViT-B's S = 4): each 16-row tile holds `pack` = 16 / S heads,
+// head i of the tile at rows [i S, (i + 1) S), so a block of 4 warps takes
+// 4 * pack heads, one tile a warp, in the shared memory and the products
+// the unpacked design spends on 4. A logit is live only within its head's
+// diagonal block (LivePacked), so the packed heads do not see each other:
+// P = 0 exactly off it. Per tile: dK, dV (S^T = K Q^T, dP^T = V dO^T, one
+// 16 x 16 step each) written as soon as they are summed, then dQ (S and dP
+// again), each output element written once.
+template <int D>
+__global__ void __launch_bounds__(kShortWarps * 32)
+    FlashBwdPacked(const Params p, int pack) {
+  constexpr int LD = D + kPad, DT = D / 8, KD = D / 16;
+  constexpr int R = 16 * kShortWarps;  // staged rows: a tile a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + R * LD;
+  __nv_bfloat16* qs = vs + R * LD;
+  __nv_bfloat16* dos = qs + R * LD;
+  __nv_bfloat16* os = dos + R * LD;
+  float* bst = reinterpret_cast<float*>(os + R * LD);
+  float* dst = bst + R;
+  const int s = p.Sq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kShortWarps * pack;
+  const long long heads = static_cast<long long>(p.B) * p.H;
+  const float c2 = p.scale * kLog2e;
+
+  // Row r of the staged tiles: head first + (r / 16) * pack + i, row lr of
+  // it, with i = (r % 16) / s; `in` where that is a row of a live head.
+  auto row_of = [&](int r, long long* head, int* lr) {
+    const int i = (r % 16) / s;
+    *head = first + (r / 16) * pack + i;
+    *lr = r % 16 - i * s;
+    return i < pack && *head < heads;
+  };
+  for (int i = threadIdx.x; i < R * (D / 8); i += blockDim.x) {
+    const int r = i / (D / 8), col = (i % (D / 8)) * 8;
+    long long head;
+    int lr;
+    const bool in = row_of(r, &head, &lr);
+    const int b = in ? static_cast<int>(head / p.H) : 0;
+    const int h = in ? static_cast<int>(head % p.H) : 0;
+    const int at = r * LD + col;
+    const long long qo = in ? lr : 0;
+    CpAsync16(ks + at, Base<__nv_bfloat16>(p, p.k, kK, b, h) +
+                           qo * p.st[kK][2] + col, in);
+    CpAsync16(vs + at, Base<__nv_bfloat16>(p, p.v, kV, b, h) +
+                           qo * p.st[kV][2] + col, in);
+    CpAsync16(qs + at, Base<__nv_bfloat16>(p, p.q, kQ, b, h) +
+                           qo * p.st[kQ][2] + col, in);
+    CpAsync16(dos + at, Base<__nv_bfloat16>(p, p.dout, kDo, b, h) +
+                            qo * p.st[kDo][2] + col, in);
+    CpAsync16(os + at, Base<__nv_bfloat16>(p, p.o, kO, b, h) +
+                           qo * p.st[kO][2] + col, in);
+  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    long long head;
+    int lr;
+    const bool in = row_of(r, &head, &lr);
+    const long long stat = in ? head * p.Sq + lr : 0;
+    CpAsync4(bst + r, p.l + stat, in);
+    CpAsync4(dst + r, p.m + stat, in);
+  }
+  CpAsyncCommit();
+  CpAsyncWait<0>();
+  __syncthreads();
+  RowStats<D>(os, dos, bst, dst, R, [&](int r) {
+    long long head;
+    int lr;
+    return row_of(r, &head, &lr);
+  });
+  __syncthreads();
+
+  const int r0 = 16 * warp;  // this warp's tile
+  const float* bs = bst + r0;
+  const float* ds = dst + r0;
+  // The output rows of this lane: tile rows g and g + 8.
+  long long head[2];
+  int lrow[2];
+  bool out[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+    out[half] = row_of(r0 + g + 8 * half, &head[half], &lrow[half]);
+
+  {  // dK, dV: S^T = K Q^T and dP^T = V dO^T over the tile.
+    float sT[2][4], dpt[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t ak[4], av[4], bq[4], bd[4];
+      LoadA(ak, ks, LD, r0, kd * 16, lane);
+      LoadBt(bq, qs, LD, r0, kd * 16, lane);
+      Mma(sT[0], ak, bq[0], bq[1]);
+      Mma(sT[1], ak, bq[2], bq[3]);
+      LoadA(av, vs, LD, r0, kd * 16, lane);
+      LoadBt(bd, dos, LD, r0, kd * 16, lane);
+      Mma(dpt[0], av, bd[0], bd[1]);
+      Mma(dpt[1], av, bd[2], bd[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = 8 * nt + 2 * t + (e & 1);  // q row of the tile
+        const int kr = g + 8 * (e >> 1);          // kv row of the tile
+        float pe = 0.f;
+        if (LivePacked(p, pack, s, qr, kr))
+          pe = sm90::Exp2(fmaf(sT[nt][e], c2, -bs[qr]));
+        sT[nt][e] = pe;
+        dpt[nt][e] = (pe * (dpt[nt][e] - ds[qr])) * p.scale;
+      }
+    }
+    uint32_t pa[1][4], sa[1][4];
+    PackA<2>(pa, sT);
+    PackA<2>(sa, dpt);
+    float dk[DT][4], dv[DT][4];
+#pragma unroll
+    for (int x = 0; x < DT; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[x][e] = dv[x][e] = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < DT; dt += 2) {
+      uint32_t bd[4], bq[4];
+      LoadB(bd, dos, LD, r0, dt * 8, lane);
+      Mma(dv[dt], pa[0], bd[0], bd[1]);
+      Mma(dv[dt + 1], pa[0], bd[2], bd[3]);
+      LoadB(bq, qs, LD, r0, dt * 8, lane);
+      Mma(dk[dt], sa[0], bq[0], bq[1]);
+      Mma(dk[dt + 1], sa[0], bq[2], bq[3]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!out[half]) continue;
+      const int b = static_cast<int>(head[half] / p.H);
+      const int h = static_cast<int>(head[half] % p.H);
+      __nv_bfloat16* dkg = OutBase<__nv_bfloat16>(p, p.dk, kDk, b, h) +
+                           lrow[half] * p.st[kDk][2];
+      __nv_bfloat16* dvg = OutBase<__nv_bfloat16>(p, p.dv, kDv, b, h) +
+                           lrow[half] * p.st[kDv][2];
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        *reinterpret_cast<uint32_t*>(dkg + dt * 8 + 2 * t) =
+            PackBf16(dk[dt][2 * half], dk[dt][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dvg + dt * 8 + 2 * t) =
+            PackBf16(dv[dt][2 * half], dv[dt][2 * half + 1]);
+      }
+    }
+  }
+
+  // dQ: S = Q K^T and dP = dO V^T over the tile, dQ = dS K.
+  float sq[2][4], dp[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sq[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+    uint32_t aq[4], ad[4], bk[4], bv[4];
+    LoadA(aq, qs, LD, r0, kd * 16, lane);
+    LoadBt(bk, ks, LD, r0, kd * 16, lane);
+    Mma(sq[0], aq, bk[0], bk[1]);
+    Mma(sq[1], aq, bk[2], bk[3]);
+    LoadA(ad, dos, LD, r0, kd * 16, lane);
+    LoadBt(bv, vs, LD, r0, kd * 16, lane);
+    Mma(dp[0], ad, bv[0], bv[1]);
+    Mma(dp[1], ad, bv[2], bv[3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qr = g + 8 * (e >> 1);
+      const int kr = 8 * nt + 2 * t + (e & 1);
+      float pe = 0.f;
+      if (LivePacked(p, pack, s, qr, kr))
+        pe = sm90::Exp2(fmaf(sq[nt][e], c2, -bs[qr]));
+      sq[nt][e] = (pe * (dp[nt][e] - ds[qr])) * p.scale;
+    }
+  }
+  uint32_t sa[1][4];
+  PackA<2>(sa, sq);
+  float acc[DT][4];
+#pragma unroll
+  for (int x = 0; x < DT; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[x][e] = 0.f;
+#pragma unroll
+  for (int dt = 0; dt < DT; dt += 2) {
+    uint32_t bk[4];
+    LoadB(bk, ks, LD, r0, dt * 8, lane);
+    Mma(acc[dt], sa[0], bk[0], bk[1]);
+    Mma(acc[dt + 1], sa[0], bk[2], bk[3]);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!out[half]) continue;
+    const int b = static_cast<int>(head[half] / p.H);
+    const int h = static_cast<int>(head[half] % p.H);
+    __nv_bfloat16* dqg = OutBase<__nv_bfloat16>(p, p.dq, kDq, b, h) +
+                         lrow[half] * p.st[kDq][2];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(dqg + dt * 8 + 2 * t) =
+          PackBf16(acc[dt][2 * half], acc[dt][2 * half + 1]);
+  }
+}
+
+template <int D>
+constexpr int SmemBwdPacked() {
+  return 16 * kShortWarps * (5 * (D + kPad) * 2 + 2 * 4);
+}
+
+// The launch plan of the short design at a shape. FlashBwdPacked serves
+// MHA self-attention at S <= kPackMax: 16 / S heads a 16-row tile, a tile
+// a warp. FlashBwdShort serves the rest: as many kv heads a block as give
+// its warps a 16-row q tile each in the dQ pass (4 under MHA at S <= 16,
+// as the forward's short design), no more than give each warp a kv slice
+// of its own; the warps left over share a slice's q heads (GQA); the q
+// heads of a group staged all at once where they fit in shared memory,
+// else in halves until they do.
+struct ShortBwdPlan {
+  int pack;    // heads a 16-row tile: above 1 for FlashBwdPacked
+  int heads;   // kv heads a block
+  int qc;      // q heads of a group staged at once
+  int split;   // warps that share a kv slice
+  int smem;    // dynamic shared memory a block
+  int blocks;
+};
+
+// Fills `plan` and opts the kernel it names in to its shared memory.
+template <int D>
+cudaError_t PlanShortBwd(const Params& p, ShortBwdPlan* plan) {
+  const bool packed = p.H == p.Hk && p.Sq == p.Sk && p.Sq <= kPackMax;
+  const int tk = (p.Sk + 15) / 16, tq = (p.Sq + 15) / 16;
+  const int group = p.H / p.Hk;
+  ShortBwdPlan& x = *plan;
+  if (packed) {
+    x.pack = 16 / p.Sq;
+    x.heads = kShortWarps * x.pack;
+    x.qc = x.split = 1;
+    x.smem = SmemBwdPacked<D>();
+  } else {
+    x.pack = 1;
+    x.heads = group * tq >= kShortWarps ? 1 : kShortWarps / (group * tq);
+    if (x.heads > kShortWarps / tk) x.heads = kShortWarps / tk;
+    x.split = kShortWarps / (x.heads * tk);
+    if (x.split > group) x.split = group;
+    x.qc = group;
+    x.smem = SmemBwdShort<D>(x.heads, x.qc, x.split, 16 * tk, 16 * tq);
+    while (x.smem > kSmemMax && x.qc > 1) {
+      x.qc = (x.qc + 1) / 2;
+      x.smem = SmemBwdShort<D>(x.heads, x.qc, x.split, 16 * tk, 16 * tq);
+    }
+  }
+  const long long blocks =
+      (static_cast<long long>(p.B) * p.Hk + x.heads - 1) / x.heads;
+  x.blocks = static_cast<int>(blocks);
+  if (x.smem > kSmemMax || blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  if (x.smem <= 48 * 1024) return cudaSuccess;
+  return packed ? cudaFuncSetAttribute(
+                      FlashBwdPacked<D>,
+                      cudaFuncAttributeMaxDynamicSharedMemorySize, x.smem)
+                : cudaFuncSetAttribute(
+                      FlashBwdShort<D>,
+                      cudaFuncAttributeMaxDynamicSharedMemorySize, x.smem);
+}
+
+template <int D>
+cudaError_t LaunchShortBwd(const Params& p, cudaStream_t s) {
+  ShortBwdPlan x;
+  const cudaError_t err = PlanShortBwd<D>(p, &x);
+  if (err != cudaSuccess) return err;
+  if (x.pack > 1)
+    FlashBwdPacked<D><<<x.blocks, kShortWarps * 32, x.smem, s>>>(p, x.pack);
+  else
+    FlashBwdShort<D><<<x.blocks, kShortWarps * 32, x.smem, s>>>(
+        p, x.heads, x.qc, x.split);
+  return cudaGetLastError();
+}
+
 // --------------------------------------------------------------- dispatch
 
-// The design that serves (dtype, d): 0 "wgmma", 1 "mma_sync", 2 "f32",
-// or -1 for a pair no kernel takes.
-int Design(int dtype, int d) {
+// The design that serves (dtype, d, Sq, Sk): 0 "wgmma", 1 "mma_sync", 2
+// "f32", 3 "short" (bf16 at Sq and Sk <= kShortMax, ahead of the other
+// two bf16 designs), or -1 for a head dim or dtype no kernel takes.
+int Design(int dtype, int d, int sq, int sk) {
   if (d != 32 && d != 64 && d != 128) return -1;
-  if (dtype == 0) return d == kD ? 0 : 1;
+  if (dtype == 0) {
+    if (sq <= kShortMax && sk <= kShortMax) return 3;
+    return d == kD ? 0 : 1;
+  }
   return dtype == 1 ? 2 : -1;
 }
 
@@ -1453,7 +2120,8 @@ cudaError_t ByHeadDim(int d, const Params& p, cudaStream_t s) {
 // dv in that order; the last dimension of each is contiguous. l and m are
 // [B, H, Sq] f32, contiguous. `scratch` holds 2 * B * H * ceil(Sq / 64) *
 // 64 floats, which the call fills (delta and l_inv, or the wgmma design's
-// tiled statistics).
+// tiled statistics); the "short" design reads and writes none of it, and
+// scratch may then be null.
 // Every output element is written. Returns a cudaError_t (0 on success,
 // cudaErrorInvalidValue for a head dim or dtype the kernels do not take,
 // or for bf16 strides that TMA cannot describe).
@@ -1479,15 +2147,53 @@ extern "C" int ts_flash_bwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Design(dtype, d)) {
+  switch (Design(dtype, d, Sq, Sk)) {
     case 0: return static_cast<int>(LaunchWgmma(p, s));
     case 1: return static_cast<int>(ByHeadDim<__nv_bfloat16>(d, p, s));
     case 2: return static_cast<int>(ByHeadDim<float>(d, p, s));
+    case 3:
+      switch (d) {
+        case 32: return static_cast<int>(LaunchShortBwd<32>(p, s));
+        case 64: return static_cast<int>(LaunchShortBwd<64>(p, s));
+        case 128: return static_cast<int>(LaunchShortBwd<128>(p, s));
+      }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The design ts_flash_bwd launches for (dtype, d), as Design() above.
-extern "C" int ts_flash_bwd_design(int dtype, int d) {
-  return Design(dtype, d);
+// The design ts_flash_bwd launches for (dtype, d, Sq, Sk), as Design()
+// above.
+extern "C" int ts_flash_bwd_design(int dtype, int d, int sq, int sk) {
+  return Design(dtype, d, sq, sk);
+}
+
+// The launch plan of the "short" design (Design() == 3) at a shape, for a
+// caller that reports it: out[0] the kv heads a block, out[1] the q heads
+// of a group staged at once, out[2] the warps that share a kv slice, out[3]
+// the shared memory a block, out[4] the blocks, out[5] the blocks an SM
+// holds, out[6] the heads a 16-row tile (FlashBwdPacked where above 1).
+// Returns a cudaError_t.
+template <int D>
+cudaError_t ReportShortBwd(const Params& p, int* out) {
+  ShortBwdPlan x;
+  cudaError_t err = PlanShortBwd<D>(p, &x);
+  const int plan[] = {x.heads, x.qc, x.split, x.smem, x.blocks, 0, x.pack};
+  for (int i = 0; i < 7; ++i) out[i] = plan[i];
+  if (err != cudaSuccess) return err;
+  return x.pack > 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          &out[5], FlashBwdPacked<D>, kShortWarps * 32, x.smem)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          &out[5], FlashBwdShort<D>, kShortWarps * 32, x.smem);
+}
+
+extern "C" int ts_flash_bwd_short_plan(int d, int B, int H, int Hk, int Sq,
+                                       int Sk, int* out) {
+  Params p{};
+  p.B = B; p.H = H; p.Hk = Hk; p.Sq = Sq; p.Sk = Sk;
+  switch (d) {
+    case 32: return static_cast<int>(ReportShortBwd<32>(p, out));
+    case 64: return static_cast<int>(ReportShortBwd<64>(p, out));
+    case 128: return static_cast<int>(ReportShortBwd<128>(p, out));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -101,6 +101,35 @@
 //   * A 1-D grid over the kv heads: no 65535 limit on y or z; at
 //     [392, 6, 16, 64] 588 blocks of 27 KB, one wave.
 //
+// bf16 at mid-length sequences (64 < max(Sq, Sk) <= 256, d <= 64, every
+// mode): FlashFwdMid, the short design extended to rows longer than one softmax
+// pass can hold in registers. It serves the factorized VideoViT's spatial
+// attention ([32, 12, 196, 64] in ViT-B training, [32, 6, 196, 64] in the
+// streaming twin), where the tiled kernel's 192-row q tile holds 192 rows
+// in its first tile and 4 in its second, so 2 * B * H blocks of 512
+// threads run one an SM, about half of them nearly empty. The work there
+// is 3.8 GFLOP against 38.5 MB (11.5 us at 3.35 TB/s): bound by bytes.
+//   * One block stages one kv head's K and V once in shared memory (208
+//     padded rows at S = 196: 59.9 KB at d = 64) by 16-byte cp.async, an
+//     mbarrier a 32-row chunk, so a warp starts on the first chunk while
+//     the rest still land; its 7 warps take the 16-row q tiles of the kv
+//     head's q heads in turn (13 tiles at S = 196: two rounds).
+//   * S over 32-column chunks on mma.sync, every staged pair of a chunk
+//     computed and the mask applied where TileNeedsMask says; m and l kept
+//     online as the tiled kernel keeps them (base 2, m on the raw dot
+//     products, scaled once); P cast to bf16 in registers into P V's A
+//     fragments; Q's fragments read from the warp's stage at each k-step.
+//   * One wave: 80 registers a thread and 76 KB a block give 3 blocks an
+//     SM at d <= 64, 396 slots on 132 SMs for [32, 12, 196, 64]'s 384 kv
+//     heads. Where the kv heads are fewer than the slots, each head's
+//     tasks are split over as many blocks as fill them ([32, 6, 196, 64]:
+//     2 a head, each reading K and V, the second time from L2).
+//   * What bounds it on an H100 is the warps' own latency, not bytes: with
+//     its global reads of K and V cut out it keeps most of its time.
+//     tools/flash_variants.py times those cuts and the alternatives that
+//     lost to this shape (64-column chunks, which spill at 80 registers;
+//     4 or 8 warps a block); PERF.md has the readings.
+//
 // f32: plain f32 FMAs, no TF32 (wgmma has no f32 without TF32). 128
 // threads, 32 q rows (4 threads a row), kv tiles of 32.
 #include <cuda.h>
@@ -108,6 +137,8 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "mma_sync.cuh"
 #include "sm90.cuh"
@@ -766,6 +797,311 @@ cudaError_t LaunchShort(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16, mid-length sequences
+
+constexpr int kMidMax = 256;   // max(Sq, Sk) up to which FlashFwdMid runs
+constexpr int kMidWarps = 7;   // warps a block: 13 tasks of S = 196 in 2 rounds
+constexpr int kMidChunk = 32;  // kv columns a softmax step: 2 column pairs
+
+// Blocks an SM must hold at once: 3 (80 registers a thread, as 21 warps
+// an SM allow, and 3 x 76 KB of shared memory at S = 196), so that
+// [32, 12, 196, 64]'s 384 kv heads run in one wave on 132 SMs. d = 128
+// stays on the tiled kernel: K and V alone take 113 KB there, one block an
+// SM, and it ran 1.4-2.3x slower than the tiled kernel on an H100.
+constexpr int kMidBlocksPerSm = 3;
+
+// K/V rows a FlashFwdMid block stages: Sk rounded up to 16 (a column
+// pair), zeros past Sk. A chunk runs its products over every staged pair
+// (the last chunk may hold one pair less).
+__host__ __device__ inline int MidRows(int sk) { return (sk + 15) / 16 * 16; }
+
+// Shared memory of a FlashFwdMid block: K and V of one kv head
+// (MidRows), a 16-row Q/O stage a warp, and an mbarrier a chunk of K/V.
+template <int D>
+int SmemMid(int sk) {
+  return (2 * MidRows(sk) + kMidWarps * 16) * (D + kShortPad) * 2 +
+         8 * (kMidMax / kMidChunk);
+}
+
+// One kv head's K and V staged once, the q heads of its group cut into
+// 16-row tasks, a warp a task: S over 32-column chunks with m and l kept
+// online (the tiled kernel's Softmax: base 2, m on the raw dot products,
+// scaled once at the end), P cast to bf16 in registers as the A fragment
+// of P V. Block `blockIdx.x` is part `blockIdx.x % parts` of kv head
+// `blockIdx.x / parts` and takes that part's share of the kv head's
+// tasks (q head hk * group + t / tiles, rows 16 * (t % tiles)).
+template <int D>
+__global__ void __launch_bounds__(kMidWarps * 32, kMidBlocksPerSm)
+    FlashFwdMid(const Params p, int parts) {
+  constexpr int LD = D + kShortPad;
+  constexpr int NP = kMidChunk / 16;  // column pairs a chunk
+  using mma_sync::LoadA;
+  using mma_sync::LoadB;
+  using mma_sync::LoadBt;
+  using mma_sync::Mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int skp = MidRows(p.Sk);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + skp * LD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __nv_bfloat16* stage = vs + skp * LD + warp * 16 * LD;
+  const int group = p.H / p.Hk;
+  const int tiles = (p.Sq + 15) / 16;
+  const int tasks = group * tiles;
+  const long long kv = blockIdx.x / parts;
+  const int part = blockIdx.x % parts;
+  const int t_lo = static_cast<int>(static_cast<long long>(tasks) * part /
+                                    parts);
+  const int t_hi = static_cast<int>(static_cast<long long>(tasks) *
+                                    (part + 1) / parts);
+  const int b = static_cast<int>(kv / p.Hk);
+  const int hk = static_cast<int>(kv % p.Hk);
+  // An mbarrier a chunk of K/V rows, which completes once every thread's
+  // copies of the chunk (and before it) have landed: a warp starts on the
+  // first chunk while the others still load.
+  const uint32_t bars = sm90::SmemAddr(stage - warp * 16 * LD +
+                                       kMidWarps * 16 * LD);
+  const int chunks = (skp + kMidChunk - 1) / kMidChunk;
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < chunks; ++c) sm90::MbarInit(bars + 8 * c, blockDim.x);
+    sm90::FenceBarrierInit();
+  }
+  __syncthreads();
+
+  // The first task's Q rows (a group of their own), then the kv head's K
+  // and V chunk by chunk (zeros past Sk).
+  ShortTask k;
+  k.j = 0;
+  k.b = b;
+  if (t_lo + warp < t_hi) {
+    k.h = hk * group + (t_lo + warp) / tiles;
+    k.r0 = 16 * ((t_lo + warp) % tiles);
+    StageQ<D>(p, k, stage, lane);
+  }
+  mma_sync::CpAsyncCommit();
+  const __nv_bfloat16* kg =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + hk * p.ksh;
+  const __nv_bfloat16* vg =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + hk * p.vsh;
+  for (int c = 0; c < chunks; ++c) {
+    const int rows = min(kMidChunk, skp - c * kMidChunk);
+    for (int i = threadIdx.x; i < rows * (D / 8); i += blockDim.x) {
+      const int r = c * kMidChunk + i / (D / 8), col = (i % (D / 8)) * 8;
+      const bool in = r < p.Sk;
+      mma_sync::CpAsync16(ks + r * LD + col, kg + (in ? r * p.kss : 0) + col,
+                          in);
+      mma_sync::CpAsync16(vs + r * LD + col, vg + (in ? r * p.vss : 0) + col,
+                          in);
+    }
+    mma_sync::CpAsyncMbarArrive(bars + 8 * c);
+  }
+  mma_sync::CpAsyncWait<0>();  // the Q group only: K/V are not committed
+  __syncwarp();
+
+  const int g = lane >> 2, c = lane & 3;
+  const float c2 = p.scale * kLog2e;
+  for (int t = t_lo + warp; t < t_hi; t += kMidWarps) {
+    k.h = hk * group + t / tiles;
+    k.r0 = 16 * (t % tiles);
+    if (t != t_lo + warp) {
+      StageQ<D>(p, k, stage, lane);
+      mma_sync::CpAsyncCommit();
+      mma_sync::CpAsyncWait<0>();
+      __syncwarp();
+    }
+    int lo, hi;
+    KvRange(p, k.r0, 16, &lo, &hi);
+
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // max of the raw dot products
+    float l_run[2] = {0.f, 0.f};              // this thread's share of l
+
+    for (int c0 = lo / kMidChunk * kMidChunk; c0 < hi; c0 += kMidChunk) {
+      sm90::MbarWait(bars + 8 * (c0 / kMidChunk), 0);
+      // S = Q K^T over the chunk's staged pairs (raw dot products), all of
+      // them: the mask drops what KvRange leaves out. Q's fragments come
+      // from the stage for each k-step.
+      float s[2 * NP][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NP; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        LoadA(qa, stage, LD, 0, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < NP; ++np) {
+          if (c0 + 16 * np >= skp) continue;
+          uint32_t bk[4];
+          LoadBt(bk, ks, LD, c0 + 16 * np, 16 * kk, lane);
+          Mma(s[2 * np], qa, bk[0], bk[1]);
+          Mma(s[2 * np + 1], qa, bk[2], bk[3]);
+        }
+      }
+
+      // The online softmax of the chunk: s[j][e] is row r0 + g + 8 (e/2),
+      // column c0 + 8j + 2c + (e%2).
+      const bool need = TileNeedsMask(p, k.r0, 16, c0, kMidChunk);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = k.r0 + g + 8 * r;
+        float mx = kMask;
+#pragma unroll
+        for (int j = 0; j < 2 * NP; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = c0 + 8 * j + 2 * c + e;
+            if (need && !Live(p, row, col)) s[j][2 * r + e] = kMask;
+            mx = fmaxf(mx, s[j][2 * r + e]);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r], mx);
+        alpha[r] = sm90::Exp2((m_run[r] - m_new) * c2);
+        m_run[r] = m_new;
+        // A row that has seen only masked logits so far gets p = 0 for
+        // them (as the tiled kernel's Softmax).
+        const float mc = m_new > kMask ? m_new * c2 : 0.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2 * NP; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = sm90::Exp2(fmaf(s[j][2 * r + e], c2, -mc));
+            s[j][2 * r + e] = x;
+            sum += x;
+          }
+        }
+        l_run[r] = l_run[r] * alpha[r] + sum;
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+
+      // O += P V, P rounded to bf16 pairs in registers.
+      uint32_t pa[NP][4];
+      mma_sync::PackA<2 * NP>(pa, s);
+#pragma unroll
+      for (int np = 0; np < NP; ++np) {
+        if (c0 + 16 * np >= skp) continue;
+#pragma unroll
+        for (int n0 = 0; n0 < D; n0 += 16) {
+          uint32_t bv[4];
+          LoadB(bv, vs, LD, c0 + 16 * np, n0, lane);
+          Mma(o[n0 / 8], pa[np], bv[0], bv[1]);
+          Mma(o[n0 / 8 + 1], pa[np], bv[2], bv[3]);
+        }
+      }
+    }
+
+    // O through the stage to 16-byte stores; l and m beside it.
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = l == 0.f ? 1.f : 1.f / l;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * LD + 8 * j +
+                                     2 * c) =
+            PackBf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      const int row = k.r0 + g + 8 * r;
+      if (c == 0 && p.l != nullptr && row < p.Sq) {
+        const long long at =
+            (static_cast<long long>(b) * p.H + k.h) * p.Sq + row;
+        p.l[at] = l;
+        p.m[at] = m_run[r] * p.scale;
+      }
+    }
+    __syncwarp();
+    __nv_bfloat16* og =
+        static_cast<__nv_bfloat16*>(p.o) + b * p.osb + k.h * p.osh;
+    for (int i = lane; i < 16 * D / 8; i += 32) {
+      const int r = i / (D / 8), col = (i % (D / 8)) * 8;
+      if (k.r0 + r < p.Sq)
+        *reinterpret_cast<uint4*>(og + (k.r0 + r) * p.oss + col) =
+            *reinterpret_cast<const uint4*>(stage + r * LD + col);
+    }
+    __syncwarp();
+  }
+  // A warp with fewer tasks than chunks leaves none of its copies in
+  // flight.
+  mma_sync::CpAsyncCommit();
+  mma_sync::CpAsyncWait<0>();
+}
+
+// What MidPlan reads of a device, once a device and D: its SMs, and the
+// blocks an SM holds at each staged length (index MidRows(Sk) / 16; the
+// shared-memory opt-in is set once, to kMidMax's). 0 until read.
+constexpr int kMidDevices = 64;
+template <int D>
+struct MidOccupancy {
+  std::atomic<int> sms[kMidDevices];
+  std::atomic<int> per_sm[kMidDevices][kMidMax / 16 + 1];
+};
+
+// Blocks a kv head: as many as fill one wave of the card (the SMs times
+// the blocks an SM holds at this shared memory), at most one a task, so
+// that a card with fewer kv heads than slots splits each head's q tiles
+// over several blocks, which read K and V again (from L2). Sets the blocks
+// an SM holds and the blocks a kv head.
+template <int D>
+cudaError_t MidPlan(const Params& p, int* per_sm, int* parts) {
+  static MidOccupancy<D> seen;
+  const int tasks = p.H / p.Hk * ((p.Sq + 15) / 16);
+  const long long heads = static_cast<long long>(p.B) * p.Hk;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMidDevices) return cudaErrorInvalidDevice;
+  int sms = seen.sms[dev].load();
+  if (sms == 0) {
+    err = cudaFuncSetAttribute(FlashFwdMid<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SmemMid<D>(kMidMax));
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    seen.sms[dev].store(sms);
+  }
+  std::atomic<int>& blocks = seen.per_sm[dev][MidRows(p.Sk) / 16];
+  *per_sm = blocks.load();
+  if (*per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, FlashFwdMid<D>, kMidWarps * 32, SmemMid<D>(p.Sk));
+    if (err != cudaSuccess) return err;
+    if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks.store(*per_sm);
+  }
+  const long long fill = static_cast<long long>(sms) * *per_sm / heads;
+  *parts = fill < 1 ? 1 : fill > tasks ? tasks : static_cast<int>(fill);
+  return heads * *parts > 0x7fffffff ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+template <int D>
+cudaError_t LaunchMid(const Params& p, cudaStream_t stream) {
+  int per_sm = 0, parts = 0;
+  const cudaError_t err = MidPlan<D>(p, &per_sm, &parts);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(p.B) * p.Hk * parts;
+  FlashFwdMid<D><<<static_cast<int>(blocks), kMidWarps * 32,
+                   SmemMid<D>(p.Sk), stream>>>(p, parts);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- f32
 
 constexpr int kBqF = 32;  // q rows a block (4 threads a row)
@@ -893,10 +1229,13 @@ cudaError_t Launch(Kernel kernel, int smem, dim3 grid, const Params& p,
 }
 
 // The design ts_flash_fwd launches: 0 "tiled" (TMA and wgmma), 1 "short"
-// (mma.sync, Sq and Sk <= kShortMax), 2 "f32". The shape alone chooses.
-int Design(int dtype, int sq, int sk) {
+// (mma.sync, Sq and Sk <= kShortMax), 2 "f32", 3 "mid" (mma.sync, Sq and
+// Sk <= kMidMax, one of them past kShortMax, d <= 64). The shape alone
+// chooses.
+int Design(int dtype, int d, int sq, int sk) {
   if (dtype == 1) return 2;
-  return sq <= kShortMax && sk <= kShortMax ? 1 : 0;
+  if (sq <= kShortMax && sk <= kShortMax) return 1;
+  return d <= 64 && sq <= kMidMax && sk <= kMidMax ? 3 : 0;
 }
 
 }  // namespace
@@ -920,7 +1259,7 @@ extern "C" int ts_flash_fwd(
            scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  *design = Design(dtype, Sq, Sk);
+  *design = Design(dtype, d, Sq, Sk);
   switch (*design) {
     case 0:
       switch (d) {
@@ -936,6 +1275,12 @@ extern "C" int ts_flash_fwd(
         case 128: return LaunchShort<128>(p, s);
       }
       break;
+    case 3:
+      switch (d) {
+        case 32: return LaunchMid<32>(p, s);
+        case 64: return LaunchMid<64>(p, s);
+      }
+      break;
     case 2: {
       const dim3 grid((Sq + kBqF - 1) / kBqF, H, B);
       switch (d) {
@@ -947,4 +1292,22 @@ extern "C" int ts_flash_fwd(
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch plan of the "mid" design (Design() == 3) at a shape, for a
+// caller that reports it: out[0] the blocks an SM holds, out[1] the blocks
+// a kv head, out[2] the blocks, out[3] the warps a block, out[4] the
+// shared memory a block. Returns a cudaError_t.
+extern "C" int ts_flash_fwd_mid_plan(int d, int B, int H, int Hk, int Sq,
+                                     int Sk, int* out) {
+  Params p{};
+  p.B = B; p.H = H; p.Hk = Hk; p.Sq = Sq; p.Sk = Sk;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (d) {
+    case 32: err = MidPlan<32>(p, &out[0], &out[1]); out[4] = SmemMid<32>(Sk); break;
+    case 64: err = MidPlan<64>(p, &out[0], &out[1]); out[4] = SmemMid<64>(Sk); break;
+  }
+  out[2] = B * Hk * out[1];
+  out[3] = kMidWarps;
+  return static_cast<int>(err);
 }

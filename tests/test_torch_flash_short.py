@@ -174,11 +174,11 @@ def test_short_design_is_within_the_smoke_rule(name, shape, causal, window):
 
 def test_fwd_design_counts_stay_zero_on_the_cpu():
     """On CPU tensors the forward runs its plain version and no design's
-    launch count moves; the counts name the three designs and
+    launch count moves; the counts name the four designs and
     reset_counts zeroes them."""
     fa.reset_counts()
-    assert fa.launches_by_design == dict.fromkeys(("tiled", "short", "f32"),
-                                                  0)
+    assert fa.launches_by_design == dict.fromkeys(
+        ("tiled", "short", "f32", "mid"), 0)
     q, k, v = to_torch(make(2, 6, 2, 16, 16, 64, seed=4), "bf16")
     fa.flash_attention_fwd(q, k, v, causal=True, window=8)
     fa.flash_attention(q, k, v)
@@ -188,13 +188,14 @@ def test_fwd_design_counts_stay_zero_on_the_cpu():
 
 def test_short_design_takes_the_shapes_up_to_64():
     """chip_smoke.fwd_design names "short" exactly where the kernel's
-    rule (csrc/flash_fwd.cu, Design) sends bf16: Sq and Sk <= 64."""
+    rule (csrc/flash_fwd.cu, Design) sends bf16: Sq and Sk <= 64; past
+    that, up to 256, the "mid" design at d <= 64, else "tiled"."""
     bf16, f32 = torch.bfloat16, torch.float32
-    assert chip_smoke.fwd_design(bf16, 16, 16) == "short"
-    assert chip_smoke.fwd_design(bf16, 64, 64) == "short"
-    assert chip_smoke.fwd_design(bf16, 16, 65) == "tiled"
-    assert chip_smoke.fwd_design(bf16, 196, 196) == "tiled"
-    assert chip_smoke.fwd_design(f32, 16, 16) == "f32"
+    assert chip_smoke.fwd_design(bf16, 64, 16, 16) == "short"
+    assert chip_smoke.fwd_design(bf16, 128, 64, 64) == "short"
+    assert chip_smoke.fwd_design(bf16, 64, 16, 65) == "mid"
+    assert chip_smoke.fwd_design(bf16, 128, 196, 196) == "tiled"
+    assert chip_smoke.fwd_design(f32, 64, 16, 16) == "f32"
 
 
 FAULTS = [
