@@ -1804,10 +1804,13 @@ FLASH_CASES = [
 # Cases held in bf16 only (the model's dtype at the training shapes).
 BF16_ONLY = ("headline", "train", "train_long")
 # Sq and Sk up to which bf16 runs the "short" design, and the "mid" one
-# (csrc/flash_fwd.cu, kShortMax and kMidMax; the backward's "short" design
-# takes the same SHORT_MAX, csrc/flash_bwd.cu).
+# (csrc/flash_fwd.cu, kShortMax and kMidMax; the backward's "short" and
+# "mid" designs take the same bounds, csrc/flash_bwd.cu).
 SHORT_MAX = 64
 MID_MAX = 256
+# (batch, kv head) pairs from which the backward runs "mid" under GQA
+# (csrc/flash_bwd.cu, kMidMinKvHeads).
+MID_MIN_KV_HEADS = 72
 # Designs launched twice a case and held bit-equal (one writer an output,
 # the order of every sum fixed).
 RELAUNCHED = ("short", "mid")
@@ -1926,7 +1929,7 @@ FLASH_BWD_CASES = [
     # Sq, Sk <= 64 (the "short" design in bf16), as the models' views: the
     # factorized ViT-B's temporal attention at 8 and 16 frames, the
     # streaming twin's band (MHA and GQA 6:2), a ragged band, cross 16 ->
-    # 48, d = 32 and d = 128; and its spatial backward, which stays wgmma.
+    # 48, d = 32 and d = 128.
     ("vit_b_temporal", (1568, 12, 12, 4, 4, 64), False, None, "bshd"),
     ("vit_b_temporal_16f", (784, 12, 12, 8, 8, 64), False, None, "bshd"),
     ("twin_temporal", (392, 6, 6, 16, 16, 64), True, 8, "bshd"),
@@ -1936,7 +1939,20 @@ FLASH_BWD_CASES = [
     ("short_causal_d32", (128, 4, 4, 8, 8, 32), True, None, "bshd"),
     ("short_full_d128", (64, 6, 6, 64, 64, 128), False, None, "bshd"),
     ("short_mqa_64_d128", (16, 12, 1, 64, 64, 128), True, 20, "bshd"),
+    # 64 < max(Sq, Sk) <= 256 at d = 64 (the "mid" design in bf16): the
+    # factorized ViT-B's spatial backward, causal at a ragged S = 200, a
+    # band, cross-attention under GQA, both edges of the range (65 and
+    # 256); d = 32 in the range stays "mma_sync", and GQA at fewer than
+    # MID_MIN_KV_HEADS (batch, kv head) pairs "wgmma".
     ("vit_b_spatial", (32, 12, 12, 196, 196, 64), False, None, "bshd"),
+    ("mid_causal_200", (16, 6, 6, 200, 200, 64), True, None, "bshd"),
+    ("mid_band_150", (16, 6, 6, 150, 150, 64), False, 32, "bhsd"),
+    ("mid_cross_100_to_196_gqa", (32, 12, 4, 100, 196, 64), False, None,
+     "bhsd"),
+    ("mid_edge_65", (16, 4, 4, 65, 65, 64), True, None, "bshd"),
+    ("mid_edge_256", (8, 4, 4, 256, 256, 64), False, None, "bshd"),
+    ("mid_d32_196", (8, 4, 4, 196, 196, 32), False, None, "bshd"),
+    ("mid_gqa_64_pairs", (32, 6, 2, 196, 196, 64), False, None, "bshd"),
 ]
 
 
@@ -1979,8 +1995,9 @@ FWD_DESIGN_NOTES = {
     "short": "bf16 at Sq and Sk <= 64: a warp a 16-row head on mma.sync, "
              "the whole row in one softmax pass, K/V once a kv head",
     "mid": "bf16 at 64 < max(Sq, Sk) <= 256, d <= 64: K/V of a kv head "
-           "staged once, a warp a 16-row q tile on mma.sync, m and l "
-           "online over 32-column chunks, one wave of blocks",
+           "staged once by TMA, a warpgroup a 64-row q tile on wgmma, m "
+           "and l online over 64-column chunks (the last cut to 16 where "
+           "no more is live), two blocks an SM",
     "f32": "f32: FMAs (no TF32)"}
 
 # Which flash backward design serves which inputs (csrc/flash_bwd.cu).
@@ -1988,20 +2005,31 @@ BWD_DESIGN_NOTES = {
     "short": "bf16 at Sq and Sk <= 64: one launch, a block stages its kv "
              "heads' K, V and their q heads' Q, dO, o; delta in the block; "
              "a warp a 16-row kv slice (dK, dV), then a 16-row q tile (dQ)",
-    "wgmma": "bf16 at d = 64: TMA ring, warp-specialised wgmma",
+    "mid": "bf16 at d = 64, 64 < max(Sq, Sk) <= 256, without GQA or at "
+           "B * Hk >= 72: one launch, a block a kv head; K, V staged once, Q, dO through a TMA ring, delta in "
+           "the block; two warpgroups own 64-row kv slices (dK, dV in "
+           "registers) on wgmma, dS^T to shared memory, dQ one SS chain "
+           "a q tile in kv order: five products",
+    "wgmma": "bf16 at d = 64 past S = 256, and under GQA at B * Hk < 72 "
+             "to 256: TMA ring, warp-specialised wgmma",
     "mma_sync": "bf16 at d = 32 and 128: mma.sync, cp.async stages",
     "f32": "f32: FMAs (no TF32)"}
 
 
-def bwd_design(dtype, d, sq, sk):
-    """The backward design that must serve (dtype, head dim, Sq, Sk):
-    "short" for bf16 at Sq and Sk <= SHORT_MAX, else "wgmma" for bf16 at
-    d = 64 and "mma_sync" at d = 32 and 128; "f32"."""
+def bwd_design(dtype, d, b, h, hk, sq, sk):
+    """The backward design that must serve (dtype, head dim, batch, q
+    heads, kv heads, Sq, Sk): "short" for bf16 at Sq and Sk <= SHORT_MAX,
+    "mid" for bf16 at d = 64 and both <= MID_MAX without GQA or with at
+    least MID_MIN_KV_HEADS (batch, kv head) pairs, else "wgmma" for bf16
+    at d = 64 and "mma_sync" at d = 32 and 128; "f32"."""
     if dtype == torch.float32:
         return "f32"
     if max(sq, sk) <= SHORT_MAX:
         return "short"
-    return "wgmma" if d == 64 else "mma_sync"
+    if d == 64:
+        mid = max(sq, sk) <= MID_MAX and (h == hk or b * hk >= MID_MIN_KV_HEADS)
+        return "mid" if mid else "wgmma"
+    return "mma_sync"
 
 
 def phase_flash_bwd_vs_plain():
@@ -2025,7 +2053,7 @@ def phase_flash_bwd_vs_plain():
             do = _grad_out(b, h, sq, d, dtype, 400 + i, layout)
             o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
                                              window=window)
-            design = bwd_design(dtype, d, sq, sk)
+            design = bwd_design(dtype, d, b, h, hk, sq, sk)
             before = fa.bwd_launches_by_design[design]
             got = fa.flash_attention_bwd(q, k, v, o, l, m, do, causal=causal,
                                          window=window)
@@ -2907,10 +2935,11 @@ def phase_streaming(device, smi):
 
 
 def flash_plan(design, b, h, hk, sq, sk, d, device):
-    """The launch plan of a "mid" forward or a "short" backward at a shape,
-    as the library computes it (ts_flash_fwd_mid_plan,
-    ts_flash_bwd_short_plan), with the waves it makes on this card; None
-    for another design."""
+    """The launch plan of a "mid" forward, a "short" or a "mid" backward
+    ("short_bwd", "mid_bwd") at a shape, as the library computes it
+    (ts_flash_fwd_mid_plan, ts_flash_bwd_short_plan,
+    ts_flash_bwd_mid_plan), with the waves it makes on this card; None for
+    another design."""
     if design == "mid":
         keys = ("blocks_an_sm", "blocks_a_kv_head", "blocks", "warps_a_block",
                 "smem_a_block")
@@ -2919,6 +2948,10 @@ def flash_plan(design, b, h, hk, sq, sk, d, device):
         keys = ("kv_heads_a_block", "q_heads_staged", "warps_a_kv_slice",
                 "smem_a_block", "blocks", "blocks_an_sm", "heads_a_tile")
         fn = _build.load("flash_bwd").ts_flash_bwd_short_plan
+    elif design == "mid_bwd":
+        keys = ("blocks", "blocks_an_sm", "smem_a_block", "kv_slices",
+                "q_tiles_a_block")
+        fn = _build.load("flash_bwd").ts_flash_bwd_mid_plan
     else:
         return None
     out = (ctypes.c_int * len(keys))()
@@ -3072,7 +3105,8 @@ TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_BOUNDS = {torch.bfloat16: (0.3, 1e-2), torch.float32: (1e-4, 1e-5)}
 # The backward's timed shapes, as the models' [B, S, H, d] views: the two
 # joint training shapes, the factorized ViT-B's (spatial, and temporal at
-# 8 and 16 frames) and the streaming twin's temporal band, MHA and GQA.
+# 8 and 16 frames), the streaming twin's temporal band, MHA and GQA, and
+# the mid design's range.
 FLASH_BWD_TIMED = (
     # name, (b, h, s, d), causal, window[, kv heads]
     ("train_joint", (4, 12, 1568, 64), False, None),
@@ -3082,6 +3116,13 @@ FLASH_BWD_TIMED = (
     ("vit_b_temporal_16f", (784, 12, 8, 64), False, None),
     ("twin_temporal", (392, 6, 16, 64), True, TWIN_RING),
     ("twin_temporal_gqa", (392, 6, 16, 64), True, TWIN_RING, 2),
+    # The rest of the mid backward's range: the streaming twin's spatial
+    # shape, MHA and GQA 6:2, causal at a ragged S = 200, a band, the edge.
+    ("twin_spatial", (32, 6, 196, 64), False, None),
+    ("twin_spatial_gqa", (32, 6, 196, 64), False, None, 2),
+    ("mid_causal_200", (32, 12, 200, 64), True, None),
+    ("mid_band_150", (32, 12, 150, 64), False, 32),
+    ("mid_edge_256", (16, 12, 256, 64), False, None),
 )
 
 
@@ -3334,7 +3375,8 @@ def phase_training(device, smi):
                     "flash_fwd_recompute": depth * n if use_flash and remat
                     else 0,
                     "flash_bwd": depth * n if use_flash else 0}
-            # bf16 at d = 64: every backward goes through the wgmma design.
+            # bf16 at d = 64 and S = 1568 or 6272: every backward goes
+            # through the wgmma design.
             want["flash_bwd_by_design"] = {
                 d: want["flash_bwd"] if d == "wgmma" else 0
                 for d in fa.BWD_DESIGNS}
@@ -3421,7 +3463,7 @@ def phase_training(device, smi):
 # depth 12, 12 heads, tubelet 2, MLP x4) with the model's default
 # factorized attention, bf16 compute and residual, SGD lr 1e-3 momentum
 # 0.9, B = 8 clips of 8 x 224²: spatial attention at [32, 12, 196, 64]
-# ("mid" forward, "wgmma" backward), temporal at [1568, 12, 4, 64]
+# ("mid" forward and backward), temporal at [1568, 12, 4, 64]
 # ("short" both ways). The clips are bench.py's: normal noise of std 1
 # (noise_clips), with ramp_clips's flip mask as the labels. On the ramp
 # clips, whose frames are spatially uniform, the spatial attention's query
@@ -3469,13 +3511,13 @@ def factorized_flops():
 def factorized_launches(n, use_flash):
     """The launches n factorized steps must make: a step's 12 spatial
     forwards "mid" and 12 temporal "short", its 12 spatial backwards
-    "wgmma" and 12 temporal "short"; none on the materialized path."""
+    "mid" and 12 temporal "short"; none on the materialized path."""
     k = FACTORIZED_VIT["depth"] * n if use_flash else 0
     return {"flash_fwd": 2 * k, "flash_fwd_by_design": {
                 d: k if d in ("mid", "short") else 0 for d in fa.FWD_DESIGNS},
             "flash_fwd_recompute": 0, "flash_bwd": 2 * k,
             "flash_bwd_by_design": {
-                d: k if d in ("short", "wgmma") else 0
+                d: k if d in ("short", "mid") else 0
                 for d in fa.BWD_DESIGNS}}
 
 
@@ -3629,7 +3671,7 @@ def time_flash_bwd(device, name, shape, causal=False, window=None,
     col) pairs that band_mask counts, 10 * B*H*live*d FLOP, and each input
     (q, k, v, o, dO, l, m) read and each gradient written once; the seven
     products the wgmma design's two kernels run (S and dP in both) are
-    beside it."""
+    beside it (the "mid" design runs the five)."""
     b, h, s, d = shape
     hk = kv_heads or h
     q, k, v = _flash_case(b, h, hk, s, s, d, torch.bfloat16, 8, "bshd")
@@ -3666,8 +3708,8 @@ def time_flash_bwd(device, name, shape, causal=False, window=None,
     return {"case": name, "shape": list(shape), "kv_heads": hk,
             "causal": causal, "window": window, "live_pairs_a_head": live,
             "dtype": "bf16", "plan": flash_plan(
-                "short_bwd" if designs == ["short"] else None, b, h, hk, s, s,
-                d, device),
+                f"{designs[0]}_bwd" if len(designs) == 1 else None, b, h, hk,
+                s, s, d, device),
             "layout": "bshd", "designs": designs, "split_ms": split,
             "ms": ms, "p10_ms": p10, "p90_ms": p90,
             "plain_ms": plain_ms, "library_ms": library_ms, "flops": flops,
@@ -3684,7 +3726,8 @@ def time_flash_bwd(device, name, shape, causal=False, window=None,
 
 # The flash backward's kernels (csrc/flash_bwd.cu), each name before any
 # that it contains.
-BWD_KERNELS = ("FlashBwdShort", "FlashBwdPacked", "DeltaTiles", "Delta",
+BWD_KERNELS = ("FlashBwdShort", "FlashBwdPacked", "FlashBwdMid",
+               "DeltaTiles", "Delta",
                "DkvWgmma", "DqWgmma", "DkvBf16", "DqBf16", "DkvF32", "DqF32")
 
 
@@ -3714,6 +3757,7 @@ FLASH_DESIGN_OF = (("FlashFwdMid", "fwd_mid"), ("FlashFwdShort", "fwd_short"),
                    ("FlashFwdBf16", "fwd_tiled"), ("FlashFwdF32", "fwd_f32"),
                    ("FlashBwdShort", "bwd_short"),
                    ("FlashBwdPacked", "bwd_short"),
+                   ("FlashBwdMid", "bwd_mid"),
                    ("DeltaTiles", "bwd_wgmma"), ("DkvWgmma", "bwd_wgmma"),
                    ("DqWgmma", "bwd_wgmma"), ("DkvBf16", "bwd_mma_sync"),
                    ("DqBf16", "bwd_mma_sync"), ("DkvF32", "bwd_f32"),
@@ -4078,6 +4122,30 @@ def flash_bwd_ab(other_root, blocks=1):
                     for row, (shape, causal, window) in zip(FLASH_BWD_TIMED,
                                                             cases)],
           "order": order, **got, "roots": roots})
+    return got
+
+
+# The factorized training phase in a checkout, reduced to the graphed
+# flash run's step ms, its replay's device ms and flash split by design.
+FACTORIZED_AB_SNIPPET = """
+import json, torch, chip_smoke as c
+out = c.phase_factorized_training(torch.device("cuda", 0), c.phase_env())
+run = next(r for r in out["runs"] if r["use_flash"] and r["graphed"])
+print(json.dumps({"step_ms": run["step_ms"],
+                  "replay_ms": run["step_device_ms"],
+                  "flash_by_design_ms":
+                      run["replay_profile"]["flash_by_design_ms"]}))
+"""
+
+
+def factorized_ab(other_root, blocks=1):
+    """phase_factorized_training in the checkout at `other_root` against
+    this one's (ab_turns): the graphed flash step's ms, its replay's
+    device ms and the replay's flash kernels by design. Prints and returns
+    {"other": [...], "this": [...]}, a row a turn."""
+    got, order, roots = ab_turns(other_root, FACTORIZED_AB_SNIPPET, blocks)
+    emit({"phase": "factorized_ab", "card": nvidia_smi(), "order": order,
+          **got, "roots": roots})
     return got
 
 
@@ -5819,7 +5887,9 @@ def run(device):
         "by_design": {"wgmma": timed(bwd_cases["train_joint"]),
                       "short": timed(bwd_cases["vit_b_temporal"]),
                       "short_twin_temporal":
-                          timed(bwd_cases["twin_temporal"])},
+                          timed(bwd_cases["twin_temporal"]),
+                      "mid": timed(bwd_cases["vit_b_spatial"]),
+                      "mid_twin_spatial": timed(bwd_cases["twin_spatial"])},
         "shape": bwd["shape"], "max_abs_err": bwd_worst["wgmma"],
         "max_abs_err_by_design": bwd_worst, "ms": bwd["ms"],
         "split_ms": bwd["split_ms"],

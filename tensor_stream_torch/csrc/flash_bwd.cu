@@ -42,8 +42,9 @@
 // run here are 105.7 GFLOP, 107 us), against ~77 MB of q, k, v, o, dO, l,
 // m and the three outputs (23 us at 3.35 TB/s): the tensor cores bound it.
 //
-// Four designs, chosen by dtype, head dim and length (Design(), which the
-// wrapper reads to count launches by design):
+// Five designs, chosen by dtype, head dim, length and, for "mid" under
+// GQA, the (batch, kv head) pairs (Design(), which the wrapper reads to
+// count launches by design):
 //   * "short", bf16 at Sq and Sk <= 64 (any d): FlashBwdShort, one launch
 //     for the three kernels below. It serves the factorized VideoViT's
 //     temporal attention ([1568, 12, 4, 64] in ViT-B training, [392, 6,
@@ -56,6 +57,47 @@
 //     and each row's exp2 bias itself, and runs the dK/dV pass (a warp a
 //     16-row kv slice) and the dQ pass (a warp a 16-row q tile) on
 //     mma.sync from shared memory; see FlashBwdShort.
+//   * "mid", bf16 at d = 64 and 64 < max(Sq, Sk) <= 256, without GQA or
+//     at B * Hk >= kMidMinKvHeads: FlashBwdMid, one launch. It serves the factorized VideoViT's spatial attention
+//     ([32, 12, 196, 64] in ViT-B training), where the "wgmma" design's
+//     128-row tiles hold 128 and 68 rows, its Dkv and Dq compute S and dP
+//     twice (seven products where five do) and DeltaTiles makes a third
+//     launch; there the work is 9.4 GFLOP against 77 MB (23.2 us at 3.35
+//     TB/s): bound by bytes. At S <= 256 one kv head fits on one SM (K
+//     and V 64 KB at most), so a block takes one (batch, kv head):
+//     - TMA stages K and V once in 64-row slices, and streams each q
+//       tile's Q and dO (64 rows, every q head of the group in order)
+//       through a ring, as the "wgmma" design's Dkv streams them; delta
+//       and each row's exp2 bias are computed in the block from o and dO,
+//       as FlashBwdShort does (no DeltaTiles, no scratch), a tile ahead:
+//       the loads for tile u + 1 are issued during tile u.
+//     - Each of two consumer warpgroups owns kv slices wg and wg + 2 and
+//       keeps their dK and dV in registers (setmaxnreg: 240 a thread).
+//       For a q tile it computes S^T = K Q^T and dP^T = V dO^T, turns them
+//       into P^T and dS^T in registers, writes both to shared memory in
+//       bf16 (the 128-byte swizzle TMA writes), and issues dV += P^T dO
+//       and dK += dS^T Q from there: every product is SS, so no register
+//       of a product's operand is live across it, and a slice's dV and dK
+//       run while the warpgroup issues its next slice's S^T and dP^T.
+//     - Once both warpgroups have written a tile's dS^T (double buffered)
+//       one of them, alternating, computes dQ = dS K for the tile as one
+//       SS chain over its live kv slices in kv order, dS^T and K read
+//       MN-major (both transpose bits): the fifth product, each dQ row
+//       written once.
+//     No atomics, every sum in a fixed order: two launches give the same
+//     bytes. dS is rounded to bf16 before dK and dQ, as the contract says.
+//     One block an SM (210 KB of shared memory, 384 threads). What is
+//     left is the serial chain a warpgroup runs for each pair (products,
+//     exponentials, stores, products) with two warpgroups an SM to hide
+//     it, and each block's loads before its first product:
+//     tools/flash_variants.py times the cuts (loads only, products only,
+//     no statistics, no dQ); PERF.md has the readings. A block runs all
+//     of its group's q heads, so under GQA a grid of fewer than
+//     kMidMinKvHeads blocks leaves most SMs idle while each block runs 3
+//     or 6 heads in turn; the "wgmma" design, whose Dq takes a block a
+//     q head and 128 rows, is faster there (tools/flash_variants.py's
+//     bwd_route study; without GQA "mid" is as fast or faster at every
+//     B * H it timed, 12 to 384).
 //   * "wgmma", bf16 at d = 64 (the model's head dim): TMA and warp-
 //     specialised wgmma, after csrc/flash_fwd.cu and FA3's backward. The
 //     mma.sync design below is bound by shared-memory reads: every operand
@@ -929,6 +971,23 @@ __device__ __forceinline__ float Pick(float2 v, int odd) {
   return odd ? v.y : v.x;
 }
 
+// A warpgroup's 64 x 64 accumulator of rows [r0, r0 + 64) (its fragment:
+// rows r0 + 16 warp + g and that + 8), rounded to bf16, into the rows below
+// `rows` of `out`, whose row stride is `ss`.
+__device__ __forceinline__ void StoreRows(__nv_bfloat16* out, long long ss,
+                                          const float* acc, int r0, int rows,
+                                          int warp, int g, int c) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 16 * warp + g + 8 * r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + row * ss + 8 * j + 2 * c) =
+          PackBf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
 struct Step {
   int first, per_head, count;  // Dkv: q tiles a head; Dq: per_head = count
 };
@@ -996,7 +1055,8 @@ __device__ __forceinline__ void ProduceDq(
 // once its product is done, then dP^T becomes dS^T (f32, before its
 // bf16 rounding). `stats` is the stage's b and delta * scale of q
 // columns [q0, q0 + 64); the thread's kv rows are row0 and row0 + 8; c2
-// = scale log2(e).
+// = scale log2(e). A masked step drops kv rows past Sk too: the "mid"
+// design's dS reaches dQ.
 struct DkvStep {
   const Params& p;
   const float* stats;
@@ -1014,9 +1074,10 @@ struct DkvStep {
       for (int e = 0; e < 4; ++e) {
         const float pe =
             sm90::Exp2(fmaf(sT[4 * j + e], c2, -Pick(bias, e & 1)));
+        const int row = row0 + 8 * (e >> 1);
         sT[4 * j + e] =
-            !kMasked || BandLive(p, q0 + 8 * j + 2 * c + (e & 1),
-                                 row0 + 8 * (e >> 1))
+            !kMasked || ((row < p.Sk) &
+                         BandLive(p, q0 + 8 * j + 2 * c + (e & 1), row))
                 ? pe
                 : 0.f;
       }
@@ -1141,21 +1202,10 @@ __device__ __forceinline__ void ConsumeDkv(const Params& p,
     sm90::MbarArrive(Empty(bar, last));
   }
 
-  __nv_bfloat16* dkg = OutBase<__nv_bfloat16>(p, p.dk, kDk, b, hk);
-  __nv_bfloat16* dvg = OutBase<__nv_bfloat16>(p, p.dv, kDv, b, hk);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= p.Sk) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * j + 2 * c;
-      *reinterpret_cast<uint32_t*>(dkg + row * p.st[kDk][2] + col) =
-          PackBf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvg + row * p.st[kDv][2] + col) =
-          PackBf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-    }
-  }
+  StoreRows(OutBase<__nv_bfloat16>(p, p.dk, kDk, b, hk), p.st[kDk][2], dk,
+            k0w, p.Sk, warp, g, c);
+  StoreRows(OutBase<__nv_bfloat16>(p, p.dv, kDv, b, hk), p.st[kDv][2], dv,
+            k0w, p.Sk, warp, g, c);
 }
 
 // Dq's elementwise work on one step, in place: S becomes P (f32), then
@@ -1298,17 +1348,8 @@ __device__ __forceinline__ void ConsumeDq(const Params& p, uint32_t base,
     sm90::FenceRegs<32>(dq);
     sm90::MbarArrive(Empty(bar, last));
   }
-
-  __nv_bfloat16* dqg = OutBase<__nv_bfloat16>(p, p.dq, kDq, b, h);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(dqg + row * p.st[kDq][2] + 8 * j + 2 * c) =
-          PackBf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
-  }
+  StoreRows(OutBase<__nv_bfloat16>(p, p.dq, kDq, b, h), p.st[kDq][2], dq, q0w,
+            p.Sq, warp, g, c);
 }
 
 // The barriers of a block: fixed-full and full[] take one arrival (the
@@ -1414,6 +1455,412 @@ cudaError_t LaunchWgmma(const Params& p, cudaStream_t s) {
   err = LaunchWgmmaKernel(DkvWgmma, dkv, maps, p, s);
   if (err != cudaSuccess) return err;
   return LaunchWgmmaKernel(DqWgmma, dq, maps, p, s);
+}
+
+// ------------------------------------------- bf16 d=64, mid-length sequences
+
+constexpr int kMidMax = 256;  // max(Sq, Sk) up to which FlashBwdMid runs
+constexpr int kMidSlices = kMidMax / kStep;  // 64-row kv slices, at most 4
+// The fewest (batch, kv head) pairs, a block each, that FlashBwdMid takes
+// under GQA: where the bwd_route study's readings cross on an H100 (132
+// SMs), between 64 pairs ("wgmma" 8-17% faster) and 96 ("mid" 25%).
+constexpr long long kMidMinKvHeads = 72;
+constexpr int kMidRing = 4;   // Q/dO stages
+constexpr int kMidStats = 2 * kStep;  // floats of one q tile's statistics
+
+// Shared memory, from a 1024-aligned base: K and V of the kv head in 64-row
+// slices; the ring's Q and dO tiles; dS^T of each slice for two q tiles
+// and each consumer warpgroup's P^T (bf16, the 128-byte swizzle); the
+// statistics of two q tiles (b, then delta * scale); then the mbarriers:
+// a kv slice each, full[kMidRing], empty[kMidRing].
+constexpr int kMidK = 0;
+constexpr int kMidV = kMidK + kMidSlices * kTileBytes;
+constexpr int kMidQ = kMidV + kMidSlices * kTileBytes;
+constexpr int kMidDo = kMidQ + kMidRing * kTileBytes;
+constexpr int kMidDs = kMidDo + kMidRing * kTileBytes;
+constexpr int kMidP = kMidDs + 2 * kMidSlices * kTileBytes;
+constexpr int kMidSt = kMidP + 2 * kTileBytes;
+constexpr int kMidBar = kMidSt + 2 * kMidStats * 4;
+constexpr int kSmemMid = 1024 + kMidBar + 8 * (kMidSlices + 2 * kMidRing);
+
+__device__ __forceinline__ uint32_t MidFull(uint32_t bar, int s) {
+  return bar + 8 * (kMidSlices + s);
+}
+__device__ __forceinline__ uint32_t MidEmpty(uint32_t bar, int s) {
+  return bar + 8 * (kMidSlices + kMidRing + s);
+}
+
+// The two consumer warpgroups' barrier (named barrier 1), and consumer
+// warpgroup wg's own (named barrier 2 + wg).
+__device__ __forceinline__ void MidSync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void MidWgSync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// One thread of the producer: K and V of every slice, then Q and dO of
+// each q tile of each q head of the group, in order, through the ring.
+__device__ __forceinline__ void ProduceMid(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const Params& p, uint32_t base, int hk, int b,
+    int slices, int tiles) {
+  const uint32_t bar = base + kMidBar;
+  for (int j = 0; j < slices; ++j) {
+    sm90::MbarExpectTx(bar + 8 * j, 2 * kTileBytes);
+    sm90::TmaLoad4d(base + kMidK + j * kTileBytes, tk, bar + 8 * j, 0,
+                    j * kStep, hk, b);
+    sm90::TmaLoad4d(base + kMidV + j * kTileBytes, tv, bar + 8 * j, 0,
+                    j * kStep, hk, b);
+  }
+  const int group = p.H / p.Hk;
+  for (int u = 0; u < group * tiles; ++u) {
+    const int s = u % kMidRing;
+    if (u >= kMidRing) sm90::MbarWait(MidEmpty(bar, s), (u / kMidRing - 1) & 1);
+    const int h = hk * group + u / tiles, q0 = (u % tiles) * kStep;
+    sm90::MbarExpectTx(MidFull(bar, s), 2 * kTileBytes);
+    sm90::TmaLoad4d(base + kMidQ + s * kTileBytes, tq, MidFull(bar, s), 0, q0,
+                    h, b);
+    sm90::TmaLoad4d(base + kMidDo + s * kTileBytes, tdo, MidFull(bar, s), 0,
+                    q0, h, b);
+  }
+}
+
+// What a consumer thread loads for the statistics of a q tile: o and dO
+// (16 bytes each) and l and m of two of its rows.
+struct MidStatIn {
+  uint4 o[2], dout[2];
+  float l[2], m[2];
+};
+
+// Row q0 + ct / 8 + 32 i (i < 2) of q head (b, h) for consumer thread ct,
+// eight lanes a row, each a 16-byte part; rows past Sq read row Sq - 1
+// (MidStatStore replaces their sums).
+__device__ __forceinline__ void MidStatLoad(const Params& p, int b, int h,
+                                            int q0, int ct, MidStatIn* x) {
+  constexpr int kLanes = kD / 8;
+  const int part = ct % kLanes;
+  const __nv_bfloat16* og = Base<__nv_bfloat16>(p, p.o, kO, b, h);
+  const __nv_bfloat16* dg = Base<__nv_bfloat16>(p, p.dout, kDo, b, h);
+  const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = min(q0 + 32 * i + ct / kLanes, p.Sq - 1);
+    x->o[i] = __ldg(reinterpret_cast<const uint4*>(og + r * p.st[kO][2] +
+                                                   8 * part));
+    x->dout[i] = __ldg(reinterpret_cast<const uint4*>(
+        dg + r * p.st[kDo][2] + 8 * part));
+    x->l[i] = __ldg(p.l + at + r);
+    x->m[i] = __ldg(p.m + at + r);
+  }
+}
+
+// The q tile's statistics into `st`: each row's b = m log2(e) + log2(l)
+// (l == 0: m log2(e)), then delta * scale = rowsum(dO * o) scale; past Sq
+// b = +inf and delta 0, so P and dS are 0 there. The code has no branch:
+// ptxas serializes every wgmma of a kernel once it finds register
+// traffic for one in a divergent path; all eight lanes of a row store its
+// sums.
+__device__ __forceinline__ void MidStatStore(const Params& p,
+                                             const MidStatIn& x, int q0,
+                                             float* st, int ct) {
+  constexpr int kLanes = kD / 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&x.o[i]);
+    const __nv_bfloat162* d2 =
+        reinterpret_cast<const __nv_bfloat162*>(&x.dout[i]);
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 of = __bfloat1622float2(o2[e]);
+      const float2 df = __bfloat1622float2(d2[e]);
+      sum = fmaf(df.x, of.x, sum);
+      sum = fmaf(df.y, of.y, sum);
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int r = 32 * i + ct / kLanes;
+    const bool in = q0 + r < p.Sq;
+    const float bias =
+        x.m[i] * kLog2e + log2f(x.l[i] == 0.f ? 1.f : x.l[i]);
+    st[r] = in ? bias : INFINITY;
+    st[kStep + r] = in ? sum * p.scale : 0.f;
+  }
+}
+
+// A 64 x 64 accumulator fragment (rows of the warpgroup, 64 columns),
+// rounded to bf16 pairs, into a tile of shared memory: 64 columns of a row
+// contiguous, the 128-byte swizzle (16-byte chunk k of row r at chunk
+// k ^ (r % 8)), as TMA writes a tile and wgmma reads one, K-major (its
+// columns the k dimension) or MN-major. acc[4j + e] is row 16 warp + g +
+// 8 (e / 2), column 8j + 2c + (e % 2).
+__device__ __forceinline__ void StoreTile(unsigned char* tile,
+                                          const float* acc, int warp, int g,
+                                          int c) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
+      *reinterpret_cast<uint32_t*>(tile + row * kRowBytes +
+                                   ((j ^ g) << 4) + 4 * c) =
+          PackBf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+}
+
+// acc += A B over the 64 k rows of two staged tiles: A K-major (P^T or
+// dS^T, kv rows by q columns), B MN-major (dO or Q, q rows by d), issued,
+// not committed.
+__device__ __forceinline__ void IssueSSKN(float* acc, uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk)
+    sm90::WgmmaSS64KN(acc, sm90::Desc(a + kk * 32, kRowBytes),
+                      sm90::Desc(b + kk * 16 * kRowBytes, kRowBytes));
+}
+
+// A (kv slice, q tile) pair of a consumer warpgroup, in three steps.
+// MidSS: S^T = K Q^T and dP^T = V dO^T (SS), issued in two groups.
+__device__ __forceinline__ void MidSS(float* sT, float* dpT, uint32_t kw,
+                                      uint32_t vw, uint32_t qst,
+                                      uint32_t dost) {
+  IssueSS(sT, kw, qst);
+  sm90::WgmmaCommit();
+  IssueSS(dpT, vw, dost);
+  sm90::WgmmaCommit();
+}
+
+// MidGrads: once those two groups are done (and whatever ran before
+// them: the warpgroup's other slice's dV and dK), P^T and dS^T in
+// registers, then both to shared memory in bf16: P^T to the warpgroup's
+// tile `pt` (the wait retired the product that read it last), dS^T to the
+// slice's tile of the q tile, `ds`, which the dQ product reads too; the
+// warpgroup meets after, as a product reads rows of all its warps.
+// Two alternatives read slower on an H100 (tools/flash_variants.py's
+// sweep at the time): issuing one slice's S^T and dP^T ahead of the other
+// slice's dV and dK (87 -> 101 us), and dV += P^T dO with P^T from
+// registers (81 -> 91 us): both keep more registers live, and ptxas
+// spilled.
+__device__ __forceinline__ void MidGrads(const DkvStep& st, float* sT,
+                                         float* dpT, unsigned char* pt,
+                                         unsigned char* ds, int wg, int warp,
+                                         int g) {
+  sm90::WgmmaWait<1>();
+  sm90::FenceRegs<32>(sT);
+  st.Probs(sT);
+  sm90::WgmmaWait<0>();
+  sm90::FenceRegs<32>(dpT);
+  st.Grads(sT, dpT);
+  StoreTile(pt, sT, warp, g, st.c);
+  StoreTile(ds, dpT, warp, g, st.c);
+  sm90::FenceProxyAsync();  // the stores, before wgmma reads them
+  MidWgSync(wg);
+}
+
+// MidDvDk: dV += P^T dO and dK += dS^T Q, SS products from the tiles
+// MidGrads wrote, issued in one group. Every operand of every product is
+// in shared memory; the registers a product uses are its accumulators.
+__device__ __forceinline__ void MidDvDk(float* dk, float* dv,
+                                        unsigned char* pt, unsigned char* ds,
+                                        uint32_t qst, uint32_t dost) {
+  sm90::WgmmaFence();
+  IssueSSKN(dv, sm90::SmemAddr(pt), dost);  // dV += P^T dO
+  IssueSSKN(dk, sm90::SmemAddr(ds), qst);   // dK += dS^T Q
+  sm90::WgmmaCommit();
+}
+
+// dQ of the q tile [q0, q0 + 64) of head h: the sum over its live kv
+// slices, in kv order, of dS K, one SS product chain reading the staged
+// dS^T (`ds`, a tile a slice) and K, both MN-major; written once.
+__device__ __forceinline__ void MidDq(const Params& p, uint32_t ds,
+                                      uint32_t k, int q0, int h, int b,
+                                      int warp, int g, int c) {
+  int lo, hi;
+  KvRange(p, q0, kStep, &lo, &hi);
+  const int j0 = lo / kStep, j1 = (hi - 1) / kStep;
+  float dq[32];
+  sm90::WgmmaFence();
+  const uint32_t first = j0 * kTileBytes;
+  sm90::WgmmaSS64MNInit(dq, sm90::Desc(ds + first, kRowBytes),
+                        sm90::Desc(k + first, kRowBytes));
+#pragma unroll
+  for (int kk = 1; kk < kStep / 16; ++kk)
+    sm90::WgmmaSS64MN(dq, sm90::Desc(ds + first + kk * 16 * kRowBytes,
+                                     kRowBytes),
+                      sm90::Desc(k + first + kk * 16 * kRowBytes, kRowBytes));
+  for (int j = j0 + 1; j <= j1; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < kStep / 16; ++kk) {
+      const uint32_t off = j * kTileBytes + kk * 16 * kRowBytes;
+      sm90::WgmmaSS64MN(dq, sm90::Desc(ds + off, kRowBytes),
+                        sm90::Desc(k + off, kRowBytes));
+    }
+  }
+  sm90::WgmmaCommit();
+  sm90::WgmmaWait<0>();
+  sm90::FenceRegs<32>(dq);
+  StoreRows(OutBase<__nv_bfloat16>(p, p.dq, kDq, b, h), p.st[kDq][2], dq, q0,
+            p.Sq, warp, g, c);
+}
+
+// The consumer warpgroups: warpgroup wg owns kv slices wg and wg + 2 (where
+// they exist), keeps their dK and dV in registers, and walks every q tile
+// (task u) of every q head of the group in order. For each tile both write
+// their slices' dS^T and meet; then warpgroup u % 2 computes the tile's dQ
+// while the other goes on to the next tile (dS^T is double buffered).
+// The statistics of tile u + 1 are stored before that meeting, from the
+// loads a thread issued a tile earlier (double buffered too), so their
+// latency is spent under a tile's products.
+__device__ __forceinline__ void ConsumeMid(const Params& p,
+                                           unsigned char* smem, uint32_t base,
+                                           int wg, int tw, int hk, int b,
+                                           int slices, int tiles) {
+  const int warp = tw / 32, lane = tw % 32, g = lane >> 2, c = lane & 3;
+  const int ct = wg * 128 + tw;
+  const uint32_t bar = base + kMidBar;
+  const int ja = wg, jb = wg + 2;
+  const bool has_a = ja < slices, has_b = jb < slices;
+  const int group = p.H / p.Hk;
+  const int tasks = group * tiles;
+  const float c2 = p.scale * kLog2e;
+  float dka[32], dva[32], dkb[32], dvb[32], sT[32], dpT[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = dkb[x] = dvb[x] = 0.f;
+  unsigned char* pt = smem + kMidP + wg * kTileBytes;
+  float* stats = reinterpret_cast<float*>(smem + kMidSt);
+  MidStatIn in;
+  MidStatLoad(p, b, hk * group, 0, ct, &in);
+  MidStatStore(p, in, 0, stats, ct);
+  if (tasks > 1)
+    MidStatLoad(p, b, hk * group + 1 / tiles, (1 % tiles) * kStep, ct, &in);
+  if (has_a) sm90::MbarWait(bar + 8 * ja, 0);
+  if (has_b) sm90::MbarWait(bar + 8 * jb, 0);
+  MidSync();
+
+  for (int u = 0; u < tasks; ++u) {
+    const int h = hk * group + u / tiles, t = u % tiles, s = u % kMidRing;
+    const int q0 = t * kStep;
+    const uint32_t qst = base + kMidQ + s * kTileBytes;
+    const uint32_t dost = base + kMidDo + s * kTileBytes;
+    unsigned char* ds = smem + kMidDs + (u % 2) * kMidSlices * kTileBytes;
+    const float* st = stats + (u % 2) * kMidStats;
+    int lo, hi;
+    KvRange(p, q0, kStep, &lo, &hi);
+    auto live = [&](int j) { return j * kStep < hi && j * kStep + kStep > lo; };
+    auto step = [&](int j) {
+      const int k0 = j * kStep;
+      return DkvStep{p, st, c2, q0, k0 + 16 * warp + g, c,
+                     k0 + kStep > p.Sk || EdgeCrosses(p, q0, kStep, k0,
+                                                      kStep)};
+    };
+    const bool la = has_a && live(ja), lb = has_b && live(jb);
+    unsigned char* dsa = ds + ja * kTileBytes;
+    unsigned char* dsb = ds + jb * kTileBytes;
+    sm90::MbarWait(MidFull(bar, s), (u / kMidRing) & 1);
+    if (la) {
+      MidSS(sT, dpT, base + kMidK + ja * kTileBytes,
+            base + kMidV + ja * kTileBytes, qst, dost);
+      MidGrads(step(ja), sT, dpT, pt, dsa, wg, warp, g);
+      MidDvDk(dka, dva, pt, dsa, qst, dost);
+    }
+    if (lb) {
+      MidSS(sT, dpT, base + kMidK + jb * kTileBytes,
+            base + kMidV + jb * kTileBytes, qst, dost);
+      MidGrads(step(jb), sT, dpT, pt, dsb, wg, warp, g);
+      MidDvDk(dkb, dvb, pt, dsb, qst, dost);
+    }
+    sm90::WgmmaWait<0>();
+    sm90::MbarArrive(MidEmpty(bar, s));
+    if (u + 1 < tasks) {
+      const int v = u + 1;
+      MidStatStore(p, in, (v % tiles) * kStep, stats + (v % 2) * kMidStats,
+                   ct);
+      if (v + 1 < tasks)
+        MidStatLoad(p, b, hk * group + (v + 1) / tiles,
+                    ((v + 1) % tiles) * kStep, ct, &in);
+    }
+    MidSync();
+    if (u % 2 == wg)
+      MidDq(p, base + kMidDs + (u % 2) * kMidSlices * kTileBytes,
+            base + kMidK, q0, h, b, warp, g, c);
+  }
+  sm90::FenceRegs<32>(dka);
+  sm90::FenceRegs<32>(dva);
+  sm90::FenceRegs<32>(dkb);
+  sm90::FenceRegs<32>(dvb);
+  __nv_bfloat16* dkg = OutBase<__nv_bfloat16>(p, p.dk, kDk, b, hk);
+  __nv_bfloat16* dvg = OutBase<__nv_bfloat16>(p, p.dv, kDv, b, hk);
+  if (has_a) {
+    StoreRows(dkg, p.st[kDk][2], dka, ja * kStep, p.Sk, warp, g, c);
+    StoreRows(dvg, p.st[kDv][2], dva, ja * kStep, p.Sk, warp, g, c);
+  }
+  if (has_b) {
+    StoreRows(dkg, p.st[kDk][2], dkb, jb * kStep, p.Sk, warp, g, c);
+    StoreRows(dvg, p.st[kDv][2], dvb, jb * kStep, p.Sk, warp, g, c);
+  }
+}
+
+// dQ, dK and dV of one (batch, kv head) in one launch: one producer
+// warpgroup and two consumer warpgroups (ConsumeMid).
+__global__ void __launch_bounds__(kThreadsW, 1)
+    FlashBwdMid(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo, const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = sm90::SmemAddr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const long long kv = blockIdx.x;
+  const int b = static_cast<int>(kv / p.Hk);
+  const int hk = static_cast<int>(kv % p.Hk);
+  const int slices = (p.Sk + kStep - 1) / kStep;
+  const int tiles = (p.Sq + kStep - 1) / kStep;
+  if (threadIdx.x == 0) {
+    const uint32_t bar = base + kMidBar;
+    for (int j = 0; j < kMidSlices; ++j) sm90::MbarInit(bar + 8 * j, 1);
+    for (int s = 0; s < kMidRing; ++s) {
+      sm90::MbarInit(MidFull(bar, s), 1);
+      sm90::MbarInit(MidEmpty(bar, s), 256);
+    }
+    sm90::FenceBarrierInit();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    sm90::SetMaxRegsDec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      ProduceMid(&tq, &tk, &tv, &tdo, p, base, hk, b, slices, tiles);
+  } else {
+    sm90::SetMaxRegsInc<kConsumerRegs>();
+    // The warpgroup, broadcast from lane 0 so that the compiler sees it
+    // uniform: wgmma under a branch it takes for divergent is serialized.
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128 - 1, 0);
+    ConsumeMid(p, smem, base, wg, threadIdx.x % 128, hk, b, slices, tiles);
+  }
+}
+
+// FlashBwdMid on a 1-D grid of B * Hk blocks.
+cudaError_t LaunchMidBwd(const Params& p, cudaStream_t s) {
+  CUtensorMap maps[4];  // q, k, v, dO in 64-row boxes
+  if (!sm90::EncodeMap(&maps[0], p.q, kD, p.Sq, p.H, p.B, p.st[kQ][0],
+                       p.st[kQ][1], p.st[kQ][2], kStep, kD) ||
+      !sm90::EncodeMap(&maps[1], p.k, kD, p.Sk, p.Hk, p.B, p.st[kK][0],
+                       p.st[kK][1], p.st[kK][2], kStep, kD) ||
+      !sm90::EncodeMap(&maps[2], p.v, kD, p.Sk, p.Hk, p.B, p.st[kV][0],
+                       p.st[kV][1], p.st[kV][2], kStep, kD) ||
+      !sm90::EncodeMap(&maps[3], p.dout, kD, p.Sq, p.H, p.B, p.st[kDo][0],
+                       p.st[kDo][1], p.st[kDo][2], kStep, kD))
+    return cudaErrorInvalidValue;
+  const long long blocks = static_cast<long long>(p.B) * p.Hk;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      FlashBwdMid, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMid);
+  if (err != cudaSuccess) return err;
+  FlashBwdMid<<<static_cast<unsigned>(blocks), kThreadsW, kSmemMid, s>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------ bf16, short sequences
@@ -2069,13 +2516,18 @@ cudaError_t LaunchShortBwd(const Params& p, cudaStream_t s) {
 
 // --------------------------------------------------------------- dispatch
 
-// The design that serves (dtype, d, Sq, Sk): 0 "wgmma", 1 "mma_sync", 2
-// "f32", 3 "short" (bf16 at Sq and Sk <= kShortMax, ahead of the other
-// two bf16 designs), or -1 for a head dim or dtype no kernel takes.
-int Design(int dtype, int d, int sq, int sk) {
+// The design that serves (dtype, d, B, H, Hk, Sq, Sk): 0 "wgmma", 1
+// "mma_sync", 2 "f32", 3 "short" (bf16 at Sq and Sk <= kShortMax, ahead of
+// the other bf16 designs), 4 "mid" (bf16 at d = 64 and Sq, Sk <= kMidMax,
+// one of them past kShortMax, with H == Hk or B * Hk >= kMidMinKvHeads),
+// or -1 for a head dim or dtype no kernel takes.
+int Design(int dtype, int d, int B, int H, int Hk, int sq, int sk) {
   if (d != 32 && d != 64 && d != 128) return -1;
   if (dtype == 0) {
     if (sq <= kShortMax && sk <= kShortMax) return 3;
+    if (d == kD && sq <= kMidMax && sk <= kMidMax &&
+        (H == Hk || static_cast<long long>(B) * Hk >= kMidMinKvHeads))
+      return 4;
     return d == kD ? 0 : 1;
   }
   return dtype == 1 ? 2 : -1;
@@ -2120,8 +2572,8 @@ cudaError_t ByHeadDim(int d, const Params& p, cudaStream_t s) {
 // dv in that order; the last dimension of each is contiguous. l and m are
 // [B, H, Sq] f32, contiguous. `scratch` holds 2 * B * H * ceil(Sq / 64) *
 // 64 floats, which the call fills (delta and l_inv, or the wgmma design's
-// tiled statistics); the "short" design reads and writes none of it, and
-// scratch may then be null.
+// tiled statistics); the "short" and "mid" designs read and write none of
+// it, and scratch may then be null.
 // Every output element is written. Returns a cudaError_t (0 on success,
 // cudaErrorInvalidValue for a head dim or dtype the kernels do not take,
 // or for bf16 strides that TMA cannot describe).
@@ -2147,7 +2599,7 @@ extern "C" int ts_flash_bwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Design(dtype, d, Sq, Sk)) {
+  switch (Design(dtype, d, B, H, Hk, Sq, Sk)) {
     case 0: return static_cast<int>(LaunchWgmma(p, s));
     case 1: return static_cast<int>(ByHeadDim<__nv_bfloat16>(d, p, s));
     case 2: return static_cast<int>(ByHeadDim<float>(d, p, s));
@@ -2157,14 +2609,17 @@ extern "C" int ts_flash_bwd(const void* q, const void* k, const void* v,
         case 64: return static_cast<int>(LaunchShortBwd<64>(p, s));
         case 128: return static_cast<int>(LaunchShortBwd<128>(p, s));
       }
+      break;
+    case 4: return static_cast<int>(LaunchMidBwd(p, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The design ts_flash_bwd launches for (dtype, d, Sq, Sk), as Design()
-// above.
-extern "C" int ts_flash_bwd_design(int dtype, int d, int sq, int sk) {
-  return Design(dtype, d, sq, sk);
+// The design ts_flash_bwd launches for (dtype, d, B, H, Hk, Sq, Sk), as
+// Design() above.
+extern "C" int ts_flash_bwd_design(int dtype, int d, int B, int H, int Hk,
+                                   int sq, int sk) {
+  return Design(dtype, d, B, H, Hk, sq, sk);
 }
 
 // The launch plan of the "short" design (Design() == 3) at a shape, for a
@@ -2196,4 +2651,22 @@ extern "C" int ts_flash_bwd_short_plan(int d, int B, int H, int Hk, int Sq,
     case 128: return static_cast<int>(ReportShortBwd<128>(p, out));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch plan of the "mid" design (Design() == 4) at a shape, for a
+// caller that reports it: out[0] the blocks, out[1] the blocks an SM
+// holds, out[2] the shared memory a block, out[3] the kv slices a block,
+// out[4] the q tiles a block walks. Returns a cudaError_t.
+extern "C" int ts_flash_bwd_mid_plan(int d, int B, int H, int Hk, int Sq,
+                                     int Sk, int* out) {
+  if (d != kD) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = B * Hk;
+  out[2] = kSmemMid;
+  out[3] = (Sk + kStep - 1) / kStep;
+  out[4] = H / Hk * ((Sq + kStep - 1) / kStep);
+  cudaError_t err = cudaFuncSetAttribute(
+      FlashBwdMid, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], FlashBwdMid, kThreadsW, kSmemMid));
 }

@@ -102,33 +102,40 @@
 //     [392, 6, 16, 64] 588 blocks of 27 KB, one wave.
 //
 // bf16 at mid-length sequences (64 < max(Sq, Sk) <= 256, d <= 64, every
-// mode): FlashFwdMid, the short design extended to rows longer than one softmax
-// pass can hold in registers. It serves the factorized VideoViT's spatial
+// mode): FlashFwdMid. It serves the factorized VideoViT's spatial
 // attention ([32, 12, 196, 64] in ViT-B training, [32, 6, 196, 64] in the
 // streaming twin), where the tiled kernel's 192-row q tile holds 192 rows
-// in its first tile and 4 in its second, so 2 * B * H blocks of 512
-// threads run one an SM, about half of them nearly empty. The work there
-// is 3.8 GFLOP against 38.5 MB (11.5 us at 3.35 TB/s): bound by bytes.
-//   * One block stages one kv head's K and V once in shared memory (208
-//     padded rows at S = 196: 59.9 KB at d = 64) by 16-byte cp.async, an
-//     mbarrier a 32-row chunk, so a warp starts on the first chunk while
-//     the rest still land; its 7 warps take the 16-row q tiles of the kv
-//     head's q heads in turn (13 tiles at S = 196: two rounds).
-//   * S over 32-column chunks on mma.sync, every staged pair of a chunk
-//     computed and the mask applied where TileNeedsMask says; m and l kept
-//     online as the tiled kernel keeps them (base 2, m on the raw dot
-//     products, scaled once); P cast to bf16 in registers into P V's A
-//     fragments; Q's fragments read from the warp's stage at each k-step.
-//   * One wave: 80 registers a thread and 76 KB a block give 3 blocks an
-//     SM at d <= 64, 396 slots on 132 SMs for [32, 12, 196, 64]'s 384 kv
-//     heads. Where the kv heads are fewer than the slots, each head's
-//     tasks are split over as many blocks as fill them ([32, 6, 196, 64]:
-//     2 a head, each reading K and V, the second time from L2).
-//   * What bounds it on an H100 is the warps' own latency, not bytes: with
-//     its global reads of K and V cut out it keeps most of its time.
-//     tools/flash_variants.py times those cuts and the alternatives that
-//     lost to this shape (64-column chunks, which spill at 80 registers;
-//     4 or 8 warps a block); PERF.md has the readings.
+// in its first tile and 4 in its second and each of those blocks reads the
+// kv head again. The work there is 3.8 GFLOP against 38.5 MB (11.5 us at
+// 3.35 TB/s): bound by bytes. An earlier design of this range put a warp
+// on each 16-row q tile on mma.sync, so every warp read the whole kv head
+// from shared memory through ldmatrix (13 times a head at S = 196) and its
+// products bound it. This one is Hopper's:
+//   * One block stages one kv head's K and V once by TMA in 64-row boxes
+//     (the tiled kernel's tensor maps over (d, S, H, B) with the caller's
+//     strides, 128-byte swizzle, 64-byte at d = 32; zeros past Sk: 256
+//     rows at S = 196), an mbarrier a box.
+//   * Each of its two warpgroups takes one 64-row q tile of the kv head's
+//     q heads (a task); both Q tiles are loaded at the start, beside K and
+//     V.
+//   * S = Q K^T is an SS wgmma over 64-column chunks of the staged kv rows
+//     (m64n64k16), the last chunk cut to 16 columns (m64n16k16) where no
+//     more of it is live (4 of 64 at S = 196); m and l are kept online as
+//     the tiled kernel keeps them (its Softmax). P goes from the
+//     accumulator, packed to bf16, as the register A operand of O += P V,
+//     V read MN-major through the descriptor's transpose bit. A chunk's
+//     Q K^T runs beside the previous chunk's P V; the other warpgroup's,
+//     and the other block's, softmax runs under them.
+//   * Four 64-row tiles read the kv head 4 times a head at S = 196 (the
+//     mma.sync design read it 13 times), straight from the swizzled stage.
+//   * Two blocks an SM (128 registers a thread, 83 KB at S = 196): one
+//     block's loads land while the other computes. A kv head's tasks are
+//     split over blocks of two, each reading K and V (the second time
+//     from L2). tools/flash_variants.py times the cuts of the design
+//     (loads only, products only, no exponentials, the launch floor);
+//     PERF.md has those readings and the alternatives' (two q tiles a
+//     warpgroup, four warpgroups a block, a persistent grid of one wave:
+//     none faster on an H100).
 //
 // f32: plain f32 FMAs, no TF32 (wgmma has no f32 without TF32). 128
 // threads, 32 q rows (4 threads a row), kv tiles of 32.
@@ -138,7 +145,6 @@
 #include <float.h>
 #include <stdint.h>
 
-#include <atomic>
 
 #include "mma_sync.cuh"
 #include "sm90.cuh"
@@ -322,15 +328,16 @@ __device__ __forceinline__ void IssuePV(float* o, uint32_t (*pa)[4],
   sm90::WgmmaCommit();
 }
 
-// The online softmax of one S tile, in place: masks it where the tile
-// needs it, updates the raw row max m and this thread's share of l, turns
-// s into p and sets alpha to the factor the accumulator is rescaled by.
+// The online softmax of one S tile of 8 NJ columns, in place: masks it
+// where the tile needs it, updates the raw row max m and this thread's
+// share of l, turns s into p and sets alpha to the factor the accumulator
+// is rescaled by.
+template <int NJ>
 __device__ __forceinline__ void Softmax(const Params& p, float* s, int row0,
                                         int q0w, int k0, int c, float c2,
                                         float* m_run, float* l_run,
                                         float* alpha) {
-  constexpr int NJ = kBk / 8;
-  if (TileNeedsMask(p, q0w, kWgRows, k0, kBk)) {
+  if (TileNeedsMask(p, q0w, kWgRows, k0, 8 * NJ)) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -370,10 +377,11 @@ __device__ __forceinline__ void Softmax(const Params& p, float* s, int row0,
 }
 
 // p, rounded to bf16 pairs: the S accumulator fragment of n-tiles 2kk and
-// 2kk + 1 is the A fragment of P for k-step kk of P V.
+// 2kk + 1 is the A fragment of P for k-step kk of P V (KS k-steps).
+template <int KS>
 __device__ __forceinline__ void PackP(const float* s, uint32_t (*pa)[4]) {
 #pragma unroll
-  for (int kk = 0; kk < kBk / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
     for (int x = 0; x < 4; ++x)
       pa[kk][x] = PackBf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
@@ -390,6 +398,42 @@ __device__ __forceinline__ void TurnWait(int wg) {
 template <int NC>
 __device__ __forceinline__ void TurnPass(int wg) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % NC) : "memory");
+}
+
+// A consumer warpgroup's output rows row0 and row0 + 8 of this thread
+// (the accumulator fragment) over the quad's sum l (1 where l is 0), in
+// bf16, rows below Sq of q head (b, h); l and m (the raw max times the
+// scale) beside them where the caller asked for them.
+template <int D>
+__device__ __forceinline__ void StoreO(const Params& p, const float* o,
+                                       const float* l_run,
+                                       const float* m_run, int b, int h,
+                                       int row0, int c) {
+  float l_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[r] = l;
+  }
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.Sq) continue;
+    const float inv = l_row[r] == 0.f ? 1.f : 1.f / l_row[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(og + row * p.oss + 8 * j + 2 * c) =
+          PackBf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+    if (c == 0 && p.l != nullptr) {
+      const long long at = (static_cast<long long>(b) * p.H + h) * p.Sq + row;
+      p.l[at] = l_row[r];
+      p.m[at] = m_run[r] * p.scale;
+    }
+  }
 }
 
 // One consumer warpgroup: 64 q rows against every kv tile of the block.
@@ -430,8 +474,9 @@ __device__ __forceinline__ void Consume(const Params& p, const Tiles& t,
   TurnPass<NC>(wg);
   sm90::WgmmaWait<0>();
   sm90::FenceRegs<SN>(s);
-  Softmax(p, s, row0, q0w, t.first * kBk, c, c2, m_run, l_run, alpha);
-  PackP(s, pa);
+  Softmax<kBk / 8>(p, s, row0, q0w, t.first * kBk, c, c2, m_run, l_run,
+                   alpha);
+  PackP<kBk / 16>(s, pa);
   for (int i = 1; i < t.count; ++i) {
     const int st = i % kStages, prev = (i - 1) % kStages;
     sm90::MbarWait(KFull(t.bar, st), (i / kStages) & 1);
@@ -442,8 +487,8 @@ __device__ __forceinline__ void Consume(const Params& p, const Tiles& t,
     TurnPass<NC>(wg);
     sm90::WgmmaWait<1>();  // Q K^T of tile i
     sm90::FenceRegs<SN>(s);
-    Softmax(p, s, row0, q0w, (t.first + i) * kBk, c, c2, m_run, l_run,
-            alpha);
+    Softmax<kBk / 8>(p, s, row0, q0w, (t.first + i) * kBk, c, c2, m_run,
+                     l_run, alpha);
     sm90::WgmmaWait<0>();  // P V of tile i - 1
     sm90::FenceRegs<ON>(o);
     sm90::FenceRegs<4 * kBk / 16>(&pa[0][0]);
@@ -455,7 +500,7 @@ __device__ __forceinline__ void Consume(const Params& p, const Tiles& t,
       o[4 * j + 2] *= alpha[1];
       o[4 * j + 3] *= alpha[1];
     }
-    PackP(s, pa);
+    PackP<kBk / 16>(s, pa);
   }
   const int last = (t.count - 1) % kStages;
   sm90::MbarWait(VFull(t.bar, last), ((t.count - 1) / kStages) & 1);
@@ -466,33 +511,7 @@ __device__ __forceinline__ void Consume(const Params& p, const Tiles& t,
   sm90::FenceRegs<ON>(o);
   sm90::MbarArrive(Empty(t.bar, last));
 
-  float l_row[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l_row[r] = l;
-  }
-  __nv_bfloat16* og =
-      static_cast<__nv_bfloat16*>(p.o) + t.b * p.osb + t.h * p.osh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= p.Sq) continue;
-    const float inv = l_row[r] == 0.f ? 1.f : 1.f / l_row[r];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(og + row * p.oss + 8 * j + 2 * c) =
-          PackBf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    }
-    if (c == 0 && p.l != nullptr) {
-      const long long at =
-          (static_cast<long long>(t.b) * p.H + t.h) * p.Sq + row;
-      p.l[at] = l_row[r];
-      p.m[at] = m_run[r] * p.scale;
-    }
-  }
+  StoreO<D>(p, o, l_run, m_run, t.b, t.h, row0, c);
 }
 
 template <int D>
@@ -800,305 +819,266 @@ cudaError_t LaunchShort(const Params& p, cudaStream_t stream) {
 // ------------------------------------------------ bf16, mid-length sequences
 
 constexpr int kMidMax = 256;   // max(Sq, Sk) up to which FlashFwdMid runs
-constexpr int kMidWarps = 7;   // warps a block: 13 tasks of S = 196 in 2 rounds
-constexpr int kMidChunk = 32;  // kv columns a softmax step: 2 column pairs
+constexpr int kMidRows = 64;   // q rows a task, kv rows a staged box
+constexpr int kMidConsumers = 2;  // warpgroups a block, a task each
+constexpr int kMidTail = 16;      // N of a last kv chunk with <= 16 live
+// Blocks an SM must hold at once: 2 (128 registers a thread, 97 KB of
+// shared memory at d = 64), so that one block's K/V and Q loads land
+// while the other's warpgroups compute.
+constexpr int kMidBlocksPerSm = 2;
 
-// Blocks an SM must hold at once: 3 (80 registers a thread, as 21 warps
-// an SM allow, and 3 x 76 KB of shared memory at S = 196), so that
-// [32, 12, 196, 64]'s 384 kv heads run in one wave on 132 SMs. d = 128
-// stays on the tiled kernel: K and V alone take 113 KB there, one block an
-// SM, and it ran 1.4-2.3x slower than the tiled kernel on an H100.
-constexpr int kMidBlocksPerSm = 3;
+template <int D>
+struct MidCfg {
+  static constexpr int kRowBytes = 2 * D;  // one 64- or 128-byte swizzle row
+  static constexpr int kBoxBytes = kMidRows * kRowBytes;
+  static constexpr int kThreads = 128 * kMidConsumers;
+};
 
-// K/V rows a FlashFwdMid block stages: Sk rounded up to 16 (a column
-// pair), zeros past Sk. A chunk runs its products over every staged pair
-// (the last chunk may hold one pair less).
-__host__ __device__ inline int MidRows(int sk) { return (sk + 15) / 16 * 16; }
-
-// Shared memory of a FlashFwdMid block: K and V of one kv head
-// (MidRows), a 16-row Q/O stage a warp, and an mbarrier a chunk of K/V.
+// Shared memory of a FlashFwdMid block: from a 1024-aligned base, K and V
+// of one kv head in 64-row boxes (Sk rounded up to 64, zeros past Sk),
+// a Q tile a warpgroup, then an mbarrier a K/V box and one a Q tile.
 template <int D>
 int SmemMid(int sk) {
-  return (2 * MidRows(sk) + kMidWarps * 16) * (D + kShortPad) * 2 +
-         8 * (kMidMax / kMidChunk);
+  using C = MidCfg<D>;
+  const int boxes = (sk + kMidRows - 1) / kMidRows;
+  return 1024 + (2 * boxes + kMidConsumers) * C::kBoxBytes +
+         8 * (boxes + kMidConsumers);
 }
 
-// One kv head's K and V staged once, the q heads of its group cut into
-// 16-row tasks, a warp a task: S over 32-column chunks with m and l kept
-// online (the tiled kernel's Softmax: base 2, m on the raw dot products,
-// scaled once at the end), P cast to bf16 in registers as the A fragment
-// of P V. Block `blockIdx.x` is part `blockIdx.x % parts` of kv head
-// `blockIdx.x / parts` and takes that part's share of the kv head's
-// tasks (q head hk * group + t / tiles, rows 16 * (t % tiles)).
+// S = Q K^T of one kv chunk of N = 8 NJ columns (64 for a full chunk, 16
+// for the tail) into s, Q and K read from their swizzled tiles; issued and
+// committed, not waited for. (Q from registers, loaded once a task by
+// ldmatrix, read within 1% of this on an H100: tools/flash_variants.py's
+// sweep at the time.)
+template <int D, int NJ>
+__device__ __forceinline__ void MidQK(float* s, uint32_t q_tile,
+                                      uint32_t k_rows) {
+  constexpr int RB = MidCfg<D>::kRowBytes;
+  sm90::WgmmaFence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = sm90::Desc(q_tile + kk * 32, RB);
+    const uint64_t db = sm90::Desc(k_rows + kk * 32, RB);
+    if constexpr (NJ == 8) {
+      if (kk == 0) {
+        sm90::WgmmaSS64Init(s, da, db);
+      } else {
+        sm90::WgmmaSS64(s, da, db);
+      }
+    } else {
+      if (kk == 0) {
+        sm90::WgmmaSS16Init(s, da, db);
+      } else {
+        sm90::WgmmaSS16(s, da, db);
+      }
+    }
+  }
+  sm90::WgmmaCommit();
+}
+
+// O += P V over KS k-steps of 16 kv rows from `v_rows`, P from registers,
+// V read MN-major; issued and committed, not waited for.
+template <int D, int KS>
+__device__ __forceinline__ void MidPV(float* o, uint32_t (*pa)[4],
+                                      uint32_t v_rows) {
+  constexpr int RB = MidCfg<D>::kRowBytes;
+  sm90::WgmmaFence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t dv = sm90::Desc(v_rows + kk * 16 * RB, RB);
+    if constexpr (D == 64) {
+      sm90::WgmmaRS64(o, pa[kk], dv);
+    } else {
+      sm90::WgmmaRS32(o, pa[kk], dv);
+    }
+  }
+  sm90::WgmmaCommit();
+}
+
+// One kv chunk of a task, in the tiled kernel's order: S = Q K^T of the
+// chunk (N = 8 NJ) issued together with O += P V of the full chunk before
+// it (kPrev; its P in `pa`), the chunk's online softmax run while that
+// P V runs, then the accumulator rescaled once it is done and the chunk's
+// P packed into `pa`.
+template <int D, int NJ, bool kPrev>
+__device__ __forceinline__ void MidChunk(const Params& p, float* s, float* o,
+                                         uint32_t (*pa)[4], uint32_t q_tile,
+                                         uint32_t ks, uint32_t vs, int k0,
+                                         int row0, int q0, int c, float c2,
+                                         float* m_run, float* l_run) {
+  constexpr int RB = MidCfg<D>::kRowBytes;
+  MidQK<D, NJ>(s, q_tile, ks + k0 * RB);
+  if constexpr (kPrev) MidPV<D, 4>(o, pa, vs + (k0 - kMidRows) * RB);
+  sm90::WgmmaWait<kPrev ? 1 : 0>();
+  sm90::FenceRegs<4 * NJ>(s);
+  float alpha[2];
+  Softmax<NJ>(p, s, row0, q0, k0, c, c2, m_run, l_run, alpha);
+  if constexpr (kPrev) {
+    sm90::WgmmaWait<0>();
+    sm90::FenceRegs<D / 2>(o);
+    sm90::FenceRegs<16>(&pa[0][0]);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+  PackP<NJ / 2>(s, pa);
+}
+
+// One task: 64 q rows [q0, q0 + 64) of q head h against the staged kv
+// head, in 64-column chunks from the one KvRange's first column falls in
+// to the one its last falls in, that last one cut to kMidTail columns
+// where no more of it is live. Thread fragment as the tiled kernel's
+// Consume: row0 = q0 + 16 warp + g and row0 + 8.
 template <int D>
-__global__ void __launch_bounds__(kMidWarps * 32, kMidBlocksPerSm)
-    FlashFwdMid(const Params p, int parts) {
-  constexpr int LD = D + kShortPad;
-  constexpr int NP = kMidChunk / 16;  // column pairs a chunk
-  using mma_sync::LoadA;
-  using mma_sync::LoadB;
-  using mma_sync::LoadBt;
-  using mma_sync::Mma;
+__device__ __forceinline__ void MidTask(const Params& p, uint32_t q_tile,
+                                        uint32_t qbar, uint32_t ks,
+                                        uint32_t vs, uint32_t kvbar, int b,
+                                        int h, int q0, int tw) {
+  constexpr int ON = D / 2;
+  const int warp = tw / 32, lane = tw % 32, g = lane >> 2, c = lane & 3;
+  const int row0 = q0 + warp * 16 + g;
+  const float c2 = p.scale * kLog2e;
+  int lo, hi;
+  KvRange(p, q0, kWgRows, &lo, &hi);
+  const int first = lo / kMidRows, last = (hi - 1) / kMidRows;
+  const bool tail = hi - last * kMidRows <= kMidTail;
+  const int full_end = tail ? last : last + 1;
+
+  float s[32], o[ON];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) pa[kk][x] = 0u;
+  float m_run[2] = {-INFINITY, -INFINITY};  // max of the raw dot products
+  float l_run[2] = {0.f, 0.f};              // this thread's share of l
+
+  constexpr int RB = MidCfg<D>::kRowBytes;
+  const uint32_t v_last = vs + last * kMidRows * RB;
+  sm90::MbarWait(qbar, 0);
+  sm90::MbarWait(kvbar + 8 * first, 0);
+  if (first < full_end) {
+    MidChunk<D, 8, false>(p, s, o, pa, q_tile, ks, vs,
+                          first * kMidRows, row0, q0, c, c2, m_run, l_run);
+    for (int ch = first + 1; ch < full_end; ++ch) {
+      sm90::MbarWait(kvbar + 8 * ch, 0);
+      MidChunk<D, 8, true>(p, s, o, pa, q_tile, ks, vs, ch * kMidRows,
+                           row0, q0, c, c2, m_run, l_run);
+    }
+    if (tail) {
+      sm90::MbarWait(kvbar + 8 * last, 0);
+      MidChunk<D, 2, true>(p, s, o, pa, q_tile, ks, vs,
+                           last * kMidRows, row0, q0, c, c2, m_run, l_run);
+      MidPV<D, 1>(o, pa, v_last);
+    } else {
+      MidPV<D, 4>(o, pa, v_last);
+    }
+  } else {  // the tail is the task's one chunk
+    MidChunk<D, 2, false>(p, s, o, pa, q_tile, ks, vs, last * kMidRows,
+                          row0, q0, c, c2, m_run, l_run);
+    MidPV<D, 1>(o, pa, v_last);
+  }
+  sm90::WgmmaWait<0>();
+  sm90::FenceRegs<ON>(o);
+  sm90::FenceRegs<16>(&pa[0][0]);
+  StoreO<D>(p, o, l_run, m_run, b, h, row0, c);
+}
+
+// One kv head's K and V staged once by TMA, the q heads of its group cut
+// into 64-row tasks (q head hk * group + t / tiles, rows 64 (t % tiles)),
+// a warpgroup a task: S = Q K^T on wgmma from the swizzled tiles, m and
+// l online over 64-column chunks (base 2, m on the raw dot products,
+// scaled once), P packed to bf16 in registers as the A operand of O +=
+// P V. Block `blockIdx.x` is part `blockIdx.x % parts` of kv head
+// `blockIdx.x / parts` and takes tasks 2 part and 2 part + 1; one thread
+// issues every load at the start, Q before all but the first K/V box.
+template <int D>
+__global__ void __launch_bounds__(MidCfg<D>::kThreads, kMidBlocksPerSm)
+    FlashFwdMid(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const Params p,
+                int parts) {
+  using C = MidCfg<D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int skp = MidRows(p.Sk);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + skp * LD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __nv_bfloat16* stage = vs + skp * LD + warp * 16 * LD;
+  const uint32_t base = (sm90::SmemAddr(smem) + 1023) & ~1023u;
+  const int boxes = (p.Sk + kMidRows - 1) / kMidRows;
+  const uint32_t ks = base, vs = ks + boxes * C::kBoxBytes;
+  const uint32_t qs = vs + boxes * C::kBoxBytes;
+  const uint32_t kvbar = qs + kMidConsumers * C::kBoxBytes;
+  const uint32_t qbar = kvbar + 8 * boxes;
   const int group = p.H / p.Hk;
-  const int tiles = (p.Sq + 15) / 16;
+  const int tiles = (p.Sq + kMidRows - 1) / kMidRows;
   const int tasks = group * tiles;
   const long long kv = blockIdx.x / parts;
-  const int part = blockIdx.x % parts;
-  const int t_lo = static_cast<int>(static_cast<long long>(tasks) * part /
-                                    parts);
-  const int t_hi = static_cast<int>(static_cast<long long>(tasks) *
-                                    (part + 1) / parts);
+  const int t_lo = kMidConsumers * (blockIdx.x % parts);
   const int b = static_cast<int>(kv / p.Hk);
   const int hk = static_cast<int>(kv % p.Hk);
-  // An mbarrier a chunk of K/V rows, which completes once every thread's
-  // copies of the chunk (and before it) have landed: a warp starts on the
-  // first chunk while the others still load.
-  const uint32_t bars = sm90::SmemAddr(stage - warp * 16 * LD +
-                                       kMidWarps * 16 * LD);
-  const int chunks = (skp + kMidChunk - 1) / kMidChunk;
+  // The warpgroup, broadcast from lane 0 so that the compiler sees it
+  // uniform (wgmma under a divergent branch is serialized).
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
   if (threadIdx.x == 0) {
-    for (int c = 0; c < chunks; ++c) sm90::MbarInit(bars + 8 * c, blockDim.x);
+    for (int i = 0; i < boxes + kMidConsumers; ++i)
+      sm90::MbarInit(kvbar + 8 * i, 1);
     sm90::FenceBarrierInit();
   }
   __syncthreads();
-
-  // The first task's Q rows (a group of their own), then the kv head's K
-  // and V chunk by chunk (zeros past Sk).
-  ShortTask k;
-  k.j = 0;
-  k.b = b;
-  if (t_lo + warp < t_hi) {
-    k.h = hk * group + (t_lo + warp) / tiles;
-    k.r0 = 16 * ((t_lo + warp) % tiles);
-    StageQ<D>(p, k, stage, lane);
+  if (threadIdx.x == 0) {
+    for (int x = 0; x < boxes; ++x) {
+      sm90::MbarExpectTx(kvbar + 8 * x, 2 * C::kBoxBytes);
+      sm90::TmaLoad4d(ks + x * C::kBoxBytes, &tk, kvbar + 8 * x, 0,
+                      x * kMidRows, hk, b);
+      sm90::TmaLoad4d(vs + x * C::kBoxBytes, &tv, kvbar + 8 * x, 0,
+                      x * kMidRows, hk, b);
+      if (x > 0) continue;
+      // Task t_lo + w into warpgroup w's Q tile.
+      for (int w = 0; w < kMidConsumers && t_lo + w < tasks; ++w) {
+        const int t = t_lo + w;
+        sm90::MbarExpectTx(qbar + 8 * w, C::kBoxBytes);
+        sm90::TmaLoad4d(qs + w * C::kBoxBytes, &tq, qbar + 8 * w, 0,
+                        kMidRows * (t % tiles), hk * group + t / tiles, b);
+      }
+    }
   }
-  mma_sync::CpAsyncCommit();
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + hk * p.ksh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + hk * p.vsh;
-  for (int c = 0; c < chunks; ++c) {
-    const int rows = min(kMidChunk, skp - c * kMidChunk);
-    for (int i = threadIdx.x; i < rows * (D / 8); i += blockDim.x) {
-      const int r = c * kMidChunk + i / (D / 8), col = (i % (D / 8)) * 8;
-      const bool in = r < p.Sk;
-      mma_sync::CpAsync16(ks + r * LD + col, kg + (in ? r * p.kss : 0) + col,
-                          in);
-      mma_sync::CpAsync16(vs + r * LD + col, vg + (in ? r * p.vss : 0) + col,
-                          in);
-    }
-    mma_sync::CpAsyncMbarArrive(bars + 8 * c);
-  }
-  mma_sync::CpAsyncWait<0>();  // the Q group only: K/V are not committed
-  __syncwarp();
-
-  const int g = lane >> 2, c = lane & 3;
-  const float c2 = p.scale * kLog2e;
-  for (int t = t_lo + warp; t < t_hi; t += kMidWarps) {
-    k.h = hk * group + t / tiles;
-    k.r0 = 16 * (t % tiles);
-    if (t != t_lo + warp) {
-      StageQ<D>(p, k, stage, lane);
-      mma_sync::CpAsyncCommit();
-      mma_sync::CpAsyncWait<0>();
-      __syncwarp();
-    }
-    int lo, hi;
-    KvRange(p, k.r0, 16, &lo, &hi);
-
-    float o[D / 8][4];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};  // max of the raw dot products
-    float l_run[2] = {0.f, 0.f};              // this thread's share of l
-
-    for (int c0 = lo / kMidChunk * kMidChunk; c0 < hi; c0 += kMidChunk) {
-      sm90::MbarWait(bars + 8 * (c0 / kMidChunk), 0);
-      // S = Q K^T over the chunk's staged pairs (raw dot products), all of
-      // them: the mask drops what KvRange leaves out. Q's fragments come
-      // from the stage for each k-step.
-      float s[2 * NP][4];
-#pragma unroll
-      for (int j = 0; j < 2 * NP; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4];
-        LoadA(qa, stage, LD, 0, 16 * kk, lane);
-#pragma unroll
-        for (int np = 0; np < NP; ++np) {
-          if (c0 + 16 * np >= skp) continue;
-          uint32_t bk[4];
-          LoadBt(bk, ks, LD, c0 + 16 * np, 16 * kk, lane);
-          Mma(s[2 * np], qa, bk[0], bk[1]);
-          Mma(s[2 * np + 1], qa, bk[2], bk[3]);
-        }
-      }
-
-      // The online softmax of the chunk: s[j][e] is row r0 + g + 8 (e/2),
-      // column c0 + 8j + 2c + (e%2).
-      const bool need = TileNeedsMask(p, k.r0, 16, c0, kMidChunk);
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = k.r0 + g + 8 * r;
-        float mx = kMask;
-#pragma unroll
-        for (int j = 0; j < 2 * NP; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = c0 + 8 * j + 2 * c + e;
-            if (need && !Live(p, row, col)) s[j][2 * r + e] = kMask;
-            mx = fmaxf(mx, s[j][2 * r + e]);
-          }
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_run[r], mx);
-        alpha[r] = sm90::Exp2((m_run[r] - m_new) * c2);
-        m_run[r] = m_new;
-        // A row that has seen only masked logits so far gets p = 0 for
-        // them (as the tiled kernel's Softmax).
-        const float mc = m_new > kMask ? m_new * c2 : 0.f;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 2 * NP; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float x = sm90::Exp2(fmaf(s[j][2 * r + e], c2, -mc));
-            s[j][2 * r + e] = x;
-            sum += x;
-          }
-        }
-        l_run[r] = l_run[r] * alpha[r] + sum;
-      }
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
-
-      // O += P V, P rounded to bf16 pairs in registers.
-      uint32_t pa[NP][4];
-      mma_sync::PackA<2 * NP>(pa, s);
-#pragma unroll
-      for (int np = 0; np < NP; ++np) {
-        if (c0 + 16 * np >= skp) continue;
-#pragma unroll
-        for (int n0 = 0; n0 < D; n0 += 16) {
-          uint32_t bv[4];
-          LoadB(bv, vs, LD, c0 + 16 * np, n0, lane);
-          Mma(o[n0 / 8], pa[np], bv[0], bv[1]);
-          Mma(o[n0 / 8 + 1], pa[np], bv[2], bv[3]);
-        }
-      }
-    }
-
-    // O through the stage to 16-byte stores; l and m beside it.
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_run[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = l == 0.f ? 1.f : 1.f / l;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * LD + 8 * j +
-                                     2 * c) =
-            PackBf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-      const int row = k.r0 + g + 8 * r;
-      if (c == 0 && p.l != nullptr && row < p.Sq) {
-        const long long at =
-            (static_cast<long long>(b) * p.H + k.h) * p.Sq + row;
-        p.l[at] = l;
-        p.m[at] = m_run[r] * p.scale;
-      }
-    }
-    __syncwarp();
-    __nv_bfloat16* og =
-        static_cast<__nv_bfloat16*>(p.o) + b * p.osb + k.h * p.osh;
-    for (int i = lane; i < 16 * D / 8; i += 32) {
-      const int r = i / (D / 8), col = (i % (D / 8)) * 8;
-      if (k.r0 + r < p.Sq)
-        *reinterpret_cast<uint4*>(og + (k.r0 + r) * p.oss + col) =
-            *reinterpret_cast<const uint4*>(stage + r * LD + col);
-    }
-    __syncwarp();
-  }
-  // A warp with fewer tasks than chunks leaves none of its copies in
-  // flight.
-  mma_sync::CpAsyncCommit();
-  mma_sync::CpAsyncWait<0>();
+  const int t = t_lo + wg;
+  if (t < tasks)
+    MidTask<D>(p, qs + wg * C::kBoxBytes, qbar + 8 * wg, ks, vs, kvbar, b,
+               hk * group + t / tiles, kMidRows * (t % tiles),
+               threadIdx.x % 128);
 }
 
-// What MidPlan reads of a device, once a device and D: its SMs, and the
-// blocks an SM holds at each staged length (index MidRows(Sk) / 16; the
-// shared-memory opt-in is set once, to kMidMax's). 0 until read.
-constexpr int kMidDevices = 64;
-template <int D>
-struct MidOccupancy {
-  std::atomic<int> sms[kMidDevices];
-  std::atomic<int> per_sm[kMidDevices][kMidMax / 16 + 1];
-};
-
-// Blocks a kv head: as many as fill one wave of the card (the SMs times
-// the blocks an SM holds at this shared memory), at most one a task, so
-// that a card with fewer kv heads than slots splits each head's q tiles
-// over several blocks, which read K and V again (from L2). Sets the blocks
-// an SM holds and the blocks a kv head.
-template <int D>
-cudaError_t MidPlan(const Params& p, int* per_sm, int* parts) {
-  static MidOccupancy<D> seen;
-  const int tasks = p.H / p.Hk * ((p.Sq + 15) / 16);
-  const long long heads = static_cast<long long>(p.B) * p.Hk;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMidDevices) return cudaErrorInvalidDevice;
-  int sms = seen.sms[dev].load();
-  if (sms == 0) {
-    err = cudaFuncSetAttribute(FlashFwdMid<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SmemMid<D>(kMidMax));
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    seen.sms[dev].store(sms);
-  }
-  std::atomic<int>& blocks = seen.per_sm[dev][MidRows(p.Sk) / 16];
-  *per_sm = blocks.load();
-  if (*per_sm == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, FlashFwdMid<D>, kMidWarps * 32, SmemMid<D>(p.Sk));
-    if (err != cudaSuccess) return err;
-    if (*per_sm < 1) return cudaErrorInvalidConfiguration;
-    blocks.store(*per_sm);
-  }
-  const long long fill = static_cast<long long>(sms) * *per_sm / heads;
-  *parts = fill < 1 ? 1 : fill > tasks ? tasks : static_cast<int>(fill);
-  return heads * *parts > 0x7fffffff ? cudaErrorInvalidValue : cudaSuccess;
+// Blocks a kv head: two tasks a block.
+inline int MidParts(const Params& p) {
+  const int tasks = p.H / p.Hk * ((p.Sq + kMidRows - 1) / kMidRows);
+  return (tasks + kMidConsumers - 1) / kMidConsumers;
 }
 
 template <int D>
 cudaError_t LaunchMid(const Params& p, cudaStream_t stream) {
-  int per_sm = 0, parts = 0;
-  const cudaError_t err = MidPlan<D>(p, &per_sm, &parts);
-  if (err != cudaSuccess) return err;
+  const int parts = MidParts(p);
   const long long blocks = static_cast<long long>(p.B) * p.Hk * parts;
-  FlashFwdMid<D><<<static_cast<int>(blocks), kMidWarps * 32,
-                   SmemMid<D>(p.Sk), stream>>>(p, parts);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  // The opt-in at kMidMax's size, the same for every launch.
+  const cudaError_t err = cudaFuncSetAttribute(
+      FlashFwdMid<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SmemMid<D>(kMidMax));
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!sm90::EncodeMap(&tq, p.q, D, p.Sq, p.H, p.B, p.qsb, p.qsh, p.qss,
+                       kMidRows, D) ||
+      !sm90::EncodeMap(&tk, p.k, D, p.Sk, p.Hk, p.B, p.ksb, p.ksh, p.kss,
+                       kMidRows, D) ||
+      !sm90::EncodeMap(&tv, p.v, D, p.Sk, p.Hk, p.B, p.vsb, p.vsh, p.vss,
+                       kMidRows, D))
+    return cudaErrorInvalidValue;
+  FlashFwdMid<D><<<static_cast<int>(blocks), MidCfg<D>::kThreads,
+                   SmemMid<D>(p.Sk), stream>>>(tq, tk, tv, p, parts);
   return cudaGetLastError();
 }
 
@@ -1229,8 +1209,8 @@ cudaError_t Launch(Kernel kernel, int smem, dim3 grid, const Params& p,
 }
 
 // The design ts_flash_fwd launches: 0 "tiled" (TMA and wgmma), 1 "short"
-// (mma.sync, Sq and Sk <= kShortMax), 2 "f32", 3 "mid" (mma.sync, Sq and
-// Sk <= kMidMax, one of them past kShortMax, d <= 64). The shape alone
+// (mma.sync, Sq and Sk <= kShortMax), 2 "f32", 3 "mid" (TMA and wgmma, Sq
+// and Sk <= kMidMax, one of them past kShortMax, d <= 64). The shape alone
 // chooses.
 int Design(int dtype, int d, int sq, int sk) {
   if (dtype == 1) return 2;
@@ -1294,6 +1274,19 @@ extern "C" int ts_flash_fwd(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The blocks an SM holds (out[0]) and the shared memory a block (out[4])
+// of FlashFwdMid<D> at Sk, as LaunchMid sets it up.
+template <int D>
+int MidOccupancy(int sk, int* out) {
+  out[4] = SmemMid<D>(sk);
+  const cudaError_t err = cudaFuncSetAttribute(
+      FlashFwdMid<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SmemMid<D>(kMidMax));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], FlashFwdMid<D>, MidCfg<D>::kThreads, out[4]));
+}
+
 // The launch plan of the "mid" design (Design() == 3) at a shape, for a
 // caller that reports it: out[0] the blocks an SM holds, out[1] the blocks
 // a kv head, out[2] the blocks, out[3] the warps a block, out[4] the
@@ -1302,12 +1295,12 @@ extern "C" int ts_flash_fwd_mid_plan(int d, int B, int H, int Hk, int Sq,
                                      int Sk, int* out) {
   Params p{};
   p.B = B; p.H = H; p.Hk = Hk; p.Sq = Sq; p.Sk = Sk;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (d) {
-    case 32: err = MidPlan<32>(p, &out[0], &out[1]); out[4] = SmemMid<32>(Sk); break;
-    case 64: err = MidPlan<64>(p, &out[0], &out[1]); out[4] = SmemMid<64>(Sk); break;
-  }
+  out[1] = MidParts(p);
   out[2] = B * Hk * out[1];
-  out[3] = kMidWarps;
-  return static_cast<int>(err);
+  out[3] = 4 * kMidConsumers;
+  switch (d) {
+    case 32: return MidOccupancy<32>(Sk, out);
+    case 64: return MidOccupancy<64>(Sk, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -108,15 +108,6 @@ __device__ __forceinline__ void CpAsyncCommit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Arrives on the mbarrier at shared address `bar` once every cp.async this
-// thread issued before it has landed; the barrier's count must include
-// this arrival (.noinc: the call does not add one).
-__device__ __forceinline__ void CpAsyncMbarArrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
 // Waits until at most N committed groups are still in flight.
 template <int N>
 __device__ __forceinline__ void CpAsyncWait() {

@@ -257,6 +257,61 @@ __device__ __forceinline__ void WgmmaSS64Init(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
+// D[64 x 16] = A[64 x 16] B[16 x 16] and D += A B, A and B K-major in
+// shared memory: WgmmaSS64Init and WgmmaSS64 at N = 16 (d[4j + e], j < 2).
+__device__ __forceinline__ void WgmmaSS16Init(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void WgmmaSS16(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64] from shared memory, B MN-major
+// (its transpose bit set: B's 64 columns are one swizzle atom's contiguous
+// run, the 16 k rows two 8-row groups) and A K-major (WgmmaSS64KN) or
+// MN-major too (WgmmaSS64MN, the same for A's 64 rows); the Init forms
+// with scale-d false, their registers outputs only (see WgmmaSS64Init).
+#define TS_WGMMA_SS64_TRANS(NAME, TA, OUT, SCALE)                            \
+  __device__ __forceinline__ void NAME(float* d, uint64_t da, uint64_t db) { \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"             \
+        "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+        "%24, %25, %26, %27, %28, %29, %30, %31"                             \
+        "}, %32, %33, p, 1, 1, " TA ", 1;\n}\n"                              \
+        : OUT(d[0]), OUT(d[1]), OUT(d[2]), OUT(d[3]), OUT(d[4]), OUT(d[5]),  \
+          OUT(d[6]), OUT(d[7]), OUT(d[8]), OUT(d[9]), OUT(d[10]),            \
+          OUT(d[11]), OUT(d[12]), OUT(d[13]), OUT(d[14]), OUT(d[15]),        \
+          OUT(d[16]), OUT(d[17]), OUT(d[18]), OUT(d[19]), OUT(d[20]),        \
+          OUT(d[21]), OUT(d[22]), OUT(d[23]), OUT(d[24]), OUT(d[25]),        \
+          OUT(d[26]), OUT(d[27]), OUT(d[28]), OUT(d[29]), OUT(d[30]),        \
+          OUT(d[31])                                                         \
+        : "l"(da), "l"(db), "r"(SCALE));                                     \
+  }
+TS_WGMMA_SS64_TRANS(WgmmaSS64KN, "0", "+f", 1)
+TS_WGMMA_SS64_TRANS(WgmmaSS64MN, "1", "+f", 1)
+TS_WGMMA_SS64_TRANS(WgmmaSS64MNInit, "1", "=f", 0)
+#undef TS_WGMMA_SS64_TRANS
+
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the mma.sync
 // m16n8k16 A fragment of warp w's 16 rows: a0 (row g, k 2c..2c+1),
 // a1 (g+8, 2c..), a2 (g, 2c+8..), a3 (g+8, 2c+8..)), B MN-major in shared

@@ -22,17 +22,19 @@ that serves ``_band_kernel``), else "causal" or "full", and to its
 design's entry of ``launches_by_design``: "tiled" (bf16: TMA and
 warp-specialised wgmma), "short" (bf16 at Sq and Sk <= 64: a warp a 16-row
 head on mma.sync, one softmax pass), "mid" (bf16 at 64 < max(Sq, Sk) <=
-256 and d <= 64: K/V of a kv head staged once, a warp a 16-row q tile on
-mma.sync, m and l online over 32-column chunks) or "f32" (FMAs), as the
-library's ``ts_flash_fwd`` reports the kernel it launched; a forward
+256 and d <= 64: K/V of a kv head staged once by TMA, a warpgroup a 64-row
+q tile on wgmma, m and l online over 64-column chunks) or "f32" (FMAs), as
+the library's ``ts_flash_fwd`` reports the kernel it launched; a forward
 launched while a checkpointed block is recomputed (``recomputing()``)
 also adds one to ``recompute_launches``. Each backward launch adds one to
 ``bwd_launches`` and to its design's entry of ``bwd_launches_by_design``:
 "short" (bf16 at Sq and Sk <= 64, any d: one launch, a block staging its
-kv heads' whole q and kv sides), "wgmma" (bf16 at d = 64: TMA and
-warp-specialised wgmma), "mma_sync" (bf16 at d = 32 and 128) or "f32"
-(FMAs), as the library's ``ts_flash_bwd_design`` names the kernels it
-launches.
+kv heads' whole q and kv sides), "mid" (bf16 at d = 64 and 64 < max(Sq,
+Sk) <= 256, without GQA or with at least 72 (batch, kv head) pairs: one
+launch, a block a kv head, five products on wgmma),
+"wgmma" (bf16 at d = 64: TMA and warp-specialised wgmma), "mma_sync"
+(bf16 at d = 32 and 128) or "f32" (FMAs), as the library's
+``ts_flash_bwd_design`` names the kernels it launches.
 
 ``flash_attention`` is differentiable: with grad enabled and an input that
 requires grad it runs through ``_FlashAttention``, whose forward keeps the
@@ -56,7 +58,7 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 MODES = ("full", "causal", "band")
 FWD_DESIGNS = ("tiled", "short", "f32", "mid")
-BWD_DESIGNS = ("wgmma", "mma_sync", "f32", "short")
+BWD_DESIGNS = ("wgmma", "mma_sync", "f32", "short", "mid")
 BWD_TILE = 64  # rows of the backward's q tiles, whose statistics it pads
 
 launches = 0
@@ -122,7 +124,7 @@ def _bwd_kernel():
         fn.argtypes = [v] * 11 + [i] * 7 + [v, ctypes.c_float, i, i, v]
         design = lib.ts_flash_bwd_design
         design.restype = i
-        design.argtypes = [i, i, i, i]
+        design.argtypes = [i] * 7
         _BWD_FN, _BWD_DESIGN_FN = fn, design
     return _BWD_FN
 
@@ -363,12 +365,13 @@ def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
     fn = _bwd_kernel()
-    design = BWD_DESIGNS[_BWD_DESIGN_FN(_DTYPES[q.dtype], d, sq, sk)]
+    design = BWD_DESIGNS[_BWD_DESIGN_FN(_DTYPES[q.dtype], d, b, h, hk, sq,
+                                        sk)]
     # delta and l_inv, or the wgmma design's per-row bias and delta in
-    # blocks of BWD_TILE rows: the C entry's `scratch` ("short" computes
-    # its own in shared memory).
+    # blocks of BWD_TILE rows: the C entry's `scratch` ("short" and "mid"
+    # compute their own in shared memory).
     scratch = None
-    if design != "short":
+    if design not in ("short", "mid"):
         scratch = torch.empty(2 * b * h * -(-sq // BWD_TILE) * BWD_TILE,
                               dtype=torch.float32, device=q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
@@ -479,13 +482,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
     package and are accepted for the same signature; the CUDA kernels'
     tiles are fixed: forward bf16 192 q rows x 128 kv at d <= 64 and
     128 x 128 at d = 128 (TMA and wgmma), 16 q rows a warp against the
-    whole row where Sq and Sk <= 64 and against 32-column chunks of a
-    staged kv head where both are <= 256 at d <= 64 (mma.sync), f32
-    32 x 32;
+    whole row where Sq and Sk <= 64 (mma.sync), 64 q rows a warpgroup
+    against 64-column chunks of a staged kv head where both are <= 256 at
+    d <= 64 (TMA and wgmma), f32 32 x 32;
     backward bf16 16-row slices against a block's whole staged heads
-    where Sq and Sk <= 64 (mma.sync), 128 rows a block against 64-row
-    steps at d = 64 (TMA and wgmma), 64 x 64 at d = 32 and 128
-    (mma.sync), f32 32 x 32."""
+    where Sq and Sk <= 64 (mma.sync), 64-row kv slices against 64-row q
+    tiles of a staged kv head where both are <= 256 at d = 64, 128 rows a
+    block against 64-row steps beyond (TMA and wgmma), 64 x 64 at d = 32
+    and 128 (mma.sync), f32 32 x 32."""
     sm_scale, window = _check(q, k, v, causal, window, sm_scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, sm_scale, impl)

@@ -346,10 +346,10 @@ def test_wgmma_fault_bwd_without_a_fault_is_the_plain_backward():
 def test_bwd_design_counts_stay_zero_on_the_cpu(dtype, d):
     """On CPU tensors the backward runs its plain version, directly and
     through autograd, and no design's launch count moves; the counts name
-    the four designs and reset_counts zeroes them."""
+    the five designs and reset_counts zeroes them."""
     fa.reset_counts()
     assert fa.bwd_launches_by_design == dict.fromkeys(
-        ("wgmma", "mma_sync", "f32", "short"), 0)
+        ("wgmma", "mma_sync", "f32", "short", "mid"), 0)
     q, k, v, do = [torch.from_numpy(a).to(dtype)
                    for a in make(1, 2, 1, 40, 40, d, seed=d)]
     o, l, m = fa.flash_attention_fwd(q, k, v)

@@ -238,15 +238,17 @@ def test_smoke_bwd_rule_sees_short_design_faults(name, shape, causal, window,
 
 def test_short_bwd_design_takes_the_shapes_up_to_64():
     """chip_smoke.bwd_design names "short" exactly where the kernel's rule
-    (csrc/flash_bwd.cu, Design) sends bf16: Sq and Sk <= 64, any d."""
+    (csrc/flash_bwd.cu, Design) sends bf16: Sq and Sk <= 64, any d; past
+    64 d = 64 goes to "mid" up to 256 and "wgmma" beyond."""
     bf16, f32 = torch.bfloat16, torch.float32
-    assert chip_smoke.bwd_design(bf16, 64, 4, 4) == "short"
-    assert chip_smoke.bwd_design(bf16, 128, 64, 64) == "short"
-    assert chip_smoke.bwd_design(bf16, 32, 16, 48) == "short"
-    assert chip_smoke.bwd_design(bf16, 64, 16, 65) == "wgmma"
-    assert chip_smoke.bwd_design(bf16, 64, 196, 196) == "wgmma"
-    assert chip_smoke.bwd_design(bf16, 128, 65, 65) == "mma_sync"
-    assert chip_smoke.bwd_design(f32, 64, 4, 4) == "f32"
+    assert chip_smoke.bwd_design(bf16, 64, 1568, 12, 12, 4, 4) == "short"
+    assert chip_smoke.bwd_design(bf16, 128, 2, 12, 1, 64, 64) == "short"
+    assert chip_smoke.bwd_design(bf16, 32, 2, 4, 4, 16, 48) == "short"
+    assert chip_smoke.bwd_design(bf16, 64, 2, 4, 4, 16, 65) == "mid"
+    assert chip_smoke.bwd_design(bf16, 64, 32, 12, 12, 196, 196) == "mid"
+    assert chip_smoke.bwd_design(bf16, 64, 4, 12, 12, 257, 257) == "wgmma"
+    assert chip_smoke.bwd_design(bf16, 128, 2, 4, 4, 65, 65) == "mma_sync"
+    assert chip_smoke.bwd_design(f32, 64, 2, 4, 4, 4, 4) == "f32"
 
 
 def test_short_bwd_counts_stay_zero_on_the_cpu():

@@ -10,16 +10,17 @@ JAX package's Pallas kernel in interpret mode (``_fwd_padded``, its
 residuals, and ``flash_attention(impl="pallas")``), at
 tests/test_torch_flash.py's tolerances.
 
-(b) ``_mid_fwd`` does in torch what the kernel does: a 16-row tile of one
-q head against its kv head (h // (H / Hk)), over kv chunks of 32 columns
-(the kernel's kMidChunk; 64, the width first drawn for it, is held to the
-rule too) from the one holding the first column KvRange gives the tile
-to the one holding its last, every column of a chunk computed and, where
-TileNeedsMask says so, the ones Live drops masked with -0.7 * f32max; m
-and l kept online in base 2 on the raw dot products (alpha = exp2((m_old
-- m_new) scale log2(e)), l = l alpha + sum p, the accumulator rescaled by
-alpha), P cast to bf16 before P V in f32, o = acc * (l == 0 ? 1 : 1/l)
-and m the row max times the scale. It must lie within
+(b) ``_mid_fwd`` does in torch what the kernel does: a 64-row tile (a
+warpgroup's task) of one q head against its kv head (h // (H / Hk)), over
+kv chunks of 64 columns from the one holding the first column KvRange
+gives the tile to the one holding its last, that last chunk cut to 16
+columns (the kernel's kMidTail) where no more of it is live (the uncut
+chunk is held to the rule too), every column of a chunk computed and,
+where TileNeedsMask says so, the ones Live drops masked with -0.7 *
+f32max; m and l kept online in base 2 on the raw dot products (alpha =
+exp2((m_old - m_new) scale log2(e)), l = l alpha + sum p, the accumulator
+rescaled by alpha), P cast to bf16 before P V in f32, o = acc * (l == 0 ?
+1 : 1/l) and m the row max times the scale. It must lie within
 chip_smoke.flash_rule of the plain version, on the rule's own inputs (q,
 k of std 2).
 
@@ -36,7 +37,7 @@ import chip_smoke
 from tensor_stream_tpu.ops import flash_attention as jfa
 from tensor_stream_torch.ops import flash_attention as fa
 from test_torch_flash import close, make, to_jax, to_torch
-from test_torch_flash_short import kv_range, live
+from test_torch_flash_short import live
 
 LOG2E = 1.4426950408889634
 
@@ -77,27 +78,42 @@ def test_plain_matches_pallas_interpret_at_mid_s(name, shape, causal, window,
                                  impl="pallas"), dtype)
 
 
+ROWS = 64  # q rows a task (a warpgroup's wgmma tile)
+CHUNK = 64  # kv columns a chunk
+TAIL = 16  # csrc/flash_fwd.cu's kMidTail
+
+
+def kv_range(q0, sk, causal, window):
+    """csrc/flash_fwd.cu's KvRange for q rows [q0, q0 + ROWS)."""
+    lo, hi = 0, sk
+    if causal:
+        hi = min(hi, q0 + ROWS)
+    if window:
+        lo = max(q0 - (window - 1), 0)
+        if not causal:
+            hi = min(hi, q0 + ROWS + window - 1)
+    return lo, hi
+
+
 def tile_needs_mask(q0, k0, bk, sk, causal, window):
-    """csrc/flash_fwd.cu's TileNeedsMask for q rows [q0, q0 + 16) and kv
+    """csrc/flash_fwd.cu's TileNeedsMask for q rows [q0, q0 + ROWS) and kv
     columns [k0, k0 + bk)."""
     need = k0 + bk > sk
     if causal:
         need |= k0 + bk - 1 > q0
     if window:
-        need |= k0 <= q0 + 15 - window
+        need |= k0 <= q0 + ROWS - 1 - window
         if not causal:
             need |= k0 + bk - 1 >= q0 + window
     return need
 
 
-CHUNK = 32  # csrc/flash_fwd.cu's kMidChunk
-
-
-def _mid_fwd(q, k, v, causal=False, window=None, chunk=CHUNK,
+def _mid_fwd(q, k, v, causal=False, window=None, tail=TAIL,
              no_rescale=False, l_no_rescale=False, drop_last_pair=False,
              next_kv_head=False):
-    """The mid design's numerics in torch, tile by tile and chunk by
-    chunk; the faults as the module's docstring lists them."""
+    """The mid design's numerics in torch, task by task and chunk by chunk
+    (the last chunk `tail` columns wide where no more of it is live); the
+    faults as the module's docstring lists them."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group = h // hk
@@ -106,7 +122,7 @@ def _mid_fwd(q, k, v, causal=False, window=None, chunk=CHUNK,
     kv = torch.arange(h) // group
     if next_kv_head:
         kv = (kv + torch.arange(h) % group) % hk
-    skp = chunk * -(-sk // chunk)
+    skp = CHUNK * -(-sk // CHUNK)
     kf = torch.zeros((b, h, skp, d))
     kf[:, :, :sk] = k.float()[:, kv]
     vf = torch.zeros((b, h, skp, d))
@@ -115,22 +131,24 @@ def _mid_fwd(q, k, v, causal=False, window=None, chunk=CHUNK,
     o = torch.empty(q.shape, dtype=q.dtype)
     l_out = torch.empty(q.shape[:3])
     m_out = torch.empty(q.shape[:3])
-    for r0 in range(0, sq, 16):
-        n = min(16, sq - r0)
-        rows = torch.arange(r0, r0 + 16)[:, None]
-        qt = torch.zeros((b, h, 16, d))
+    for r0 in range(0, sq, ROWS):
+        n = min(ROWS, sq - r0)
+        rows = torch.arange(r0, r0 + ROWS)[:, None]
+        qt = torch.zeros((b, h, ROWS, d))
         qt[:, :, :n] = q[:, :, r0:r0 + n].float()
         lo, hi = kv_range(r0, sk, causal, window)
-        acc = torch.zeros((b, h, 16, d))
-        m_run = torch.full((b, h, 16), -np.inf)
-        l_run = torch.zeros((b, h, 16))
-        for c0 in range(lo // chunk * chunk, hi, chunk):
-            cols = torch.arange(c0, c0 + chunk)[None, :]
-            s = qt @ kf[:, :, c0:c0 + chunk].transpose(-1, -2)
-            keep = torch.ones((16, chunk), dtype=torch.bool)
+        last = (hi - 1) // CHUNK * CHUNK
+        acc = torch.zeros((b, h, ROWS, d))
+        m_run = torch.full((b, h, ROWS), -np.inf)
+        l_run = torch.zeros((b, h, ROWS))
+        for c0 in range(lo // CHUNK * CHUNK, hi, CHUNK):
+            bk = tail if c0 == last and hi - last <= tail else CHUNK
+            cols = torch.arange(c0, c0 + bk)[None, :]
+            s = qt @ kf[:, :, c0:c0 + bk].transpose(-1, -2)
+            keep = torch.ones((ROWS, bk), dtype=torch.bool)
             if drop_last_pair:
-                keep = keep & (cols < c0 + chunk - 16)
-            if tile_needs_mask(r0, c0, chunk, sk, causal, window):
+                keep = keep & (cols < c0 + bk - 16)
+            if tile_needs_mask(r0, c0, bk, sk, causal, window):
                 keep = keep & live(rows, cols, sk, causal, window)
             s = torch.where(keep, s, mask)
             m_new = torch.maximum(m_run, s.amax(-1))
@@ -142,7 +160,7 @@ def _mid_fwd(q, k, v, causal=False, window=None, chunk=CHUNK,
             l_run = (l_run if l_no_rescale else l_run * alpha) + p.sum(-1)
             if not no_rescale:
                 acc = acc * alpha[..., None]
-            acc = acc + p.to(v.dtype).float() @ vf[:, :, c0:c0 + chunk]
+            acc = acc + p.to(v.dtype).float() @ vf[:, :, c0:c0 + bk]
         inv = torch.where(l_run == 0, torch.ones(()), 1 / l_run)
         o[:, :, r0:r0 + n] = (acc * inv[..., None]).to(q.dtype)[:, :, :n]
         l_out[:, :, r0:r0 + n] = l_run[:, :, :n]
@@ -166,14 +184,14 @@ EMULATED_CASES = MID_CASES + [
 ]
 
 
-@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("tail", [TAIL, CHUNK])
 @pytest.mark.parametrize("name,shape,causal,window", EMULATED_CASES,
                          ids=[c[0] for c in EMULATED_CASES])
 def test_mid_design_is_within_the_smoke_rule(name, shape, causal, window,
-                                             chunk):
+                                             tail):
     q, k, v = _rule_inputs(*shape, seed=len(name))
     want = fa.flash_attention_plain(q, k, v, causal, window, residuals=True)
-    got = _mid_fwd(q, k, v, causal, window, chunk)
+    got = _mid_fwd(q, k, v, causal, window, tail)
     checks, errs = chip_smoke.flash_rule(got, want)
     assert all(checks.values()), errs
 

@@ -1,10 +1,17 @@
-"""The mid flash forward and the short flash backward (bf16, on one
-CUDA card) as FLASH_VARIANTS reshape or cut them, each copy built from
-its source with nvcc and timed at FLASH_VARIANT_SHAPES beside the design
-as built: the readings behind the design choices that csrc/flash_fwd.cu
-and csrc/flash_bwd.cu name. Prints one JSON line; needs nvcc and a card.
+"""The mid flash forward and the mid flash backward (bf16, on one CUDA
+card) as FLASH_VARIANTS reshape or cut them, each copy built from its
+source with nvcc and timed at FLASH_VARIANT_SHAPES beside the design as
+built: the readings behind the design choices that csrc/flash_fwd.cu and
+csrc/flash_bwd.cu name. A study is a source, its copies and its shapes:
+"flash_fwd" and "flash_bwd" cut the mid designs into parts, "fwd_route"
+and "bwd_route" time the mid design and the one it took over from
+("tiled", "wgmma") at the same shapes, the routing rule's readings; the
+backward's route study also times the backward of
+scaled_dot_product_attention three times a shape (the yardstick). Prints
+one JSON line; needs nvcc and a card.
 
-    python3 tools/flash_variants.py
+    python3 tools/flash_variants.py [flash_fwd | flash_bwd | fwd_route |
+                                     bwd_route ...]
 
 A copy is made by replacing lines of the source; it raises when a line to
 replace is no longer there once.
@@ -23,77 +30,145 @@ from tensor_stream_torch import _build
 from tensor_stream_torch.ops import flash_attention as fa
 
 
-# Cut and reshaped copies of the mid forward and the short backward: the
+# Cut and reshaped copies of the mid forward and the mid backward: the
 # designs as built (None), the alternatives their headers name, and the
-# kernels in parts (loads only: no product runs; products only: no global
-# read of K and V, or of Q and dO, so the shared memory holds zeros; no
-# exp: the softmax's exponentials left out). A cut copy ends in "_only"
+# kernels in parts (loads only: every TMA load lands, no product runs;
+# products only: no load is issued or waited for, so the shared memory
+# holds whatever it held; no exp: the softmax's exponentials left out; no
+# dQ: the backward without its dQ products). A cut copy ends in "_only"
 # and is timed, not checked.
+_MID_WAITS = [("  sm90::MbarWait(qbar, 0);\n", ""),
+              ("  sm90::MbarWait(kvbar + 8 * first, 0);\n", ""),
+              ("      sm90::MbarWait(kvbar + 8 * ch, 0);\n", ""),
+              ("      sm90::MbarWait(kvbar + 8 * last, 0);\n", "")]
+_MID_NO_STATS = ("  constexpr int kLanes = kD / 8;\n  const int part = ct % "
+                 "kLanes;\n  const __nv_bfloat16* og",
+                 "  if (ct >= 0) return;\n  constexpr int kLanes = kD / 8;\n"
+                 "  const int part = ct % kLanes;\n  const __nv_bfloat16* og")
+_MID_PRODUCTS = [("      ProduceMid(&tq,",
+                  "      if (slices < 0) ProduceMid(&tq,"),
+                 ("  if (has_a) sm90::MbarWait(bar + 8 * ja, 0);\n  if "
+                  "(has_b) sm90::MbarWait(bar + 8 * jb, 0);\n", ""),
+                 ("    sm90::MbarWait(MidFull(bar, s), (u / kMidRing) & 1);\n",
+                  ""),
+                 _MID_NO_STATS]
+_MID_MIN = "constexpr long long kMidMinKvHeads = 72;"
 FLASH_VARIANTS = {
     "flash_fwd": {
         "mid": None,
-        "mid_chunk64": [("constexpr int kMidChunk = 32;",
-                         "constexpr int kMidChunk = 64;")],
-        "mid_warps4": [("constexpr int kMidWarps = 7;",
-                        "constexpr int kMidWarps = 4;")],
-        "mid_warps8": [("constexpr int kMidWarps = 7;",
-                        "constexpr int kMidWarps = 8;"),
-                       ("return D <= 64 ? 3 : 1;", "return D <= 64 ? 2 : 1;")],
-        "mid_loads_only": [("c0 < hi; c0 += kMidChunk) {",
-                            "c0 < -1; c0 += kMidChunk) {")],
-        "mid_no_exp_only": [("const float x = sm90::Exp2(fmaf(s[j][2 * r + "
-                             "e], c2, -mc));\n            s[j][2 * r + e] = "
-                             "x;\n            sum += x;",
-                             "const float x = s[j][2 * r + e];\n          "
-                             "  sum += x;")],
-        "mid_products_only": [("const bool in = r < p.Sk;\n      mma_sync::"
-                               "CpAsync16(ks + r * LD",
-                               "const bool in = false;\n      mma_sync::"
-                               "CpAsync16(ks + r * LD")]},
+        # Every chunk 64 columns wide, the last too.
+        "mid_no_tail": [("const bool tail = hi - last * kMidRows <= kMidTail;",
+                         "const bool tail = false;")],
+        "mid_loads_only": [("  sm90::MbarWait(kvbar + 8 * first, 0);\n  if "
+                            "(first < full_end) {",
+                            "  for (int ch = first; ch <= last; ++ch)\n    "
+                            "sm90::MbarWait(kvbar + 8 * ch, 0);\n  if "
+                            "(first >= 0) return;\n  if (first < full_end) "
+                            "{")],
+        "mid_products_only": [("  if (threadIdx.x == 0) {\n    for (int x = "
+                               "0; x < boxes; ++x) {",
+                               "  if (threadIdx.x == 0 && boxes < 0) {\n    "
+                               "for (int x = 0; x < boxes; ++x) {"),
+                              *_MID_WAITS],
+        # The launch floor: each block inits its barriers, meets, stops.
+        "mid_empty_only": [("  __syncthreads();\n  if (threadIdx.x == 0) {\n"
+                            "    for (int x = 0; x < boxes; ++x) {",
+                            "  __syncthreads();\n  if (boxes > 0) return;\n"
+                            "  if (threadIdx.x == 0) {\n    for (int x = 0; x "
+                            "< boxes; ++x) {")],
+        "mid_no_exp_only": [("const float x = sm90::Exp2(fmaf(s[4 * j + 2 * "
+                             "r + e], c2, -mc));",
+                             "const float x = fmaf(s[4 * j + 2 * r + e], c2, "
+                             "-mc);")]},
     "flash_bwd": {
-        "short": None,
-        "short_unpacked": [("constexpr int kPackMax = 8;",
-                            "constexpr int kPackMax = 0;")],
-        "short_2_blocks_an_sm": [("D <= 64 ? 3 : 1)\n    FlashBwdShort",
-                                  "D <= 64 ? 1 : 1)\n    FlashBwdShort")],
-        "short_loads_only": [("  const int r0 = 16 * warp;  // this warp's "
-                              "tile", "  if (pack > 0) return;\n  const int "
-                              "r0 = 16 * warp;"),
-                             ("    // dK, dV: this warp's kv slice against "
-                              "its q heads of the step.",
-                              "    if (group > 0) continue;")],
-        "short_products_only": [("const bool in = row_of(r, &head, &lr);\n"
-                                 "    const int b",
-                                 "const bool in = row_of(r, &head, &lr) && "
-                                 "pack < 0;\n    const int b"),
-                                ("p.st[kQ][2], 0, sqp, p.Sq);",
-                                 "p.st[kQ][2], 0, sqp, 0);"),
-                                ("p.st[kDo][2], 0, sqp, p.Sq);",
-                                 "p.st[kDo][2], 0, sqp, 0);")]},
+        "mid": None,
+        "mid_empty_only": [("  __syncthreads();\n  if (threadIdx.x < 128) "
+                            "{\n    sm90::SetMaxRegsDec<kProducerRegs>();\n"
+                            "    if (threadIdx.x == 0)\n      ProduceMid(",
+                            "  __syncthreads();\n  if (slices > 0) return;\n"
+                            "  if (threadIdx.x < 128) {\n    sm90::"
+                            "SetMaxRegsDec<kProducerRegs>();\n    if "
+                            "(threadIdx.x == 0)\n      ProduceMid(")],
+        "mid_loads_only": [("const bool la = has_a && live(ja), lb = has_b && "
+                            "live(jb);", "const bool la = false, lb = false;"),
+                           ("    if (u % 2 == wg)\n",
+                            "    if (u % 2 == wg && slices < 0)\n")],
+        "mid_no_dq_only": [("    if (u % 2 == wg)\n",
+                            "    if (u % 2 == wg && slices < 0)\n")],
+        "mid_no_stats_only": [_MID_NO_STATS],
+        "mid_products_only": _MID_PRODUCTS,
+        # The products-only cut with one more part left out: the proxy
+        # fence before the dV, dK products read P^T and dS^T, the
+        # exponentials and dS, the warpgroup's meeting, the dQ products.
+        "mid_products_no_fence_only": _MID_PRODUCTS + [
+            ("  sm90::FenceProxyAsync();  // the stores, before wgmma reads "
+             "them\n", "")],
+        "mid_products_no_elementwise_only": _MID_PRODUCTS + [
+            ("  st.Probs(sT);\n", ""), ("  st.Grads(sT, dpT);\n", "")],
+        "mid_products_no_wg_meeting_only": _MID_PRODUCTS + [
+            ("  MidWgSync(wg);\n}", "}")],
+        "mid_products_no_dq_only": _MID_PRODUCTS + [
+            ("    if (u % 2 == wg)\n",
+             "    if (u % 2 == wg && slices < 0)\n")]},
+    # The mid designs against the ones they took the range from, each
+    # forced at every shape of the study.
+    "fwd_route": {
+        "mid": None,
+        "tiled": [("  return d <= 64 && sq <= kMidMax && sk <= kMidMax ? 3 : "
+                   "0;", "  return 0;")]},
+    "bwd_route": {
+        "mid": [(_MID_MIN, "constexpr long long kMidMinKvHeads = 0;")],
+        "wgmma": [("        (H == Hk || static_cast<long long>(B) * Hk >= "
+                   "kMidMinKvHeads))\n      return 4;",
+                   "        false)\n      return 4;")]},
 }
+# The source a study copies.
+STUDY_SOURCE = {"flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd",
+                "fwd_route": "flash_fwd", "bwd_route": "flash_bwd"}
+
 FLASH_VARIANT_SHAPES = {
     # name, (b, h, hk, sq, sk, d), causal, window
     "flash_fwd": (("twin_spatial", (32, 6, 6, 196, 196, 64), False, None),
                   ("vit_b_spatial", (32, 12, 12, 196, 196, 64), False, None)),
-    "flash_bwd": (("vit_b_temporal", (1568, 12, 12, 4, 4, 64), False, None),
-                  ("twin_temporal", (392, 6, 6, 16, 16, 64), True,
-                   c.TWIN_RING),
-                  ("twin_temporal_gqa", (392, 6, 2, 16, 16, 64), True,
-                   c.TWIN_RING))}
+    "flash_bwd": (("vit_b_spatial", (32, 12, 12, 196, 196, 64), False, None),
+                  ("twin_spatial_gqa", (32, 6, 2, 196, 196, 64), False,
+                   None)),
+    # The forward's band, where a 64-row tile of the mid design is 40%
+    # live, beside the headline.
+    "fwd_route": (("vit_b_spatial", (32, 12, 12, 196, 196, 64), False, None),
+                  ("mid_band_150", (32, 12, 12, 150, 150, 64), False, 32)),
+    # The backward's (batch, kv head) pairs, a block each in the mid
+    # design, from 12 to 384 at S = 196, MHA and GQA 12:4, 6:2 and 12:2,
+    # and the two ends of the range.
+    "bwd_route": tuple(
+        (f"b{b}_h{h}_hk{hk}_s{s}", (b, h, hk, s, s, 64), False, None)
+        for b, h, hk, s in ((1, 12, 12, 196), (2, 12, 12, 196),
+                            (4, 12, 12, 196), (6, 12, 12, 196),
+                            (8, 12, 12, 196), (11, 12, 12, 196),
+                            (16, 12, 12, 196), (32, 6, 6, 196),
+                            (32, 12, 12, 196), (8, 12, 4, 196),
+                            (16, 12, 4, 196), (24, 12, 4, 196),
+                            (32, 12, 4, 196), (32, 6, 2, 196),
+                            (64, 6, 2, 196), (32, 12, 2, 196),
+                            (4, 12, 12, 100), (32, 12, 12, 100),
+                            (4, 12, 12, 256), (16, 12, 12, 256)))}
 
 
-def flash_variants(device=None):
-    """The mid forward and the short backward as FLASH_VARIANTS reshape or
-    cut them, timed at FLASH_VARIANT_SHAPES (bf16, the models' views),
-    each beside its ptxas registers and spills; a whole variant is also
-    held to its rule (flash_rule, bwd_rule) against the plain version.
-    Builds each copy with nvcc under build/, binds it in place of the
-    library for its calls, and restores the library after."""
+def flash_variants(device=None, studies=tuple(FLASH_VARIANTS)):
+    """The mid forward and the mid backward as the studies' FLASH_VARIANTS
+    reshape or cut them, timed at their FLASH_VARIANT_SHAPES (bf16, the
+    models' views), each beside its ptxas registers and spills; a whole
+    variant is also held to its rule (flash_rule, bwd_rule) against the
+    plain version. Builds each copy with nvcc under build/, binds it in
+    place of the library for its calls, and restores the library after.
+    The bwd_route study adds SDPA's backward, three reads a shape."""
     device = device or torch.device("cuda", 0)
     out_dir = os.path.join(_build.BUILD_DIR, "flash_variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for source, variants in FLASH_VARIANTS.items():
+    for study in studies:
+        source = STUDY_SOURCE[study]
+        variants = FLASH_VARIANTS[study]
         src = open(os.path.join(_build.SRC_DIR, f"{source}.cu")).read()
         for name, cuts in variants.items():
             text = src
@@ -102,25 +177,28 @@ def flash_variants(device=None):
                     raise AssertionError(f"flash_variants {name}: the text to "
                                          f"change is not in {source}.cu once")
                 text = text.replace(old, new)
-            cu = os.path.join(out_dir, f"{name}.cu")
+            cu = os.path.join(out_dir, f"{study}_{name}.cu")
             with open(cu, "w") as f:
                 f.write(text)
-            so = os.path.join(out_dir, f"lib{name}.so")
-            procs[name] = (source, so, subprocess.Popen(
+            so = os.path.join(out_dir, f"lib{study}_{name}.so")
+            procs[study, name] = (so, subprocess.Popen(
                 [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
                  _build.SRC_DIR, "-o", so, cu], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
     fa._kernel(), fa._bwd_kernel()
     kept = (fa._FN, fa._BWD_FN, fa._BWD_DESIGN_FN)
-    kernel = {"flash_fwd": "FlashFwdMid", "flash_bwd": "FlashBwd"}
+    kernel = {"flash_fwd": "FlashFwdMid", "flash_bwd": "FlashBwdMid"}
     rows = []
     try:
-        for name, (source, so, proc) in procs.items():
+        for (study, name), (so, proc) in procs.items():
+            source = STUDY_SOURCE[study]
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"flash_variants {name}: nvcc failed:\n"
                                    f"{log}")
             lines = log.splitlines()
+            warnings = sorted({ln.split("(")[1][:5] for ln in lines
+                               if "(C75" in ln and kernel[source] in ln})
             ptxas = [f"{ln.split(kernel[source])[1][:12]}: {lines[i + 3]}"
                      f" {lines[i + 2].strip()}"
                      for i, ln in enumerate(lines)
@@ -131,13 +209,14 @@ def flash_variants(device=None):
                 fn.restype, fn.argtypes = kept[0].restype, kept[0].argtypes
                 fa._FN = fn
             else:
+                fa._FN = kept[0]  # the backward's residuals from the library
                 fn, design = lib.ts_flash_bwd, lib.ts_flash_bwd_design
                 fn.restype, fn.argtypes = kept[1].restype, kept[1].argtypes
                 design.restype = kept[2].restype
                 design.argtypes = kept[2].argtypes
                 fa._BWD_FN, fa._BWD_DESIGN_FN = fn, design
             whole = not name.endswith("_only")
-            for case, shape, causal, window in FLASH_VARIANT_SHAPES[source]:
+            for case, shape, causal, window in FLASH_VARIANT_SHAPES[study]:
                 b, h, hk, sq, sk, d = shape
                 q, k, v = c._flash_case(*shape, torch.bfloat16, 8, "bshd")
                 kw = {"causal": causal, "window": window}
@@ -163,15 +242,38 @@ def flash_variants(device=None):
                     rule = c.bwd_rule
                 ok = all(rule(call(), want())[0].values()) if whole else None
                 ms, p10, p90 = c.time_ms(call, device)
-                rows.append({"source": source, "variant": name,
+                rows.append({"study": study, "variant": name,
                              "case": case, "shape": list(shape),
-                             "ptxas": ptxas, "rule_ok": ok, "ms": ms,
+                             "ptxas": ptxas, "ptxas_warnings": warnings,
+                             "rule_ok": ok, "ms": ms,
                              "p10_ms": p10, "p90_ms": p90})
     finally:
         fa._FN, fa._BWD_FN, fa._BWD_DESIGN_FN = kept
+    if "bwd_route" in studies:
+        rows += [sdpa_bwd_reads(case, shape, device)
+                 for case, shape, _, _ in FLASH_VARIANT_SHAPES["bwd_route"]]
     c.emit({"phase": "flash_variants", "card": c.nvidia_smi(), "rows": rows})
     return rows
 
 
+def sdpa_bwd_reads(case, shape, device, reads=3):
+    """The backward of scaled_dot_product_attention (no mask, GQA's kv
+    heads as they are) at a bwd_route shape, timed `reads` times in a
+    row on the inputs the study's backward gets: a row with each read's
+    median and the median of those."""
+    b, h, hk, sq, sk, d = shape
+    q, k, v = c._flash_case(*shape, torch.bfloat16, 8, "bshd")
+    do = c._grad_out(b, h, sq, d, torch.bfloat16, 9, "bshd")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    gqa = {"enable_gqa": True} if hk != h else {}
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, **gqa)
+    got = [c.time_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), device) for _ in range(reads)]
+    return {"study": "bwd_route", "variant": "sdpa", "case": case,
+            "shape": list(shape), "reads_ms": [r[0] for r in got],
+            "ms": sorted(r[0] for r in got)[reads // 2],
+            "p10_ms": [r[1] for r in got], "p90_ms": [r[2] for r in got]}
+
+
 if __name__ == "__main__":
-    flash_variants()
+    flash_variants(studies=sys.argv[1:] or tuple(FLASH_VARIANTS))
