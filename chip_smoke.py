@@ -86,10 +86,20 @@ kernels:
   vpp_batch_sharded and a DTensor checkpoint against their single-device
   counterparts; the sharded loaders where libtsingest.so builds.
 
+* the ViT blocks' seams: the block_fusions kernels (ts::ln_cast, the
+  LayerNorm with its cast and, before ln_t and ln_m, the sublayer's bias
+  and the residual add; ts::bias_gelu, fc1's bias and the GELU; and their
+  backwards) held against their plain versions (the unfused ops) at
+  ViT-B's rows and the other models' widths, and timed; every path above
+  that runs a ViT block runs them (serving, streaming's MLPs, both
+  training steps, export, the meshed steps), their launches gated with
+  the flash kernels'.
+
 Each kernel is a dispatcher operator of the ts library
 (tensor_stream_torch/ops/_library.py: ts::nv12_to_rgb, ts::flash_fwd,
 ts::flash_bwd, ts::resize_bilinear_nv12, ts::resize_bicubic_nv12,
-ts::resize_area_down_nv12, ts::clip_augment, ts::nv12_clip_augment)
+ts::resize_area_down_nv12, ts::clip_augment, ts::nv12_clip_augment,
+ts::ln_cast, ts::ln_cast_bwd, ts::bias_gelu, ts::bias_gelu_bwd)
 whose CUDA kernel launches
 the hand-written kernel, whose CPU kernel is the plain version and whose
 fake gives the
@@ -133,6 +143,13 @@ CUDA body called directly, interleaved):
 
     python3 -c "import chip_smoke as c; c.phase_env(); c.dispatch_cost()"
 
+the eager training steps and serving and streaming ticks, which the host
+paces, with where the host's time goes (cProfile), against another
+checkout; and the block fusions' eager calls taken apart:
+
+    python3 -c "import chip_smoke as c; c.eager_ab('dist/parent')"
+    python3 -c "import chip_smoke as c; c.fusion_host_split()"
+
 and the AREA-down kernel whole and in parts (staging only, blend only,
 the launch floor), each a copy of its source with one part cut out:
 
@@ -175,6 +192,7 @@ from tensor_stream_torch.models._train import graphed_train_step
 from tensor_stream_torch.models.moe import MoEMLP
 from tensor_stream_torch.models.video_vit import vit_loss
 from tensor_stream_torch.ops import augment as aug_ops
+from tensor_stream_torch.ops import block_fusions as bf
 from tensor_stream_torch.ops import flash_attention as fa
 from tensor_stream_torch.ops import nv12_rgb
 from tensor_stream_torch.ops import resize as resize_ops
@@ -2216,13 +2234,15 @@ def drive_engine(eng, warmup, timed, inflight=1):
     NV12 launches by variant, result waits of the timed ticks in ms)."""
     nv12_rgb.reset_counts()
     fa.reset_counts()
+    bf.reset_counts()
     results = list(eng.stream(max_batches=warmup, inflight=inflight))
     torch.cuda.synchronize()
     t0 = time.monotonic()
     results += list(eng.stream(max_batches=timed, inflight=inflight))
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = {"nv12_rgb": nv12_rgb.launches, **fwd_counts()}
+    launches = {"nv12_rgb": nv12_rgb.launches, **fwd_counts(),
+                **fusion_counts()}
     lat = np.asarray(eng._lat_ms[warmup:])
     return (results, seconds, launches, dict(nv12_rgb.launches_by_variant),
             lat)
@@ -2363,7 +2383,8 @@ def serve_vit(device, model, graphed, pipeline="per-stream"):
         loader.close()
     check_replays(graph, ticks, label)
     if launches != {"nv12_rgb": want_nv12,
-                    **tiled_launches(ticks * VIT["depth"])}:
+                    **tiled_launches(ticks * VIT["depth"]),
+                    **fusion_launches(ticks * VIT["depth"])}:
         raise AssertionError(f"{label}: launches {launches} over {ticks} "
                              "ticks: the serving path bypassed a kernel")
     check_clocks(results, ticks, CLIP, label)
@@ -2464,6 +2485,370 @@ def phase_serving(device):
     return out
 
 
+# ------------------------------------------------------------ block fusions
+
+# ts::ln_cast and ts::bias_gelu (csrc/block_fusions.cu), forward and
+# backward, against their plain versions (the unfused op sequences, run
+# here on the card) on the same inputs: ViT-B's rows (6,272 a factorized
+# or joint training step: ln_s, ln_t, and ln_m after the temporal
+# sublayer's transposed product; 3,136 a serving tick of two clips of
+# 1,568 tokens), fc1's 3,072 columns, the streaming model's and the DiT's
+# widths (384, 192), odd row counts, residual bf16 and f32, the f32 model.
+# x has mean 3 and std 2 (the statistics' cancellation shows), y, dh, the
+# residual's gradient and dg std 1, fc1's product std 2 (both GELU tails),
+# gamma 1 + N(0, 0.5), beta and the biases N(0, 0.5).
+LN_CASES = (
+    # name, x's leading shape, D, residual dtype, compute dtype, y
+    ("vit_b_ln_s", (8, 4, 196), 768, torch.bfloat16, torch.bfloat16, None),
+    ("vit_b_ln_t", (8, 4, 196), 768, torch.bfloat16, torch.bfloat16,
+     "contiguous"),
+    ("vit_b_ln_m_temporal", (8, 4, 196), 768, torch.bfloat16,
+     torch.bfloat16, "transposed"),
+    ("serving_ln_a", (2, 1568), 768, torch.bfloat16, torch.bfloat16, None),
+    ("serving_ln_m", (2, 1568), 768, torch.bfloat16, torch.bfloat16,
+     "contiguous"),
+    ("f32_residual_temporal", (8, 4, 196), 768, torch.float32,
+     torch.bfloat16, "transposed"),
+    ("f32_residual_ln_s", (2, 1568), 768, torch.float32, torch.bfloat16,
+     None),
+    ("f32_model", (2, 1568), 768, torch.float32, torch.float32,
+     "contiguous"),
+    ("f32_model_ln_s", (2, 1568), 768, torch.float32, torch.float32, None),
+    ("stream_384_odd", (3, 337), 384, torch.float32, torch.bfloat16,
+     "contiguous"),
+    ("dit_192_temporal", (2, 4, 64), 192, torch.float32, torch.bfloat16,
+     "transposed"),
+    ("d64_odd", (7,), 64, torch.bfloat16, torch.bfloat16, "contiguous"),
+    ("bf16_residual_f32_compute", (5, 9), 256, torch.bfloat16,
+     torch.float32, "contiguous"),
+)
+GELU_CASES = (
+    # name, y's leading shape, N, compute dtype
+    ("vit_b_fc1", (8, 4, 196), 3072, torch.bfloat16),
+    ("serving_fc1", (2, 1568), 3072, torch.bfloat16),
+    ("f32_model", (2, 1568), 3072, torch.float32),
+    ("stream_1536_odd", (2, 197), 1536, torch.bfloat16),
+    ("d256_odd", (7, 3), 256, torch.bfloat16),
+)
+# The outputs in the compute dtype (h, g) against the plain version's:
+# within FUSION_STEPS spacings of that dtype at the plain value, plus
+# FUSION_FLOOR of the tensor's largest value (where h or g is near 0 it is
+# a difference of terms near 1, whose f32 rounding, 2^-24 of them, exceeds
+# a spacing of the small result; the GELU's far negative tail is
+# x (1 + tanh) with 1 + tanh cancelling). The kernels run the plain
+# version's f32 formulas in another order (two-pass variance against
+# ATen's Welford, nvcc's FMAs), so a value can land one bf16 rounding
+# away; in f32, differences of a few units of 2^-24.
+FUSION_STEPS = {torch.bfloat16: 1, torch.float32: 64}
+FUSION_FLOOR = 2.0 ** -20
+# x' is one rounding of each add: equal bytes. The gradients, as relative
+# norms: a bf16 tensor within one bf16 step (2^-8) and the bias's db, summed
+# in f32 in another order and then rounded to bf16, within two; an f32
+# tensor within 1e-5; the f32 column sums over 6,272 rows, summed in
+# another order, within 1e-4.
+FUSION_GRAD_REL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+FUSION_SUM_REL = 1e-4
+FUSION_DB_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
+
+
+def fusion_counts():
+    """The block fusions' launches and recomputes, as a path's launches
+    dict holds them."""
+    return {**bf.launches, **{f"{k}_recompute": v
+                              for k, v in bf.recompute_launches.items()}}
+
+
+def fusion_launches(forwards=0, backwards=0, recomputes=0, ln=2):
+    """fusion_counts() of a path whose blocks run `forwards` forwards,
+    `backwards` backwards and `recomputes` remat recomputes in all, each
+    block `ln` ts::ln_cast launches (2 joint, 3 factorized, 0 the streaming
+    step's) and one ts::bias_gelu."""
+    return {"ln_cast": ln * (forwards + recomputes),
+            "ln_cast_bwd": ln * backwards,
+            "bias_gelu": forwards + recomputes, "bias_gelu_bwd": backwards,
+            "ln_cast_recompute": ln * recomputes,
+            "bias_gelu_recompute": recomputes}
+
+
+def _seeded(shape, seed, std=1.0, mean=0.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((mean + std * rng.standard_normal(shape))
+                            .astype(np.float32))
+
+
+def within_steps(got, want, steps, floor=FUSION_FLOOR):
+    """max over elements of |got - want| / (steps spacings of want's dtype
+    at |want| + floor x max|want|): <= 1 passes."""
+    g, w = got.double(), want.double()
+    mant = 7 if want.dtype == torch.bfloat16 else 23
+    tiny = torch.finfo(want.dtype).tiny
+    spacing = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(tiny)))
+                         - mant)
+    scale = steps * spacing + floor * float(w.abs().max())
+    return float(((g - w).abs() / scale).max())
+
+
+def rel_norm(got, want):
+    w = want.double()
+    return float((got.double() - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def ln_case_inputs(lead, d, xdt, cdt, y_layout, seed, device):
+    """(x, y or None, y_bias, weight, bias) of an LN_CASES case."""
+    x = _seeded((*lead, d), seed, 2.0, 3.0).to(device, xdt)
+    y = None
+    if y_layout == "contiguous":
+        y = _seeded((*lead, d), seed + 1).to(device, cdt)
+    elif y_layout == "transposed":   # [B, N, T, D] as [B, T, N, D]
+        y = _seeded((lead[0], lead[2], lead[1], d), seed + 1).to(
+            device, cdt).transpose(1, 2)
+    params = [(_seeded((d,), seed + k, 0.5) + (1.0 if k == 2 else 0.0))
+              .to(device) for k in (2, 3, 4)]
+    return x, y, params[2], params[0], params[1]
+
+
+def ln_case(device, name, lead, d, xdt, cdt, y_layout, seed):
+    """One LN_CASES case: the forward and backward kernels, each launched
+    twice (equal bytes), against the plain versions; the faults the rules
+    must reject (h of x without the residual added, dx without the
+    stream's gradient)."""
+    x, y, yb, w, b = ln_case_inputs(lead, d, xdt, cdt, y_layout, seed,
+                                    device)
+    eps = 1e-6
+    with torch.no_grad():
+        if y is None:
+            runs = [(None, *torch.ops.ts.ln_cast(x, w, b, eps, cdt))
+                    for _ in range(2)]
+        else:
+            runs = [torch.ops.ts.ln_cast.residual(x, y, yb, w, b, eps)
+                    for _ in range(2)]
+        xp_p, h_p, mean_p, rstd_p = bf.ln_cast_plain(x, w, b, eps, cdt, y,
+                                                     yb)
+        xp, h, mean, rstd = runs[0]
+        src = x if xp is None else xp
+        dh = _seeded(h.shape, seed + 5).to(device, cdt)
+        dres = None if y is None else _seeded(h.shape, seed + 6).to(
+            device, xdt)
+        if y is None:
+            bwd = [torch.ops.ts.ln_cast_bwd(dh, x, mean, rstd, w)
+                   for _ in range(2)]
+        else:
+            bwd = [torch.ops.ts.ln_cast_bwd.residual(dh, dres, xp, mean,
+                                                     rstd, w)
+                   for _ in range(2)]
+        want = bf.ln_cast_bwd_plain(dh, src, mean, rstd, w, dres,
+                                    None if y is None else cdt)
+        torch.cuda.synchronize()
+        relaunch = all(bytes_equal(a, c) for r0, r1 in ((runs[0], runs[1]),
+                                                        (bwd[0], bwd[1]))
+                       for a, c in zip(r0, r1) if a is not None)
+        steps = FUSION_STEPS[cdt]
+        row = {"case": name, "shape": [*lead, d], "residual":
+               str(xdt).split(".")[-1], "compute": str(cdt).split(".")[-1],
+               "y": y_layout, "relaunch_bit_equal": relaunch,
+               "h_steps": within_steps(h, h_p, steps),
+               "mean_rel": rel_norm(mean, mean_p),
+               "rstd_rel": rel_norm(rstd, rstd_p),
+               "dx_rel": rel_norm(bwd[0][0], want[0]),
+               "dweight_rel": rel_norm(bwd[0][1], want[1]),
+               "dbias_rel": rel_norm(bwd[0][2], want[2]),
+               "max_abs_err": max_abs_err(h, h_p),
+               "dx_max_abs_err": max_abs_err(bwd[0][0], want[0])}
+        ok = (relaunch and row["h_steps"] <= 1
+              and row["mean_rel"] <= FUSION_GRAD_REL[torch.float32]
+              and row["rstd_rel"] <= FUSION_GRAD_REL[torch.float32]
+              and row["dx_rel"] <= FUSION_GRAD_REL[xdt]
+              and max(row["dweight_rel"], row["dbias_rel"])
+              <= FUSION_SUM_REL)
+        # Faults: h of x alone (the residual add lost), dx without dres.
+        if y is not None:
+            row["xp_bytes_equal"] = bytes_equal(xp, xp_p)
+            row["db_rel"] = rel_norm(bwd[0][3], want[3])
+            ok = (ok and row["xp_bytes_equal"]
+                  and row["db_rel"] <= FUSION_DB_REL[cdt])
+            lost = bf.ln_cast_plain(x, w, b, eps, cdt)[1]
+            dx_lost = bf.ln_cast_bwd_plain(dh, xp, mean, rstd, w, None,
+                                           cdt)[0]
+            row["faults_rejected"] = {
+                "residual_add_lost": within_steps(lost, h_p, steps) > 1,
+                "residual_grad_lost":
+                    rel_norm(dx_lost, want[0]) > FUSION_GRAD_REL[xdt]}
+            ok = ok and all(row["faults_rejected"].values())
+    row["ok"] = ok
+    return row
+
+
+def gelu_case(device, name, lead, n, cdt, seed):
+    """One GELU_CASES case, as ln_case; the faults: g without the bias,
+    dy of the GELU of y alone."""
+    y = _seeded((*lead, n), seed, 2.0).to(device, cdt)
+    b = _seeded((n,), seed + 1, 0.5).to(device)
+    dg = _seeded((*lead, n), seed + 2).to(device, cdt)
+    with torch.no_grad():
+        runs = [torch.ops.ts.bias_gelu(y, b) for _ in range(2)]
+        bwd = [torch.ops.ts.bias_gelu_bwd(dg, y, b) for _ in range(2)]
+        want = bf.bias_gelu_plain(y, b)
+        want_bwd = bf.bias_gelu_bwd_plain(dg, y, b)
+        torch.cuda.synchronize()
+        steps = FUSION_STEPS[cdt]
+        relaunch = (bytes_equal(runs[0], runs[1])
+                    and all(bytes_equal(a, c) for a, c in zip(*bwd)))
+        row = {"case": name, "shape": [*lead, n],
+               "compute": str(cdt).split(".")[-1],
+               "relaunch_bit_equal": relaunch,
+               "g_steps": within_steps(runs[0], want, steps),
+               "dy_rel": rel_norm(bwd[0][0], want_bwd[0]),
+               "db_rel": rel_norm(bwd[0][1], want_bwd[1]),
+               "max_abs_err": max_abs_err(runs[0], want),
+               "dy_max_abs_err": max_abs_err(bwd[0][0], want_bwd[0])}
+        zero = torch.zeros_like(b)
+        row["faults_rejected"] = {
+            "bias_lost": within_steps(bf.bias_gelu_plain(y, zero), want,
+                                      steps) > 1,
+            "bias_lost_in_grad": rel_norm(
+                bf.bias_gelu_bwd_plain(dg, y, zero)[0], want_bwd[0])
+            > FUSION_GRAD_REL[cdt]}
+    row["ok"] = (relaunch and row["g_steps"] <= 1
+                 and row["dy_rel"] <= FUSION_GRAD_REL[cdt]
+                 and row["db_rel"] <= FUSION_DB_REL[cdt]
+                 and all(row["faults_rejected"].values()))
+    return row
+
+
+def phase_block_fusions_vs_plain(device):
+    """Every LN_CASES and GELU_CASES case (ln_case, gelu_case); fails
+    unless each holds its bounds, relaunches give equal bytes, the faults
+    are rejected and every kernel launched."""
+    def run_case(fn, case, seed):
+        try:
+            return fn(device, *case, seed=seed)
+        except Exception as e:  # reported with the other cases, then fails
+            return {"case": case[0], "ok": False, "max_abs_err": None,
+                    "error": f"{type(e).__name__}: {e}"[:300]}
+    bf.reset_counts()
+    ln_rows = [run_case(ln_case, case, 60 + k)
+               for k, case in enumerate(LN_CASES)]
+    gelu_rows = [run_case(gelu_case, case, 80 + k)
+                 for k, case in enumerate(GELU_CASES)]
+    launched = dict(bf.launches)
+    out = {"phase": "block_fusions_vs_plain",
+           "bounds": {"h_g_spacings": {str(k).split(".")[-1]: v
+                                       for k, v in FUSION_STEPS.items()},
+                      "floor_of_max": FUSION_FLOOR,
+                      "grad_rel": {str(k).split(".")[-1]: v
+                                   for k, v in FUSION_GRAD_REL.items()},
+                      "column_sum_rel": FUSION_SUM_REL,
+                      "db_rel": {str(k).split(".")[-1]: v
+                                 for k, v in FUSION_DB_REL.items()}},
+           "ln_cast": ln_rows, "bias_gelu": gelu_rows, "launches": launched}
+    emit(out)
+    bad = [r["case"] for r in ln_rows + gelu_rows if not r["ok"]]
+    if bad or not all(launched.values()):
+        raise AssertionError(f"block fusions disagree with their plain "
+                             f"versions in {bad}, launches {launched}")
+    return {"ln_cast": max(r["max_abs_err"] for r in ln_rows),
+            "ln_cast_bwd": max(r["dx_max_abs_err"] for r in ln_rows),
+            "bias_gelu": max(r["max_abs_err"] for r in gelu_rows),
+            "bias_gelu_bwd": max(r["dy_max_abs_err"] for r in gelu_rows)}
+
+
+# The timed shapes: ViT-B's training rows and a serving tick's.
+FUSION_TIMED_ROWS = ((8, 4, 196), (2, 1568))
+
+
+def enqueue_us(fn, rounds=20, calls=50):
+    """The host's µs to enqueue one eager call of `fn`: the median over
+    `rounds` of `calls` calls in a row, each round from an idle device."""
+    fn()
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def fusion_time(device, name, lead, plain_fn, kernel_fn, nbytes):
+    """One kernel's row: its ms, its plain version's and the byte bound
+    (no library call computes these functions); the host's µs to enqueue
+    an eager call of each."""
+    with torch.no_grad():
+        ms, p10, p90 = time_ms(kernel_fn, device)
+        plain_ms = time_ms(plain_fn, device, iters=30, warmup=5)[0]
+        host = enqueue_us(kernel_fn), enqueue_us(plain_fn)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"kernel": name, "rows_shape": list(lead), "ms": ms,
+            "p10_ms": p10, "p90_ms": p90, "plain_ms": plain_ms,
+            "host_us": host[0], "plain_host_us": host[1],
+            "library_ms": None, "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": bound_ms / ms}
+
+
+def phase_block_fusions_times(device, smi):
+    """The four kernels at FUSION_TIMED_ROWS, bf16 (D 768, fc1's 3,072),
+    against their plain versions (the unfused ops) and the byte bound
+    (each input read once, each output written once); ts::ln_cast with
+    and without the residual. No library call: no single PyTorch call
+    adds a bias and a residual before a LayerNorm or a bias before a
+    GELU, and ATen's LayerNorm refuses bf16 rows with the f32 parameters
+    (torch 2.11 on an H100: "expected scalar type BFloat16 but found
+    Float")."""
+    rows = []
+    d, n, eps, bt = 768, 3072, 1e-6, torch.bfloat16
+    for k, lead in enumerate(FUSION_TIMED_ROWS):
+        x, y, yb, w, b = ln_case_inputs(lead, d, bt, bt, "contiguous",
+                                        70 + k, device)
+        count = x.numel() // d
+        row_bytes = count * d * 2
+        stats = count * 8
+        xp, h, mean, rstd = torch.ops.ts.ln_cast.residual(x, y, yb, w, b,
+                                                          eps)
+        dh = _seeded(h.shape, 75 + k).to(device, bt)
+        dres = _seeded(h.shape, 76 + k).to(device, bt)
+        rows.append(fusion_time(
+            device, "ln_cast_residual", lead,
+            lambda: bf.ln_cast_plain(x, w, b, eps, bt, y, yb),
+            lambda: torch.ops.ts.ln_cast.residual(x, y, yb, w, b, eps),
+            4 * row_bytes + stats))
+        rows.append(fusion_time(
+            device, "ln_cast", lead,
+            lambda: bf.ln_cast_plain(x, w, b, eps, bt),
+            lambda: torch.ops.ts.ln_cast(x, w, b, eps, bt),
+            2 * row_bytes + stats))
+        rows.append(fusion_time(
+            device, "ln_cast_bwd_residual", lead,
+            lambda: bf.ln_cast_bwd_plain(dh, xp, mean, rstd, w, dres, bt),
+            lambda: torch.ops.ts.ln_cast_bwd.residual(dh, dres, xp, mean,
+                                                      rstd, w),
+            4 * row_bytes + stats + 3 * d * 4))
+        rows.append(fusion_time(
+            device, "ln_cast_bwd", lead,
+            lambda: bf.ln_cast_bwd_plain(dh, xp, mean, rstd, w),
+            lambda: torch.ops.ts.ln_cast_bwd(dh, xp, mean, rstd, w),
+            3 * row_bytes + stats + 2 * d * 4))
+        fc1 = _seeded((*lead, n), 77 + k, 2.0).to(device, bt)
+        fb = _seeded((n,), 78 + k, 0.5).to(device)
+        dg = _seeded((*lead, n), 79 + k).to(device, bt)
+        act_bytes = fc1.numel() * 2
+        rows.append(fusion_time(
+            device, "bias_gelu", lead, lambda: bf.bias_gelu_plain(fc1, fb),
+            lambda: torch.ops.ts.bias_gelu(fc1, fb),
+            2 * act_bytes + n * 4))
+        rows.append(fusion_time(
+            device, "bias_gelu_bwd", lead,
+            lambda: bf.bias_gelu_bwd_plain(dg, fc1, fb),
+            lambda: torch.ops.ts.bias_gelu_bwd(dg, fc1, fb),
+            3 * act_bytes + 2 * n * 4))
+        del x, y, xp, h, dh, dres, fc1, dg
+    out = {"phase": "block_fusions_times", "card": smi, "dim": d,
+           "hidden": n, "dtype": "bf16", "rows": rows}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------ pooled
 
 # bench.py::bench_serving's configuration (:462-505): two streams, 8
@@ -2521,7 +2906,8 @@ def pool_run(device, pipeline, infer_fn):
     label = f"pooled phase, {pipeline} {getattr(infer_fn, '__name__', '')}"
     check_replays(graph, ticks, label)
     want = ticks * (STREAMS if pipeline == "per-stream" else 1)
-    if launches != {"nv12_rgb": want, **tiled_launches(0)}:
+    if launches != {"nv12_rgb": want, **tiled_launches(0),
+                    **fusion_launches()}:
         raise AssertionError(f"{label}: launches {launches} over {ticks} "
                              f"ticks, want {want} NV12")
     if variants["vector"] != want:
@@ -2715,9 +3101,14 @@ def serve_stream(device, name, model, graphed):
                                          "version")
     finally:
         loader.close()
-    if launches != {"nv12_rgb": ticks * STREAMS, **tiled_launches(0)}:
+    # The step's MLPs run ts::bias_gelu; its LayerNorms are the JAX
+    # stream's own (stream_step's _ln), no ts::ln_cast.
+    if launches != {"nv12_rgb": ticks * STREAMS, **tiled_launches(0),
+                    **fusion_launches(ticks * STREAM_VIT["depth"], ln=0)}:
         raise AssertionError(f"{label}: launches {launches} over "
-                             f"{ticks} ticks, want 2 NV12 a tick and no flash")
+                             f"{ticks} ticks, want 2 NV12 and "
+                             f"{STREAM_VIT['depth']} bias_gelu a tick and "
+                             "no flash")
     check_clocks(results, ticks, TUBELET, label)
     if any(tuple(r.outputs.shape) != (1, STREAM_VIT["num_classes"])
            for r in results):
@@ -3245,7 +3636,8 @@ def first_grads(device, size, remat, clips, mask, dtype, use_flash,
 
 
 def train_run(device, name, batch, size, remat, use_flash, clips, mask,
-              graphed=True, vit=TRAIN_VIT, flops=None, profile=False):
+              graphed=True, vit=TRAIN_VIT, flops=None, profile=False,
+              top=8):
     """TRAIN_WARMUP + TRAIN_STEPS steps of make_vit_train_step (through
     its CUDA graph, or eagerly with `graphed` False) with the kernels'
     counts at 0 just before; returns the run's row (an "outcome" of "OOM"
@@ -3256,7 +3648,8 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
     after the parameters were read). `vit` is the model's configuration
     and `flops` its (FLOP a step, tokens a step, tokens a sequence),
     train_flops's for the joint one. With `profile`, a graphed run's row
-    also has one replay under torch.profiler (replay_split)."""
+    also has one replay under torch.profiler (replay_split, its `top`
+    kernels)."""
     flops, n_tok, s_joint = flops or train_flops(batch, size)
     row = {"config": name, "use_flash": use_flash, "remat": remat,
            "graphed": graphed, "batch": batch, "size": size,
@@ -3274,6 +3667,7 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
                 else eager_step(model, opt))
         grads = first_step_grads(model, opt)
         fa.reset_counts()
+        bf.reset_counts()
         out = [step(clips, mask) for _ in range(TRAIN_WARMUP)]
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -3284,7 +3678,8 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
                     "flash_fwd_recompute": fa.recompute_launches,
                     "flash_bwd": fa.bwd_launches,
                     "flash_bwd_by_design": dict(fa.bwd_launches_by_design),
-                    "dout_copies": fa.dout_copies}
+                    "dout_copies": fa.dout_copies, **fusion_counts(),
+                    "fusion_grad_copies": bf.grad_copies}
         peak = torch.cuda.max_memory_allocated()
         params = {n: p.detach().cpu() for n, p in model.named_parameters()}
         enqueue = []
@@ -3301,7 +3696,7 @@ def train_run(device, name, batch, size, remat, use_flash, clips, mask,
                                 iters=5, warmup=1)[0]
             if profile:
                 row["replay_profile"] = replay_split(
-                    step.graphed.graphs[0].replay, device_ms)
+                    step.graphed.graphs[0].replay, device_ms, top)
     except torch.cuda.OutOfMemoryError as e:
         row.update(outcome="OOM", error=str(e)[:200])
         return row, None, None
@@ -3374,7 +3769,11 @@ def phase_training(device, smi):
             want = {**tiled_launches(fwd),
                     "flash_fwd_recompute": depth * n if use_flash and remat
                     else 0,
-                    "flash_bwd": depth * n if use_flash else 0}
+                    "flash_bwd": depth * n if use_flash else 0,
+                    # Every step's blocks, flash or not: a forward, a
+                    # backward and with remat the forward's recompute.
+                    **fusion_launches(depth * n, depth * n,
+                                      depth * n if remat else 0)}
             # bf16 at d = 64 and S = 1568 or 6272: every backward goes
             # through the wgmma design.
             want["flash_bwd_by_design"] = {
@@ -3511,14 +3910,20 @@ def factorized_flops():
 def factorized_launches(n, use_flash):
     """The launches n factorized steps must make: a step's 12 spatial
     forwards "mid" and 12 temporal "short", its 12 spatial backwards
-    "mid" and 12 temporal "short"; none on the materialized path."""
-    k = FACTORIZED_VIT["depth"] * n if use_flash else 0
+    "mid" and 12 temporal "short" (none on the materialized path); on both
+    paths a block's 3 ts::ln_cast (ln_s, and ln_t and ln_m with their
+    residual adds) and 1 ts::bias_gelu, forward and backward, no
+    grad_copies."""
+    blocks = FACTORIZED_VIT["depth"] * n
+    k = blocks if use_flash else 0
     return {"flash_fwd": 2 * k, "flash_fwd_by_design": {
                 d: k if d in ("mid", "short") else 0 for d in fa.FWD_DESIGNS},
             "flash_fwd_recompute": 0, "flash_bwd": 2 * k,
             "flash_bwd_by_design": {
                 d: k if d in ("short", "mid") else 0
-                for d in fa.BWD_DESIGNS}}
+                for d in fa.BWD_DESIGNS},
+            **fusion_launches(blocks, blocks, ln=3),
+            "fusion_grad_copies": 0}
 
 
 def phase_factorized_training(device, smi):
@@ -3781,10 +4186,11 @@ def split_kernels(kernels, top=8):
             "top_ms": dict(ranked)}
 
 
-def replay_split(replay, replay_ms):
+def replay_split(replay, replay_ms, top=8):
     """One call of a CUDA graph's `replay` under torch.profiler, split by
-    split_kernels, beside its timed device ms; "recorded" False where the
-    profiler saw no device record of the replay's kernels."""
+    split_kernels (its `top` kernels), beside its timed device ms;
+    "recorded" False where the profiler saw no device record of the
+    replay's kernels."""
     replay()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -3792,7 +4198,7 @@ def replay_split(replay, replay_ms):
     with torch.profiler.profile(activities=acts) as prof:
         replay()
         torch.cuda.synchronize()
-    out = split_kernels(kernel_ms(prof))
+    out = split_kernels(kernel_ms(prof), top)
     out.update(source="torch.profiler, one graph replay",
                recorded=out["device_ms"] > 0, graph_replay_ms=replay_ms)
     return out
@@ -4032,6 +4438,7 @@ def ab_turns(other_root, code, blocks):
 AUGMENT_AB_SNIPPET = """
 import json, time, numpy as np, torch, chip_smoke as c
 from tensor_stream_torch.ops import augment as aug_ops
+from tensor_stream_torch.ops import block_fusions as bf
 HOLD_CYCLES = {hold}
 {timer}
 dev = torch.device("cuda", 0)
@@ -4125,25 +4532,75 @@ def flash_bwd_ab(other_root, blocks=1):
     return got
 
 
-# The factorized training phase in a checkout, reduced to the graphed
-# flash run's step ms, its replay's device ms and flash split by design.
+# The graphed flash steps of the factorized ViT-B (FACTORIZED_CONFIG) and
+# of the joint one (TRAIN_CONFIGS[0]) in a checkout, through its own
+# train_run: each step's ms, its graph replay's device ms, and one replay
+# under torch.profiler split by that checkout's split_kernels (groups,
+# the flash kernels by design, and the top kernels of most device time);
+# then the device ms of a graph replay of phase serving's ViT-B forward
+# (two clips) and of a streaming step (MHA, step_times).
 FACTORIZED_AB_SNIPPET = """
-import json, torch, chip_smoke as c
-out = c.phase_factorized_training(torch.device("cuda", 0), c.phase_env())
-run = next(r for r in out["runs"] if r["use_flash"] and r["graphed"])
-print(json.dumps({"step_ms": run["step_ms"],
-                  "replay_ms": run["step_device_ms"],
-                  "flash_by_design_ms":
-                      run["replay_profile"]["flash_by_design_ms"]}))
+import inspect, json, torch, chip_smoke as c
+dev = torch.device("cuda", 0)
+# A checkout whose train_run has no `top` reports its top 8 kernels.
+top = ({{"top": {top}}} if "top" in inspect.signature(c.train_run).parameters
+       else {{}})
+c.phase_env()
+out = {{}}
+name, batch, size, remat = c.FACTORIZED_CONFIG
+clips, mask = c.noise_clips(batch, size, dev, c.FACTORIZED_VIT["frames"])
+runs = [("factorized", name, batch, size, remat, clips, mask,
+         dict(vit=c.FACTORIZED_VIT, flops=c.factorized_flops()))]
+name, batch, size, remat = c.TRAIN_CONFIGS[0]
+runs.append(("joint", name, batch, size, remat,
+             *c.ramp_clips(batch, size, dev), {{}}))
+for key, name, batch, size, remat, clips, mask, kw in runs:
+    row, _, _ = c.train_run(dev, name, batch, size, remat, True, clips,
+                            mask, True, profile=True, **kw, **top)
+    split = row["replay_profile"]
+    out[key] = {{"step_ms": row["step_ms"],
+                "replay_ms": row["step_device_ms"],
+                "groups_ms": split["groups_ms"],
+                "flash_by_design_ms": split["flash_by_design_ms"],
+                "profiled_ms": split["device_ms"],
+                "top_ms": split["top_ms"]}}
+    del clips, mask
+model = c.vit(dev, torch.bfloat16)
+clips = torch.rand((c.STREAMS, c.CLIP, c.SIDE, c.SIDE, 3),
+                   generator=torch.Generator().manual_seed(40)).to(dev)
+forward = c.cuda_graph(model)
+with torch.no_grad():
+    for _ in range(2):
+        forward(clips)
+    out["serving_replay_ms"] = c.time_ms(forward.graphs[0].replay, dev,
+                                         iters=20, warmup=3)[0]
+del model, forward
+model = c.stream_vit(dev, torch.bfloat16, None)
+frames = torch.rand((c.STREAMS, c.TUBELET, c.SIDE, c.SIDE, 3),
+                    generator=torch.Generator().manual_seed(41)).to(dev)
+cache = c.init_stream_cache(model, c.STREAMS, c.STREAM_RING)
+out["streaming_replay_ms"] = c.step_times(model, cache, frames, dev)[2][0]
+print(json.dumps(out))
 """
+STEP_TOP = 30
 
 
-def factorized_ab(other_root, blocks=1):
-    """phase_factorized_training in the checkout at `other_root` against
-    this one's (ab_turns): the graphed flash step's ms, its replay's
-    device ms and the replay's flash kernels by design. Prints and returns
-    {"other": [...], "this": [...]}, a row a turn."""
-    got, order, roots = ab_turns(other_root, FACTORIZED_AB_SNIPPET, blocks)
+def factorized_ab(other_root=None, blocks=1):
+    """FACTORIZED_AB_SNIPPET in the checkout at `other_root` against this
+    one's (ab_turns), or with `other_root` None in this checkout alone,
+    once. Prints and returns {"other": [...], "this": [...]}, a row a
+    turn: the factorized and joint graphed steps' ms, replay device ms,
+    kernel groups (the "rest" is "other") and top kernels; the serving
+    forward's and the streaming step's replay device ms."""
+    code = FACTORIZED_AB_SNIPPET.format(top=STEP_TOP)
+    if other_root is None:
+        out = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                             check=True, capture_output=True, text=True,
+                             timeout=600)
+        got, order, roots = ({"this": [json.loads(
+            out.stdout.strip().splitlines()[-1])]}, ["this"], {"this": HERE})
+    else:
+        got, order, roots = ab_turns(other_root, code, blocks)
     emit({"phase": "factorized_ab", "card": nvidia_smi(), "order": order,
           **got, "roots": roots})
     return got
@@ -4428,8 +4885,11 @@ def phase_generation(device, smi):
     decoder. Gates: every graphed step and sampler bit-equal to eager,
     finite and falling losses, the bf16 VAE and DiT forwards against the
     port's f32 CPU forwards from the same weights, finite decoded clips
-    of the input's shape."""
+    of the input's shape, and no launch of the block fusions: the DiT's
+    adaLN blocks (DiTBlock, the module's default conditioning) run their
+    own modulated LayerNorms and GELU, not FactorizedBlock's seams."""
     reset_resize_counts()
+    bf.reset_counts()
     clips = generation_clips(device)
     torch.cuda.synchronize()
     launches = resize_counts()
@@ -4514,6 +4974,9 @@ def phase_generation(device, smi):
                     or not bool(torch.isfinite(out).all())):
                 failures.append(f"{name}: decoded {tuple(out.shape)} or "
                                 "non-finite")
+    fusions = fusion_counts()
+    if any(fusions.values()):
+        failures.append(f"block fusions launched by the DiT: {fusions}")
     out = {"phase": "generation", "card": smi,
            "clips": list(clips.shape), "latents": list(lat_shape),
            "input_launches": {"nv12_rgb": launches["nv12_rgb"],
@@ -4525,7 +4988,8 @@ def phase_generation(device, smi):
                    "num_classes": GEN_CLASSES,
                    "label_dropout": GEN_LABEL_DROPOUT},
            "compute": "bf16", "cudnn_deterministic": True,
-           "runs": rows, "decoded": decoded, "failures": failures}
+           "runs": rows, "decoded": decoded, "fusion_launches": fusions,
+           "failures": failures}
     emit(out)
     if failures:
         raise AssertionError(f"generation phase failed: {failures}")
@@ -4609,7 +5073,8 @@ def style_run(device, net, graphed):
         loader.close()
     check_replays(graph, ticks, label)
     expect_launches(label, launches, {"nv12_rgb": ticks * STREAMS,
-                                      **tiled_launches(0)})
+                                      **tiled_launches(0),
+                                      **fusion_launches()})
     check_clocks(results, ticks, STYLE_PER_STREAM, label)
     outs = by_tick(results, STREAMS)
     if (outs.shape[2:] != (STYLE_PER_STREAM, STYLE_SIDE, STYLE_SIDE, 3)
@@ -4668,7 +5133,8 @@ def quant_run(device, infer, label):
         loader.close()
     check_replays(graph, ticks, label)
     expect_launches(label, launches, {
-        "nv12_rgb": ticks * STREAMS, **tiled_launches(ticks * VIT["depth"])})
+        "nv12_rgb": ticks * STREAMS, **tiled_launches(ticks * VIT["depth"]),
+        **fusion_launches(ticks * VIT["depth"])})
     check_clocks(results, ticks, CLIP, label)
     frames = TIMED_TICKS * STREAMS * CLIP
     return by_tick(results, STREAMS), {
@@ -4779,21 +5245,26 @@ def phase_export_serving(device, smi, serving):
     loaded, nbytes, export_s, load_s = artifact(
         model, (export_clips(2, device),), True, device)
     ops = graph_ops(loaded)
-    if ops != {"flash_fwd": VIT["depth"]}:
+    depth = VIT["depth"]
+    if ops != {"flash_fwd": depth, "ln_cast": 2 * depth,
+               "bias_gelu": depth}:
         raise AssertionError(f"export_serving: the artifact calls {ops}, "
-                             "not 12 ts::flash_fwd")
+                             "not 12 ts::flash_fwd, 24 ts::ln_cast and 12 "
+                             "ts::bias_gelu")
     batches = {}
-    launches = {"nv12_rgb": 0, **tiled_launches(0)}
+    launches = {"nv12_rgb": 0, **tiled_launches(0), **fusion_launches()}
     for b in EXPORT_BATCHES:
         clips = export_clips(b, device)
         fa.reset_counts()
+        bf.reset_counts()
         with torch.no_grad():
             got = loaded(clips)
-            launched = fwd_counts()
+            launched = {**fwd_counts(), **fusion_counts()}
             want = model(clips)
-        if launched != tiled_launches(VIT["depth"]):
+        if launched != {**tiled_launches(depth), **fusion_launches(depth)}:
             raise AssertionError(f"export_serving: batch {b} launched "
-                                 f"{launched}, not 12 tiled flash kernels")
+                                 f"{launched}, not 12 tiled flash kernels, "
+                                 "24 ln_cast and 12 bias_gelu")
         add_counts(launches, launched)
         same = torch.equal(got.view(torch.int16), want.view(torch.int16))
         batches[b] = {"shape": list(got.shape), "bit_equal": same,
@@ -5292,6 +5763,154 @@ def dispatch_ab(other_root, blocks=2):
     return got
 
 
+# The eager paths that the host paces, through the checkout's own
+# chip_smoke: the joint and factorized training steps (TRAIN_CONFIGS[0],
+# FACTORIZED_CONFIG, flash, no graph), each `steps` steps after 3 warm-up
+# ones, a step's wall ms and the host's ms to enqueue it (the device idle
+# at its start), medians; the eager serving and streaming runs (serve_vit,
+# serve_stream), host ms a tick, each run `runs` times; then cProfile of
+# two eager joint steps and of ten eager serving forwards, the `top`
+# functions by their own time (ms over the profiled calls).
+EAGER_AB_SNIPPET = """
+import cProfile, json, pstats, time, numpy as np, torch, chip_smoke as c
+from tensor_stream_torch.models import VideoViT, init_vit
+dev = torch.device("cuda", 0)
+bt = torch.bfloat16
+out = {{}}
+def build(vit, batch, size, remat, clips):
+    model = VideoViT(compute_dtype=bt, residual_dtype=bt, use_flash=True,
+                     remat=remat, size=size, device=dev, **vit)
+    init_vit(torch.Generator().manual_seed(0), model, tuple(clips.shape))
+    return c.eager_step(model, torch.optim.SGD(
+        model.parameters(), lr=c.TRAIN_LR, momentum=c.TRAIN_MOMENTUM))
+def own_time(fn, calls):
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:{top}]
+    return [[f"{{f[0].rsplit('/', 2)[-1]}}:{{f[1]}}({{f[2]}})", s[1],
+             round(s[2] * 1e3, 3)] for f, s in rows]
+name, batch, size, remat = c.TRAIN_CONFIGS[0]
+joint = (c.TRAIN_VIT, batch, size, remat, *c.ramp_clips(batch, size, dev))
+name, batch, size, remat = c.FACTORIZED_CONFIG
+fact = (c.FACTORIZED_VIT, batch, size, remat,
+        *c.noise_clips(batch, size, dev, c.FACTORIZED_VIT["frames"]))
+for key, (vit, batch, size, remat, clips, mask) in (("joint", joint),
+                                                     ("factorized", fact)):
+    step = build(vit, batch, size, remat, clips)
+    for _ in range(3):
+        step(clips, mask)
+    wall, enq = [], []
+    for _ in range({steps}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(clips, mask)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    out[key + "_step_ms"] = float(np.median(wall))
+    out[key + "_enqueue_ms"] = float(np.median(enq))
+    if key == "joint":
+        out["joint_profile"] = own_time(lambda: step(clips, mask), 2)
+    del step
+    torch.cuda.empty_cache()
+out["serving_host_ms_a_tick"] = [
+    c.serve_vit(dev, c.vit(dev, bt), False)[1]["host_ms_a_tick"]
+    for _ in range({runs})]
+out["streaming_host_ms_a_tick"] = [
+    c.serve_stream(dev, "mha", c.stream_vit(dev, bt, None), False)[2]
+    ["host_ms_a_tick"] for _ in range({runs})]
+model = c.vit(dev, bt)
+clips = torch.rand((c.STREAMS, c.CLIP, c.SIDE, c.SIDE, 3),
+                   generator=torch.Generator().manual_seed(40)).to(dev)
+with torch.no_grad():
+    model(clips)
+    out["serving_profile"] = own_time(lambda: model(clips), 10)
+print(json.dumps(out))
+"""
+
+
+def eager_ab(other_root, blocks=2, steps=8, runs=3, top=25):
+    """EAGER_AB_SNIPPET in the checkout at `other_root` against this one's
+    (ab_turns): the eager joint and factorized steps' wall and enqueue ms,
+    the eager serving and streaming ticks' host ms, and where the host's
+    time goes in an eager joint step and serving forward (cProfile).
+    Prints and returns {"other": [...], "this": [...]}."""
+    code = EAGER_AB_SNIPPET.format(steps=steps, runs=runs, top=top)
+    got, order, roots = ab_turns(other_root, code, blocks)
+    emit({"phase": "eager_ab", "card": nvidia_smi(), "order": order,
+          **got, "roots": roots})
+    return got
+
+
+def fusion_host_split(device=None, rounds=20, calls=100):
+    """Where the host's time goes in an eager call of the block fusions
+    at a serving tick's shapes ([2, 1568, 768] bf16, fc1's [2, 1568,
+    3072]): each operator called through the dispatcher ("op"), through
+    its autograd.Function with grad on ("grad"), its CUDA body called
+    directly ("body"), and the body's parts one at a time; an ATen add for
+    scale. `rounds` turns of `calls` calls each, interleaved, from an idle
+    device. Prints and returns the median µs a call of each."""
+    device = device or torch.device("cuda", 0)
+    bt, eps, d = torch.bfloat16, 1e-6, 768
+    x, y, yb, w, b = ln_case_inputs((2, 1568), d, bt, bt, "contiguous", 70,
+                                    device)
+    u = _seeded((2, 1568, 4 * d), 77, 2.0).to(device, bt)
+    ub = _seeded((4 * d,), 78, 0.5).to(device)
+    xg, yg, ug = (t.detach().requires_grad_() for t in (x, y, u))
+    lib = bf._lib()
+    rows = bf._rows(x, "x")
+    g, h = torch.empty_like(u), torch.empty_like(x)
+    mean, rstd = (torch.empty(3136, device=device) for _ in range(2))
+    stream = bf._stream(x)
+
+    def guard():
+        with bf.kernel_device(device):
+            pass
+    fns = {
+        "ln_op": lambda: torch.ops.ts.ln_cast(x, w, b, eps, bt),
+        "ln_body": lambda: bf._ln_cast_cuda(x, w, b, eps, bt),
+        "ln_grad": lambda: bf.ln_cast(xg, w, b, bt, eps),
+        "residual_op": lambda: torch.ops.ts.ln_cast.residual(x, y, yb, w, b,
+                                                             eps),
+        "residual_body": lambda: bf._ln_cast_cuda(x, w, b, eps, None, y, yb),
+        "residual_grad": lambda: bf.add_ln_cast(xg, yg, yb, w, b, eps),
+        "gelu_op": lambda: torch.ops.ts.bias_gelu(u, ub),
+        "gelu_body": lambda: bf._bias_gelu_cuda(u, ub),
+        "gelu_grad": lambda: bf.bias_gelu(ug, ub),
+        "check": lambda: bf._check(x, (w, b), (y,)),
+        "rows": lambda: bf._rows(x, "x"),
+        "empty": lambda: torch.empty(x.shape, dtype=bt, device=device),
+        "guard": guard,
+        "stream": lambda: bf._stream(x),
+        "gelu_launch": lambda: lib.ts_bias_gelu(
+            u.data_ptr(), ub.data_ptr(), g.data_ptr(), 0, 3136, 4 * d,
+            stream),
+        "ln_launch": lambda: lib.ts_ln_cast(
+            x.data_ptr(), rows, 0, None, None, None, w.data_ptr(),
+            b.data_ptr(), None, h.data_ptr(), 0, mean.data_ptr(),
+            rstd.data_ptr(), 3136, d, eps, stream),
+        "aten_add": lambda: torch.add(x, y)}
+    times = {k: [] for k in fns}
+    for _ in range(rounds + 2):  # the first two turns warm up
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    out = {k: float(np.median(v[2:])) for k, v in times.items()}
+    emit({"phase": "fusion_host_split", "card": nvidia_smi(),
+          "rounds": rounds, "calls": calls, "median_us_a_call": out})
+    return out
+
+
 # The parallel layer on one card: world size 1 through a real NCCL group.
 # The virtual ring is ViT-B joint training's attention (B=4, 12 heads, 1568
 # tokens, d=64, bf16) split into 4 ring positions of 392 tokens.
@@ -5442,6 +6061,7 @@ def meshed_twins(label, single, meshed, args):
         if name.endswith("eager"):
             step = step.graphed.fn
         fa.reset_counts()
+        bf.reset_counts()
         reset_resize_counts()
         runs[name] = [step(*args)]
         torch.cuda.synchronize()
@@ -5450,7 +6070,8 @@ def meshed_twins(label, single, meshed, args):
         torch.cuda.synchronize()
         if name == "meshed":
             check_replays(step.graphed, PAR_CALLS, label)
-            launches = {**flash_counts(), **resize_counts()}
+            launches = {**flash_counts(), **resize_counts(),
+                        **fusion_counts()}
         params[name] = {n: (p.to_local() if hasattr(p, "to_local") else p)
                         .detach().clone()
                         for n, p in model.named_parameters()}
@@ -5685,6 +6306,56 @@ def phase_parallel(device, smi):
     return out
 
 
+FUSION_REPLACES = {
+    "ln_cast": ("tensor_stream_tpu/models/video_vit.py:263",
+                "an XLA fusion (not a Pallas kernel): each block's LayerNorm "
+                "with its astype(compute_dtype) (:263, :271, :276; joint "
+                ":309, :317) and, before ln_t and ln_m, the residual add of "
+                "the sublayer's output with its Dense bias (:264, :275, "
+                ":316)"),
+    "bias_gelu": ("tensor_stream_tpu/models/video_vit.py:205",
+                  "an XLA fusion (not a Pallas kernel): MLP's fc1 bias and "
+                  "nn.gelu (:204-205)")}
+
+
+def fusion_entries(worst, times, runs):
+    """The kernels line's entries of the four block-fusion kernels: each
+    one's launches on the main paths (`runs`: {path: launches dict}), its
+    worst error against its plain version, and its times at 6,272 rows
+    (the training steps'; 3,136, a serving tick's, beside them), the
+    residual overload's for ts::ln_cast and its backward."""
+    entries = []
+    for kernel in bf.KERNELS:
+        fwd = kernel.replace("_bwd", "")
+        head = f"{kernel}_residual" if fwd == "ln_cast" else kernel
+        paths = {p: v[kernel] for p, v in runs.items() if v.get(kernel, 0)}
+        rows = [r for r in times["rows"] if r["kernel"] == head]
+        main = rows[0]
+        entry = {"name": kernel, "route": "cuda",
+                 "source": "tensor_stream_torch/csrc/block_fusions.cu",
+                 "replaces": FUSION_REPLACES[fwd][0],
+                 "replaces_note": FUSION_REPLACES[fwd][1],
+                 "launches": sum(paths.values()), "launches_by_path": paths,
+                 "max_abs_err": worst[kernel],
+                 "shape": main["rows_shape"] + [times["dim"] if fwd ==
+                                                "ln_cast" else
+                                                times["hidden"]],
+                 "ms": main["ms"], "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": "bytes",
+                 "library_ms": None,
+                 "by_shape": [{k: r[k] for k in (
+                     "kernel", "rows_shape", "ms", "plain_ms", "bound_ms")}
+                     for r in times["rows"]
+                     if r["kernel"].startswith(kernel)
+                     and "bwd" not in r["kernel"].replace(kernel, "")]}
+        if fwd in bf.recompute_launches and kernel == fwd:
+            entry["recompute_launches"] = {
+                p: v[f"{kernel}_recompute"] for p, v in runs.items()
+                if v.get(f"{kernel}_recompute", 0)}
+        entries.append(entry)
+    return entries
+
+
 def run(device):
     smi = phase_env()
     worst = phase_kernel_vs_plain(device)
@@ -5706,6 +6377,7 @@ def run(device):
     resize_rows = phase_resize_times(device, smi)
     phase_area_variants(device, smi)
     flash_worst = phase_flash_vs_plain()
+    fusion_worst = phase_block_fusions_vs_plain(device)
     serving = phase_serving(device)
     pooled = phase_pooled(device, smi)
     streaming = phase_streaming(device, smi)
@@ -5715,6 +6387,7 @@ def run(device):
     phase_train_profile(device, training)
     factorized = phase_factorized_training(device, smi)
     bwd = phase_flash_bwd_times(device, smi)
+    fusion_times = phase_block_fusions_times(device, smi)
     generation = phase_generation(device, smi)
     phase_moe_training(device, smi)
     style = phase_style(device, smi)
@@ -5940,7 +6613,20 @@ def run(device):
                 "plain_ms": aug_head["kernel_plain_ms"],
                 "bound_ms": aug_head["kernel_bound_ms"],
                 "bound_by": aug_head["kernel_bound_by"]},
-        "library_ms": None}]})
+        "library_ms": None},
+        *fusion_entries(fusion_worst, fusion_times, {
+            **{k: r["launches"] for k, r in serve_runs.items()},
+            **{f"streaming_{name}{'_graphed' if g else ''}_{k}": r["launches"]
+               for name in STREAM_KV for g in (False, True)
+               for k, r in enumerate((streaming[name]["graphed"] if g
+                                      else streaming[name])["runs"])},
+            **{f"train_{r['config']}{'' if r['graphed'] else '_eager'}"
+               f"{'' if r['use_flash'] else '_materialized'}": r["launches"]
+               for r in training["runs"] + factorized["runs"]
+               if r["outcome"] == "ran"},
+            "generation": generation["fusion_launches"],
+            **{k: v for k, v in model_runs.items()
+               if k.startswith("quantized")}, **infra})]})
     print(smi, flush=True)
 
 

@@ -21,14 +21,15 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tensor_stream_torch")
 SOURCES = ("nv12_rgb", "flash_fwd", "flash_bwd", "resize_nv12",
-           "clip_augment")
+           "clip_augment", "block_fusions")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # nv12_rgb and resize_nv12 must round every multiply and add on its own
 # (or fuse exactly where their _rn intrinsics say) to stay byte-equal to
 # their plain versions; the flash kernels are held to a tolerance, and
 # flash_fwd spells out its FMAs where it wants them; clip_augment writes
-# every step as an _rn intrinsic, which never contracts.
+# every step as an _rn intrinsic, which never contracts; block_fusions is
+# held to its plain versions within a bf16 step or a relative rule.
 SOURCE_FLAGS = {"nv12_rgb": ("-fmad=false",),
                 "resize_nv12": ("-fmad=false",)}
 

@@ -71,7 +71,23 @@ def kernel_device(device: torch.device):
     been captured anywhere in the process, every launch failed with
     cudaErrorInvalidValue (an autograd worker thread's first backward,
     on an H100 with torch 2.11); ``torch.cuda.set_device`` binds the
-    context first."""
-    with torch.cuda.device(device):
-        torch.cuda.set_device(device)
+    context first. The guard calls the C entry points behind
+    ``torch.cuda.device`` and ``set_device`` directly (their Python
+    argument handling was most of an eager call's guard: 8.5 µs on an
+    H100's host, ``chip_smoke.fusion_host_split``) and puts the previous
+    device back on exit."""
+    index = device.index
+    prev = torch._C._cuda_getDevice()
+    torch._C._cuda_setDevice(index)
+    try:
         yield
+    finally:
+        if prev != index:
+            torch._C._cuda_setDevice(prev)
+
+
+def stream_handle(device: torch.device) -> int:
+    """The cudaStream_t of `device`'s current stream, as an int (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building the Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

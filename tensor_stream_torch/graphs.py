@@ -43,8 +43,8 @@ inlines a jitted function). Nothing falls back: a capture or replay that
 fails raises.
 
 The kernels' launch counters (``ops/nv12_rgb.py``, ``ops/resize.py``,
-``ops/augment.py``, ``ops/flash_attention.py``, and the ring's hops,
-``ops/ring_attention.py``)
+``ops/augment.py``, ``ops/flash_attention.py``, ``ops/block_fusions.py``,
+and the ring's hops, ``ops/ring_attention.py``)
 move only when Python calls a wrapper. A capture records what its
 wrappers added (``snapshot``, ``difference``), takes it back (nothing ran),
 and each replay adds it again (``add``).
@@ -53,7 +53,8 @@ from typing import Callable, Dict
 
 import torch
 
-from .ops import augment, flash_attention, nv12_rgb, resize, ring_attention
+from .ops import (augment, block_fusions, flash_attention, nv12_rgb,
+                  resize, ring_attention)
 
 # The counters a replay must advance: (module, attribute) pairs, each an
 # int or a dict of ints.
@@ -68,7 +69,9 @@ COUNTERS = tuple(
         "recompute_launches", "bwd_launches", "bwd_launches_by_design",
         "dout_copies")]
     + [(ring_attention, name) for name in ("launches_by_mode",
-                                           "bwd_launches_by_mode")])
+                                           "bwd_launches_by_mode")]
+    + [(block_fusions, name) for name in ("launches", "recompute_launches",
+                                          "grad_copies")])
 
 
 def leaves(tree):

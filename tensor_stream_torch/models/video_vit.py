@@ -18,6 +18,14 @@ The cast points are flax's, written out by hand (no autocast):
 * the tubelet Conv3D has stride equal to its kernel, so it is a patchify
   and one matmul (which also keeps cuDNN's TF32 out of f32 runs).
 
+The blocks' seams are one operator each (``ops/block_fusions.py``, a
+hand-written CUDA kernel on the card, the unfused ops on the CPU), with
+the rounding points above: a LayerNorm with the cast of its output
+(``ln_s``, ``ln_a``) and, before ``ln_t`` and ``ln_m``, the sublayer's
+output projection's bias and the residual add (``LayerNorm.add_cast``;
+that projection returns its product alone); the MLP's fc1 bias with the
+GELU (``ts::bias_gelu``).
+
 Parameters are f32. ``device=None`` means ``cuda:0`` and raises without a
 card; random init draws from an explicit ``torch.Generator`` (weights for
 parity come from the JAX package through ``models/convert.py``).
@@ -49,7 +57,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.flash_attention import band_mask, flash_attention, recomputing
+from ..ops._library import recomputing
+from ..ops.block_fusions import add_ln_cast, bias_gelu, ln_cast
+from ..ops.flash_attention import band_mask, flash_attention
 from ._train import _GraphedStep, graphed_train_step  # noqa: F401
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -104,14 +114,19 @@ class Dense(nn.Module):
                        else init.normal(shape, in_features ** -0.5))
         self.bias = init.const((out_features,), 0.0) if use_bias else None
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
+        """The layer; with ``bias`` False the product alone (the caller
+        adds the bias, fused with what follows: ``ops/block_fusions.py``)."""
         cd = self.compute_dtype
         y = F.linear(x.to(cd), self.weight.to(cd))
-        return y if self.bias is None else y + self.bias.to(cd)
+        return y if self.bias is None or not bias else y + self.bias.to(cd)
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=float32)``: f32 in and out, eps 1e-6."""
+    """flax ``nn.LayerNorm(dtype=float32)``: f32 in and out, eps 1e-6.
+    ``cast`` and ``add_cast`` are the blocks' seams, each one operator
+    (``ops/block_fusions.py``): the LayerNorm cast to a compute dtype, and
+    before it the residual add of a sublayer's output and bias."""
 
     def __init__(self, dim, init: _Init):
         super().__init__()
@@ -121,6 +136,15 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x.float(), self.weight.shape, self.weight,
                             self.bias, LN_EPS)
+
+    def cast(self, x, dtype):
+        """self(x).to(dtype)."""
+        return ln_cast(x, self.weight, self.bias, dtype, LN_EPS)
+
+    def add_cast(self, x, y, y_bias):
+        """(x', self(x').to(y.dtype)) for x' = x + (y + y_bias.to(y.dtype))
+        .to(x.dtype): a Dense's product `y` joining the residual `x`."""
+        return add_ln_cast(x, y, y_bias, self.weight, self.bias, LN_EPS)
 
 
 class MHA(nn.Module):
@@ -171,10 +195,13 @@ class MHA(nn.Module):
         self.value = Dense(dim, kv_heads * dh, compute_dtype, init)
         self.out = Dense(num_heads * dh, dim, compute_dtype, init)
 
-    def forward(self, x):
-        return self.attend(x, self.use_flash, self.causal, self.window)
+    def forward(self, x, out_bias=True):
+        """Attention over x; with ``out_bias`` False the output projection's
+        product without its bias (``Dense(bias=False)``)."""
+        return self.attend(x, self.use_flash, self.causal, self.window,
+                           out_bias)
 
-    def attend(self, x, use_flash, causal, window):
+    def attend(self, x, use_flash, causal, window, out_bias=True):
         """The forward with the core and its mask given by the caller
         (``models/streaming.py`` runs spatial attention on the materialized
         core with no mask, as the JAX stream does, whatever the block's
@@ -205,7 +232,7 @@ class MHA(nn.Module):
                 logits = logits.masked_fill(~mask, float("-inf"))
             probs = torch.softmax(logits, dim=-1).to(self.compute_dtype)
             o = torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
-        return self.out(o.reshape(*lead, s, self.num_heads * dh))
+        return self.out(o.reshape(*lead, s, self.num_heads * dh), out_bias)
 
     def _ring(self, x, q, k, v, causal, window, scale):
         from torch.distributed.tensor import DTensor
@@ -243,7 +270,9 @@ class MLP(nn.Module):
         self.fc2 = Dense(hidden_mult * dim, dim, compute_dtype, init)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        """fc2(gelu_tanh(fc1(x))), fc1's bias and the GELU one operator
+        (``ts::bias_gelu``)."""
+        return self.fc2(bias_gelu(self.fc1(x, bias=False), self.fc1.bias))
 
 
 class FactorizedBlock(nn.Module):
@@ -274,11 +303,18 @@ class FactorizedBlock(nn.Module):
         return x if self.act_sharding is None else self.act_sharding(x)
 
     def forward(self, x):
-        cd = self.compute_dtype
-        x = self._pin(x + self.attn_s(self.ln_s(x).to(cd)).to(x.dtype))
-        y = self.attn_t(self.ln_t(x).to(cd).transpose(1, 2))
-        x = self._pin(x + y.transpose(1, 2).to(x.dtype))
-        return self._pin(x + self.mlp(self.ln_m(x).to(cd)).to(x.dtype))
+        # Each sublayer's output projection returns its product alone: its
+        # bias, the residual add and the next LayerNorm with its cast are
+        # one operator (ln_t, ln_m: LayerNorm.add_cast). The temporal
+        # sublayer's product goes in as the transposed view it is.
+        h = self.ln_s.cast(x, self.compute_dtype)
+        x, h = self.ln_t.add_cast(x, self.attn_s(h, out_bias=False),
+                                  self.attn_s.out.bias)
+        x = self._pin(x)
+        y = self.attn_t(h.transpose(1, 2), out_bias=False).transpose(1, 2)
+        x, h = self.ln_m.add_cast(x, y, self.attn_t.out.bias)
+        x = self._pin(x)
+        return self._pin(x + self.mlp(h).to(x.dtype))
 
 
 class JointBlock(nn.Module):
@@ -301,9 +337,13 @@ class JointBlock(nn.Module):
     _pin = FactorizedBlock._pin
 
     def forward(self, x):
-        cd = self.compute_dtype
-        x = self._pin(x + self.attn(self.ln_a(x).to(cd)).to(x.dtype))
-        return self._pin(x + self.mlp(self.ln_m(x).to(cd)).to(x.dtype))
+        # As FactorizedBlock's: attn's bias, the residual add and ln_m with
+        # its cast are one operator.
+        h = self.ln_a.cast(x, self.compute_dtype)
+        x, h = self.ln_m.add_cast(x, self.attn(h, out_bias=False),
+                                  self.attn.out.bias)
+        x = self._pin(x)
+        return self._pin(x + self.mlp(h).to(x.dtype))
 
 
 def tubelet_tokens(m, clips):
@@ -421,8 +461,9 @@ class VideoViT(nn.Module):
 
 class _Remat:
     """One block under ``checkpoint``: its first call is the forward, a
-    later one the recompute in the backward, whose flash launches
-    ``ops.flash_attention`` counts apart (``recompute_launches``)."""
+    later one the recompute in the backward, whose kernel launches
+    ``ops.flash_attention`` and ``ops.block_fusions`` count apart
+    (``recompute_launches``, under ``ops._library.recomputing()``)."""
 
     def __init__(self, block):
         self.block = block

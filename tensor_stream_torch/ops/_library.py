@@ -10,10 +10,17 @@ program holds the operator and not the choice. The operators are
 registered with ``torch.library.Library`` directly: ``torch.library.
 custom_op``'s Python wrappers cost an eager call about 10 µs more of host
 time (on the CPU, against 3 µs here).
+
+``recomputing()`` marks the launches made while a checkpointed block runs
+again in the backward; each module that counts its launches reads
+``in_recompute()``.
 """
+import contextlib
+
 import torch
 
 _LIB = torch.library.Library("ts", "DEF")
+_RECOMPUTING = False
 
 
 def define(schema: str, cuda, cpu, fake):
@@ -40,3 +47,21 @@ def on_one_device(*tensors, cuda: bool = False):
             f"tensors on {[str(t.device) for t in tensors]}: the kernel "
             "needs them all on one CUDA device"
             + ("" if cuda else " (or all on the CPU)"))
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the kernel launches inside it as a checkpoint's recompute
+    (``models/video_vit.py`` enters it when a remat block runs again in the
+    backward)."""
+    global _RECOMPUTING
+    outer, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING = outer
+
+
+def in_recompute() -> bool:
+    """True inside ``recomputing()``."""
+    return _RECOMPUTING

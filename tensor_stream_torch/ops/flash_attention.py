@@ -25,23 +25,22 @@ head on mma.sync, one softmax pass), "mid" (bf16 at 64 < max(Sq, Sk) <=
 256 and d <= 64: K/V of a kv head staged once by TMA, a warpgroup a 64-row
 q tile on wgmma, m and l online over 64-column chunks) or "f32" (FMAs), as
 the library's ``ts_flash_fwd`` reports the kernel it launched; a forward
-launched while a checkpointed block is recomputed (``recomputing()``)
-also adds one to ``recompute_launches``. Each backward launch adds one to
-``bwd_launches`` and to its design's entry of ``bwd_launches_by_design``:
-"short" (bf16 at Sq and Sk <= 64, any d: one launch, a block staging its
-kv heads' whole q and kv sides), "mid" (bf16 at d = 64 and 64 < max(Sq,
-Sk) <= 256, without GQA or with at least 72 (batch, kv head) pairs: one
-launch, a block a kv head, five products on wgmma),
-"wgmma" (bf16 at d = 64: TMA and warp-specialised wgmma), "mma_sync"
-(bf16 at d = 32 and 128) or "f32" (FMAs), as the library's
-``ts_flash_bwd_design`` names the kernels it launches.
+launched while a checkpointed block is recomputed
+(``_library.recomputing()``) also adds one to ``recompute_launches``.
+Each backward launch adds one to ``bwd_launches`` and to its design's
+entry of ``bwd_launches_by_design``: "short" (bf16 at Sq and Sk <= 64,
+any d: one launch, a block staging its kv heads' whole q and kv sides),
+"mid" (bf16 at d = 64 and 64 < max(Sq, Sk) <= 256, without GQA or with
+at least 72 (batch, kv head) pairs: one launch, a block a kv head, five
+products on wgmma), "wgmma" (bf16 at d = 64: TMA and warp-specialised
+wgmma), "mma_sync" (bf16 at d = 32 and 128) or "f32" (FMAs), as the
+library's ``ts_flash_bwd_design`` names the kernels it launches.
 
 ``flash_attention`` is differentiable: with grad enabled and an input that
 requires grad it runs through ``_FlashAttention``, whose forward keeps the
 residuals (o, l, m) and whose backward is ``flash_attention_bwd``. Under
 ``torch.no_grad()`` it calls the residual-free forward alone.
 """
-import contextlib
 import ctypes
 from typing import Optional
 
@@ -49,7 +48,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .._device import kernel_device
+from .._device import kernel_device, stream_handle
 from . import _library
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -74,7 +73,6 @@ dout_copies = 0
 _FN = None
 _BWD_FN = None
 _BWD_DESIGN_FN = None
-_RECOMPUTING = False
 
 
 def reset_counts():
@@ -86,19 +84,6 @@ def reset_counts():
         launches_by_design[design] = 0
     for design in BWD_DESIGNS:
         bwd_launches_by_design[design] = 0
-
-
-@contextlib.contextmanager
-def recomputing():
-    """Marks the forward launches inside it as a checkpoint's recompute
-    (``models/video_vit.py`` enters it when a remat block runs again in the
-    backward)."""
-    global _RECOMPUTING
-    outer, _RECOMPUTING = _RECOMPUTING, True
-    try:
-        yield
-    finally:
-        _RECOMPUTING = outer
 
 
 def _kernel():
@@ -262,7 +247,7 @@ def _flash_fwd_cuda(q, k, v, causal, window, sm_scale, residuals):
                 _DTYPES[q.dtype], b, h, hk, sq, sk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *o.stride()[:3], sm_scale, int(causal),
-                window, torch.cuda.current_stream(q.device).cuda_stream,
+                window, stream_handle(q.device),
                 ctypes.byref(design))
     if rc != 0:
         raise RuntimeError(f"ts_flash_fwd launch failed: cudaError {rc}")
@@ -270,7 +255,7 @@ def _flash_fwd_cuda(q, k, v, causal, window, sm_scale, residuals):
     launches += 1
     launches_by_mode["band" if window else "causal" if causal else "full"] += 1
     launches_by_design[FWD_DESIGNS[design.value]] += 1
-    if _RECOMPUTING:
+    if _library.in_recompute():
         recompute_launches += 1
     return (o, l, m) if residuals else o
 
@@ -382,7 +367,7 @@ def _flash_bwd_cuda(q, k, v, o, l, m, do, causal, window, sm_scale):
                   for t in (q, k, v, o, do, l, m, scratch, dq, dk, dv)],
                 _DTYPES[q.dtype], b, h, hk, sq, sk, d, strides, sm_scale,
                 int(causal), window,
-                torch.cuda.current_stream(q.device).cuda_stream)
+                stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"ts_flash_bwd launch failed: cudaError {rc}")
     global bwd_launches

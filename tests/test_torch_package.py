@@ -207,7 +207,7 @@ def test_cuda_build_flags_pin_rounding():
         flags += " " + " ".join(extra)
     assert "fast_math" not in flags and "fast-math" not in flags
     assert _build.SOURCES == ("nv12_rgb", "flash_fwd", "flash_bwd",
-                              "resize_nv12", "clip_augment")
+                              "resize_nv12", "clip_augment", "block_fusions")
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.SRC_DIR, f"{name}.cu"))
 
