@@ -90,7 +90,9 @@ kernels:
   LayerNorm with its cast and, before ln_t and ln_m, the sublayer's bias
   and the residual add; ts::bias_gelu, fc1's bias and the GELU; and their
   backwards) held against their plain versions (the unfused ops) at
-  ViT-B's rows and the other models' widths, and timed; every path above
+  ViT-B's rows and the other models' widths, and timed held and warm
+  beside ATen's LayerNorm (a yardstick) and a device copy of as many
+  bytes; every path above
   that runs a ViT block runs them (serving, streaming's MLPs, both
   training steps, export, the meshed steps), their launches gated with
   the flash kernels'.
@@ -131,6 +133,7 @@ in alternating processes:
     python3 -c "import chip_smoke as c; c.flash_ab('dist/parent')"
     python3 -c "import chip_smoke as c; c.flash_bwd_ab('dist/parent')"
     python3 -c "import chip_smoke as c; c.resize_ab('dist/parent')"
+    python3 -c "import chip_smoke as c; c.fusion_ab('dist/parent')"
 
 and the host's enqueue time of eager calls (ViT-B's forward, a streaming
 step, one NV12 and one flash call), which the dispatcher's operators
@@ -609,10 +612,12 @@ def phase_main_path_synthetic(device, why):
 HOLD_CYCLES = 1_000_000  # about 0.5 ms of an H100's SM clock
 
 
-def time_ms(fn, device, iters=100, warmup=20, hold=True):
+def time_ms(fn, device, iters=100, warmup=20, hold=True, cold=True):
     """Per-call ms over `iters` calls after `warmup`: (median, p10, p90).
     CUDA events around each call, with L2 (50 MB) flushed before each so
-    the inputs come from HBM as they do after the H2D copy of a batch.
+    the inputs come from HBM as they do after the H2D copy of a batch
+    (`cold`; without it the call finds what the previous one left in L2,
+    as a kernel inside a graph replay finds its producer's output).
     With `hold`, a spin kernel keeps the card busy while the host enqueues
     the call, so the events bracket the device's time alone and not the
     host's (Python, ctypes, the tensor-map encoding); without it a call
@@ -623,7 +628,8 @@ def time_ms(fn, device, iters=100, warmup=20, hold=True):
         fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if cold:
+            flush.zero_()
         if hold:
             torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -2771,31 +2777,63 @@ def enqueue_us(fn, rounds=20, calls=50):
     return float(np.median(out))
 
 
-def fusion_time(device, name, lead, plain_fn, kernel_fn, nbytes):
-    """One kernel's row: its ms, its plain version's and the byte bound
-    (no library call computes these functions); the host's µs to enqueue
-    an eager call of each."""
+def fusion_time(device, name, lead, plain_fn, kernel_fn, nbytes,
+                library_fn=None):
+    """One kernel's row: its ms held (cold L2) and warm (the inputs left
+    in L2 by the previous call, as in a graph replay), its plain
+    version's, the byte bound, the copy floor (a device copy of half the
+    kernel's bytes, so as many read and written, held as the kernel is)
+    and, where given, the library yardstick's (`library_fn`, held); the
+    host's µs to enqueue an eager call of the kernel and of its plain
+    version."""
+    src = torch.empty(nbytes // 32 * 16, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
     with torch.no_grad():
         ms, p10, p90 = time_ms(kernel_fn, device)
+        warm = time_ms(kernel_fn, device, cold=False)[0]
         plain_ms = time_ms(plain_fn, device, iters=30, warmup=5)[0]
+        library_ms = (None if library_fn is None else
+                      time_ms(library_fn, device)[0])
+        copy_ms = time_ms(lambda: dst.copy_(src), device)[0]
         host = enqueue_us(kernel_fn), enqueue_us(plain_fn)
+    del src, dst
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"kernel": name, "rows_shape": list(lead), "ms": ms,
-            "p10_ms": p10, "p90_ms": p90, "plain_ms": plain_ms,
-            "host_us": host[0], "plain_host_us": host[1],
-            "library_ms": None, "bytes": nbytes, "bound_ms": bound_ms,
-            "bound_by": "bytes", "share_of_bound": bound_ms / ms}
+            "p10_ms": p10, "p90_ms": p90, "warm_ms": warm,
+            "copy_floor_ms": copy_ms, "plain_ms": plain_ms,
+            "host_us": host[0],
+            "plain_host_us": host[1], "library_ms": library_ms,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound": bound_ms / ms}
+
+
+# ATen's LayerNorm as the yardstick of ts::ln_cast and its backward: the
+# same bf16 rows, gamma and beta cast to bf16 (ATen refuses bf16 rows with
+# f32 parameters), F.layer_norm forward and the backward autograd runs on
+# it (native_layer_norm_backward).
+LN_LIBRARY_NOTE = ("yardstick only: parameters rounded to bf16, no bias or "
+                   "residual add; not the same function")
+
+
+def ln_library_fns(x, w, b, dh, eps):
+    """(forward, backward) calls of ATen's LayerNorm on x's rows with the
+    parameters in x's dtype (LN_LIBRARY_NOTE)."""
+    d = x.shape[-1]
+    w16, b16 = w.to(x.dtype), b.to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], w16, b16, eps)
+    return (lambda: torch.nn.functional.layer_norm(x, (d,), w16, b16, eps),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dh, x, [d], mean, rstd, w16, b16, [True, True, True]))
 
 
 def phase_block_fusions_times(device, smi):
     """The four kernels at FUSION_TIMED_ROWS, bf16 (D 768, fc1's 3,072),
     against their plain versions (the unfused ops) and the byte bound
     (each input read once, each output written once); ts::ln_cast with
-    and without the residual. No library call: no single PyTorch call
-    adds a bias and a residual before a LayerNorm or a bias before a
-    GELU, and ATen's LayerNorm refuses bf16 rows with the f32 parameters
-    (torch 2.11 on an H100: "expected scalar type BFloat16 but found
-    Float")."""
+    and without the residual, held (cold L2) and warm. ts::ln_cast and
+    its backward beside ATen's LayerNorm (LN_LIBRARY_NOTE: a yardstick,
+    not the same function); no library call for the GELU seams: no single
+    PyTorch call adds a bias before a GELU."""
     rows = []
     d, n, eps, bt = 768, 3072, 1e-6, torch.bfloat16
     for k, lead in enumerate(FUSION_TIMED_ROWS):
@@ -2808,27 +2846,28 @@ def phase_block_fusions_times(device, smi):
                                                           eps)
         dh = _seeded(h.shape, 75 + k).to(device, bt)
         dres = _seeded(h.shape, 76 + k).to(device, bt)
+        lib_fwd, lib_bwd = ln_library_fns(x, w, b, dh, eps)
         rows.append(fusion_time(
             device, "ln_cast_residual", lead,
             lambda: bf.ln_cast_plain(x, w, b, eps, bt, y, yb),
             lambda: torch.ops.ts.ln_cast.residual(x, y, yb, w, b, eps),
-            4 * row_bytes + stats))
+            4 * row_bytes + stats, lib_fwd))
         rows.append(fusion_time(
             device, "ln_cast", lead,
             lambda: bf.ln_cast_plain(x, w, b, eps, bt),
             lambda: torch.ops.ts.ln_cast(x, w, b, eps, bt),
-            2 * row_bytes + stats))
+            2 * row_bytes + stats, lib_fwd))
         rows.append(fusion_time(
             device, "ln_cast_bwd_residual", lead,
             lambda: bf.ln_cast_bwd_plain(dh, xp, mean, rstd, w, dres, bt),
             lambda: torch.ops.ts.ln_cast_bwd.residual(dh, dres, xp, mean,
                                                       rstd, w),
-            4 * row_bytes + stats + 3 * d * 4))
+            4 * row_bytes + stats + 3 * d * 4, lib_bwd))
         rows.append(fusion_time(
             device, "ln_cast_bwd", lead,
             lambda: bf.ln_cast_bwd_plain(dh, xp, mean, rstd, w),
             lambda: torch.ops.ts.ln_cast_bwd(dh, xp, mean, rstd, w),
-            3 * row_bytes + stats + 2 * d * 4))
+            3 * row_bytes + stats + 2 * d * 4, lib_bwd))
         fc1 = _seeded((*lead, n), 77 + k, 2.0).to(device, bt)
         fb = _seeded((n,), 78 + k, 0.5).to(device)
         dg = _seeded((*lead, n), 79 + k).to(device, bt)
@@ -2844,8 +2883,34 @@ def phase_block_fusions_times(device, smi):
             3 * act_bytes + 2 * n * 4))
         del x, y, xp, h, dh, dres, fc1, dg
     out = {"phase": "block_fusions_times", "card": smi, "dim": d,
-           "hidden": n, "dtype": "bf16", "rows": rows}
+           "hidden": n, "dtype": "bf16", "rows": rows,
+           "library_note": {"ln_cast": LN_LIBRARY_NOTE,
+                            "bias_gelu": "none: no PyTorch call adds a bias "
+                                         "before a GELU"},
+           "ln_plans": ln_plan_rows(device)}
     emit(out)
+    return out
+
+
+def ln_plan_rows(device):
+    """The plans ts::ln_cast and its backward run FUSION_TIMED_ROWS on, as
+    the library reports them (ts_ln_cast_ring, ts_ln_cast_bwd_groups),
+    held to their mirrors in ops/block_fusions.py (ln_fwd_plan,
+    ln_bwd_blocks) on this card's SMs."""
+    sms = sm_count(device)
+    out = {}
+    index = torch.cuda.current_device() if device.index is None else \
+        device.index
+    for count in (int(np.prod(lead)) for lead in FUSION_TIMED_ROWS):
+        with bf.kernel_device(torch.device("cuda", index)):
+            plan = ("ring" if bf._lib().ts_ln_cast_ring(count) else "wave")
+            blocks = bf._groups("ts_ln_cast_bwd_groups", count)
+        if (plan != bf.ln_fwd_plan(count, sms)
+                or blocks != bf.ln_bwd_blocks(count, sms)):
+            raise AssertionError(f"ts::ln_cast's plans at {count} rows "
+                                 f"({plan}, {blocks} blocks) leave their "
+                                 f"mirrors in ops/block_fusions.py")
+        out[str(count)] = {"ln_cast": plan, "ln_cast_bwd_blocks": blocks}
     return out
 
 
@@ -4529,6 +4594,63 @@ def flash_bwd_ab(other_root, blocks=1):
                     for row, (shape, causal, window) in zip(FLASH_BWD_TIMED,
                                                             cases)],
           "order": order, **got, "roots": roots})
+    return got
+
+
+# ts::ln_cast and ts::ln_cast_bwd, with and without the residual, at
+# FUSION_TIMED_ROWS (bf16, D 768) on phase_block_fusions_times' inputs
+# (seeds 70 + k, 75 + k, 76 + k), through the checkout's own operators,
+# held (cold L2) and warm; needs nothing of the other checkout but its
+# operators and chip_smoke's input helpers.
+FUSION_AB_SNIPPET = """
+import json, numpy as np, torch, chip_smoke as c
+HOLD_CYCLES = {hold}
+{timer}
+dev = torch.device("cuda", 0)
+d, eps, bt = 768, 1e-6, torch.bfloat16
+rows = []
+for k, lead in enumerate({leads}):
+    x, y, yb, w, b = c.ln_case_inputs(lead, d, bt, bt, "contiguous", 70 + k,
+                                      dev)
+    dh = c._seeded(x.shape, 75 + k).to(dev, bt)
+    dres = c._seeded(x.shape, 76 + k).to(dev, bt)
+    with torch.no_grad():
+        xp, h, mean, rstd = torch.ops.ts.ln_cast.residual(x, y, yb, w, b,
+                                                          eps)
+        for fn in (lambda: torch.ops.ts.ln_cast.residual(x, y, yb, w, b,
+                                                         eps),
+                   lambda: torch.ops.ts.ln_cast(x, w, b, eps, bt),
+                   lambda: torch.ops.ts.ln_cast_bwd.residual(
+                       dh, dres, xp, mean, rstd, w),
+                   lambda: torch.ops.ts.ln_cast_bwd(dh, xp, mean, rstd, w)):
+            rows.append([time_ms(fn, dev)[0],
+                         time_ms(fn, dev, cold=False)[0]])
+print(json.dumps(rows))
+"""
+FUSION_AB_KERNELS = ("ln_cast_residual", "ln_cast", "ln_cast_bwd_residual",
+                     "ln_cast_bwd")
+
+
+def fusion_ab(other_root, blocks=1):
+    """ts::ln_cast and ts::ln_cast_bwd (FUSION_AB_KERNELS) at each
+    FUSION_TIMED_ROWS shape in the checkout at `other_root` against this
+    one's (ab_turns; FUSION_AB_SNIPPET), held (cold L2) and warm. Prints
+    and returns {"other": [...], "this": [...]}: a list a turn of [held
+    ms, warm ms] a (shape, kernel), with the medians over the turns."""
+    code = FUSION_AB_SNIPPET.format(hold=HOLD_CYCLES,
+                                    timer=inspect.getsource(time_ms),
+                                    leads=list(FUSION_TIMED_ROWS))
+    got, order, roots = ab_turns(other_root, code, blocks)
+    cases = [{"rows_shape": list(lead), "kernel": name}
+             for lead in FUSION_TIMED_ROWS for name in FUSION_AB_KERNELS]
+    median = {k: [[float(np.median([turn[i][j] for turn in v]))
+                   for j in range(2)] for i in range(len(cases))]
+              for k, v in got.items()}
+    emit({"phase": "fusion_ab", "card": nvidia_smi(), "cases": cases,
+          "order": order, **got, "median_held_warm_ms": median,
+          "other_over_this_held": [o[0] / t[0] for o, t in
+                                   zip(median["other"], median["this"])],
+          "roots": roots})
     return got
 
 
@@ -6342,9 +6464,11 @@ def fusion_entries(worst, times, runs):
                                                 times["hidden"]],
                  "ms": main["ms"], "plain_ms": main["plain_ms"],
                  "bound_ms": main["bound_ms"], "bound_by": "bytes",
-                 "library_ms": None,
+                 "library_ms": main["library_ms"],
+                 "library_note": times["library_note"][fwd],
                  "by_shape": [{k: r[k] for k in (
-                     "kernel", "rows_shape", "ms", "plain_ms", "bound_ms")}
+                     "kernel", "rows_shape", "ms", "warm_ms", "plain_ms",
+                     "bound_ms", "library_ms")}
                      for r in times["rows"]
                      if r["kernel"].startswith(kernel)
                      and "bwd" not in r["kernel"].replace(kernel, "")]}

@@ -21,7 +21,9 @@
 //
 // Bound: device-memory bytes. A LayerNorm row of D values does some 10
 // operations a value; a GELU value some 20 (a tanh). At 3.35 TB/s, at the
-// factorized ViT-B step's 6,272 rows, D = 768, bf16:
+// factorized ViT-B step's 6,272 rows, D = 768, bf16 (a device copy of as
+// many bytes read and written takes about twice these under chip_smoke's
+// held timer, which finds L2 full of dirty lines):
 //   ts_ln_cast with the residual (x, y in; x', h out)  38.5 MB -> 11.5 us
 //   ts_ln_cast without it (x in; h out)                19.3 MB ->  5.8 us
 //   ts_ln_cast_bwd with the residual (dh, dres, x' in; dx out)
@@ -32,33 +34,54 @@
 // of the LayerNorm's output and gradient, the bias add's own pass, the
 // GELU's saved pre-activation).
 //
-// Design, simple and memory-bound:
-// - ts_ln_cast: a warp a row, 8 rows a 256-thread block. A lane holds
-//   J groups of 8 consecutive values (group lane + 32 j, J = ceil(D /
-//   256)) loaded with 16-byte vector loads; the row's sum and its sum of
-//   squared deviations are warp butterflies (every lane ends with the same
-//   bits), so the statistics never leave registers: mean = sum / D, then
-//   var = sum((v - mean)^2) / D (two passes over the registers, not flax's
-//   E[x^2] - E[x]^2), rstd = 1 / sqrt(var + eps), each an IEEE operation.
-//   x and y are read at their strides (up to three leading dims: the
-//   temporal sublayer hands y in as a transposed view); x' and h are
-//   written contiguous; each row's mean and rstd (f32) are kept for the
-//   backward.
-// - ts_ln_cast_bwd: a warp a row again, over a fixed grid of
-//   LnBwdGroups(rows) blocks of 8 warps, warp w of block g taking rows
-//   g * 8 + w, + 8 G, ... With xhat = (x' - mean) rstd and dh in f32:
-//   dxf = rstd (dh gamma - mean(dh gamma) - xhat mean(dh gamma xhat)),
+// Design, memory-bound: where a warp has more than one row, a persistent
+// grid whose rows arrive by 1-D bulk copies (cp.async.bulk, csrc/sm90.cuh)
+// into rings in shared memory, so the next rows' loads are in flight while
+// a row is reduced and stored.
+// - ts_ln_cast: two plans, routed by the row count (LnFwdRing, mirrored by
+//   ops/block_fusions.py::ln_fwd_plan). The ring (LnCast): blocks of 8
+//   warps, kFwdBlocksPerSm an SM; each warp owns a ring of `stages` slots
+//   (x's row and, with y, y's row) and takes rows w, w + W, w + 2W, ...
+//   (W warps in the grid); its lane 0 fills a slot by bulk copy on the
+//   slot's mbarrier and refills it with the warp's row `stages` further on
+//   as soon as the row's values are in registers; gamma, beta and b are
+//   read into shared memory once a block. Where each warp of that grid
+//   would have one row or none, the wave plan (LnCastWave: a warp a row,
+//   every row's loads in flight at once, the parameters through L1) is
+//   faster, and runs instead. In both a lane holds J groups of 8
+//   consecutive values (group lane + 32 j, J = ceil(D / 256)); the row's
+//   sum and its sum of squared deviations are warp butterflies (every lane
+//   ends with the same bits), so the statistics never leave registers:
+//   mean = sum / D, then var = sum((v - mean)^2) / D (two passes over the
+//   registers, not flax's E[x^2] - E[x]^2), rstd = 1 / sqrt(var + eps),
+//   each an IEEE operation. x and y are read at their strides (up to three
+//   leading dims: the temporal sublayer hands y in as a transposed view;
+//   each row is contiguous and 16-byte aligned, as a bulk copy needs); x'
+//   and h are written contiguous with 16-byte stores; each row's mean and
+//   rstd (f32) are kept for the backward.
+// - ts_ln_cast_bwd (LnCastBwd): blocks of 8 warps, at most
+//   kBwdBlocksPerSm an SM, block g taking the rows [g R / G, (g + 1) R /
+//   G) (R rows, G blocks) in tiles of 8 consecutive rows, in a ring of
+//   `stages` tile slots (dh, x' and, with the residual, dres) that lane 0
+//   of warp w fills with row w of a tile by bulk copy. For each tile, warp
+//   w takes the tile's row w: with xhat =
+//   (x' - mean) rstd and dh in f32, dxf = rstd (dh gamma - mean(dh gamma)
+//   - xhat mean(dh gamma xhat)) (the two means are warp butterflies),
 //   dx = X(dres + X(dxf)) (the residual stream's gradient, when given,
-//   added after the rounding, as autograd accumulates), and with the
-//   residual the bias's share C(dx). The column sums (dgamma, dbeta and the
-//   bias's db) are deterministic: each lane sums its columns over its rows
-//   in order, the block's 8 warps are summed in warp order through shared
-//   memory into one partial row a block, and ColumnSums adds the partial
-//   rows in a fixed order (eight strided runs of blocks, then the eight
-//   runs in turn). No float atomics: the same inputs give the same
-//   bytes, so a graphed training step equals the eager one bit for bit.
-//   db is rounded to C once summed, as the compute-dtype sum of the bias
-//   add's gradient is.
+//   added after the rounding, as autograd accumulates), stored to global
+//   memory and, with the bias, over dres in the slot. Then the block's
+//   threads sum the tile's columns from the same slot: thread t owns the 8
+//   columns 8 (t mod D/8) and the tile's rows r = t div (D/8) + k S (S =
+//   256 div (D/8) subsets), summing dh xhat, dh and the bias's share C(dx)
+//   over them in order; a thread keeps 24 sums, not a row's worth. At the
+//   end the subsets are added in subset order into one partial row a
+//   block, and ColumnSums adds the blocks' partial rows in a fixed order
+//   (eight strided runs of blocks, then the eight runs in turn). No float
+//   atomics and no work-stealing: the same inputs on the same card give
+//   the same bytes, so a graphed training step equals the eager one bit
+//   for bit. db is rounded to C once summed, as the compute-dtype sum of
+//   the bias add's gradient is. ops/block_fusions.py::ln_bwd_plan mirrors
+//   the rows' assignment.
 // - ts_bias_gelu: a grid-stride pass over 8-value vectors (16-byte loads
 //   and stores in bf16), the bias column of each vector from its index.
 // - ts_bias_gelu_bwd: recomputes the pre-activation from y and b (nothing
@@ -76,11 +99,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kRowsPerBlock = 8;     // ts_ln_cast(_bwd): warps a block
+constexpr int kWarps = 8;            // ts_ln_cast(_bwd): warps a block
+constexpr int kLnThreads = kWarps * 32;
 constexpr int kMaxGroups = 4;        // J: D <= 32 lanes x 8 x 4 = 1024
-constexpr int kLnBwdMaxBlocks = 264;
+constexpr int kMaxStages = 4;        // ring slots: a warp's (fwd), a block's (bwd)
+constexpr int kBarBytes = kWarps * kMaxStages * 8;  // the rings' mbarriers
+constexpr int kTile = kWarps;        // ts_ln_cast_bwd: rows a tile, one a warp
+// The blocks an SM each kernel's grid is sized for, and the shared memory
+// a block's ring may take, so that they fit an SM together at bf16 and
+// D 768 (3 forward blocks of 57 KB with the residual, 2 backward ones of
+// 83 KB); wider f32 rows take fewer blocks an SM.
+constexpr int kFwdBlocksPerSm = 3;
+constexpr int kBwdBlocksPerSm = 2;
+constexpr int kFwdRingBudget = 72 * 1024;
+constexpr int kBwdRingBudget = 104 * 1024;
 constexpr int kGeluThreads = 128;    // a slab: 128 threads x 8 columns
 constexpr int kGeluSlab = kGeluThreads * 8;
 constexpr int kGeluBwdMaxGroups = 384;
@@ -138,12 +176,20 @@ template <> __device__ __forceinline__ float Round<__nv_bfloat16>(float v) {
 }
 
 // A tensor's rows: up to three leading dims (sizes n1, n2 of the last two,
-// strides s0, s1, s2 in elements) over a contiguous last dim.
+// strides s0, s1, s2 in elements) over a contiguous last dim. Row indices
+// and sizes fit 32 bits (Valid), so the divisions are 32-bit ones, and
+// none is taken for a row of the first n2 (a contiguous tensor's every
+// row).
 struct Rows {
   long long n1, n2, s0, s1, s2;
   __device__ __forceinline__ long long Offset(long long r) const {
-    const long long i2 = r % n2, q = r / n2;
-    return (q / n1) * s0 + (q % n1) * s1 + i2 * s2;
+    const unsigned ur = static_cast<unsigned>(r);
+    const unsigned un2 = static_cast<unsigned>(n2);
+    if (ur < un2) return static_cast<long long>(ur) * s2;
+    const unsigned q = ur / un2, un1 = static_cast<unsigned>(n1);
+    return static_cast<long long>(q / un1) * s0 +
+           static_cast<long long>(q % un1) * s1 +
+           static_cast<long long>(ur - q * un2) * s2;
   }
 };
 
@@ -153,55 +199,120 @@ __device__ __forceinline__ float WarpSum(float s) {
   return s;
 }
 
-template <typename X, typename C, int J>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
-    LnCast(const X* __restrict__ x, Rows xr, const C* __restrict__ y,
-           Rows yr, const float* __restrict__ b,
-           const float* __restrict__ gamma, const float* __restrict__ beta,
-           X* __restrict__ xp, C* __restrict__ h, float* __restrict__ mean_out,
-           float* __restrict__ rstd_out, long long rows, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float v[J][8];
-  const X* xrow = x + xr.Offset(row);
+// The SMs of the current device, read once a device.
+inline int SmCount() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 132;
+  }
+  return counts[dev];
+}
+
+// Ring slots that fit `budget` next to `fixed` bytes, 2 to kMaxStages.
+inline int Stages(int budget, int fixed, int slot_bytes, int slots_a_stage) {
+  const int s = (budget - fixed) / (slot_bytes * slots_a_stage);
+  return s < 2 ? 2 : s > kMaxStages ? kMaxStages : s;
+}
+
+// ---------------------------------------------------------- ts_ln_cast
+
+// Shared memory: the rings' mbarriers, gamma, beta (and b with y) f32 [d],
+// then each warp's ring of `stages` slots of x's row (and y's).
+struct FwdLayout {
+  int params, row_x, row_bytes, stages, bytes;
+  FwdLayout(int d, int x_size, int c_size, bool with_y) {
+    params = (with_y ? 3 : 2) * d * 4;
+    row_x = d * x_size;
+    row_bytes = row_x + (with_y ? d * c_size : 0);
+    stages = Stages(kFwdRingBudget, kBarBytes + params, row_bytes, kWarps);
+    bytes = kBarBytes + params + kWarps * stages * row_bytes;
+  }
+};
+
+template <typename X, typename C>
+__device__ __forceinline__ void FetchRow(uint32_t slot, uint32_t bar,
+                                         const X* x, Rows xr, const C* y,
+                                         Rows yr, long long row, int d) {
+  const uint32_t xb = d * sizeof(X), yb = y != nullptr ? d * sizeof(C) : 0;
+  sm90::MbarExpectTx(bar, xb + yb);
+  sm90::BulkLoad(slot, x + xr.Offset(row), xb, bar);
+  if (y != nullptr) sm90::BulkLoad(slot + xb, y + yr.Offset(row), yb, bar);
+}
+
+// A lane's J groups of 8 values of a row (0 past d), as f32.
+template <typename T, int J>
+__device__ __forceinline__ void LoadRow(const T* row, int lane, int d,
+                                        float v[J][8]) {
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int c = (lane + 32 * j) * 8;
     if (c < d) {
-      Load8(xrow + c, v[j]);
+      Load8(row + c, v[j]);
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) v[j][k] = 0.f;
     }
   }
-  if (y != nullptr) {
-    const C* yrow = y + yr.Offset(row);
-    X* out = xp + row * d;
+}
+
+// v = x' = X(x + X(C(y + C(b)))) over a lane's groups, x in v, y read
+// from `yrow` (shared or global memory). Where X is C, X(t) of the
+// C-rounded t is t itself and is not taken again.
+template <typename X, typename C, int J>
+__device__ __forceinline__ void AddBiasResidual(float v[J][8],
+                                                const C* yrow,
+                                                const float* bias, int lane,
+                                                int d) {
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = (lane + 32 * j) * 8;
-      if (c < d) {
-        float yv[8], bv[8];
-        Load8(yrow + c, yv);
-        Load8(b + c, bv);
+  for (int j = 0; j < J; ++j) {
+    const int c = (lane + 32 * j) * 8;
+    if (c < d) {
+      float yv[8], bv[8];
+      Load8(yrow + c, yv);
+      Load8(bias + c, bv);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float t = Round<C>(yv[k] + Round<C>(bv[k]));
-          v[j][k] = Round<X>(v[j][k] + Round<X>(t));
-        }
-        Store8(out + c, v[j]);
+      for (int k = 0; k < 8; ++k) {
+        const float t = Round<C>(yv[k] + Round<C>(bv[k]));
+        v[j][k] = Round<X>(v[j][k] + (std::is_same<X, C>::value ? t
+                                                                : Round<X>(t)));
       }
     }
   }
+}
+
+// The row's mean: the lanes' sums in group order, a warp butterfly.
+template <int J>
+__device__ __forceinline__ float RowMean(const float v[J][8], int d) {
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) s += v[j][k];
   }
-  const float mean = WarpSum(s) / static_cast<float>(d);
+  return WarpSum(s) / static_cast<float>(d);
+}
+
+// The rest of a row once its mean is known: x' stored (with y), the
+// variance's second pass, h = (v - mean) rstd gamma + beta, the
+// statistics.
+template <typename X, typename C, int J>
+__device__ __forceinline__ void FinishRow(const float v[J][8], float mean,
+                                          long long row, int lane, int d,
+                                          float eps, const float* gs,
+                                          const float* bs, X* xp, C* h,
+                                          float* mean_out, float* rstd_out) {
+  if (xp != nullptr) {
+    X* out = xp + row * d;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = (lane + 32 * j) * 8;
+      if (c < d) Store8(out + c, v[j]);
+    }
+  }
   float q = 0.f;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
@@ -221,8 +332,8 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     const int c = (lane + 32 * j) * 8;
     if (c < d) {
       float g[8], be[8], o[8];
-      Load8(gamma + c, g);
-      Load8(beta + c, be);
+      Load8(gs + c, g);
+      Load8(bs + c, be);
 #pragma unroll
       for (int k = 0; k < 8; ++k) o[k] = (v[j][k] - mean) * rstd * g[k] + be[k];
       Store8(hrow + c, o);
@@ -234,113 +345,312 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   }
 }
 
-// The rows' count of groups of ts_ln_cast_bwd: one partial row a block.
-inline int LnBwdGroups(long long rows) {
-  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  return static_cast<int>(blocks < kLnBwdMaxBlocks ? blocks
-                                                   : kLnBwdMaxBlocks);
+// gamma, beta (and b with y) into shared memory, once a block.
+__device__ __forceinline__ void LoadParams(float* gs, const float* gamma,
+                                           const float* beta, const float* b,
+                                           int d) {
+  float* bs = gs + d;
+  float* ys_bias = bs + d;
+  for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4) {
+    *reinterpret_cast<float4*>(gs + c) =
+        *reinterpret_cast<const float4*>(gamma + c);
+    *reinterpret_cast<float4*>(bs + c) =
+        *reinterpret_cast<const float4*>(beta + c);
+    if (b != nullptr)
+      *reinterpret_cast<float4*>(ys_bias + c) =
+          *reinterpret_cast<const float4*>(b + c);
+  }
 }
 
-// partial: [Q][groups][d] f32, Q = 2 (dgamma, dbeta) or 3 (and db). A
-// row is read twice: once for the two row sums, then again (from L1) for
-// dx, so that a lane keeps only its column sums across rows.
 template <typename X, typename C, int J>
-__global__ void __launch_bounds__(kRowsPerBlock * 32, 2)
+__global__ void __launch_bounds__(kLnThreads, kFwdBlocksPerSm)
+    LnCast(const X* __restrict__ x, Rows xr, const C* __restrict__ y,
+           Rows yr, const float* __restrict__ b,
+           const float* __restrict__ gamma, const float* __restrict__ beta,
+           X* __restrict__ xp, C* __restrict__ h, float* __restrict__ mean_out,
+           float* __restrict__ rstd_out, long long rows, int d, float eps,
+           int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool with_y = y != nullptr;
+  float* gs = reinterpret_cast<float*>(smem + kBarBytes);
+  const int row_x = d * sizeof(X);
+  const int row_bytes = row_x + (with_y ? d * static_cast<int>(sizeof(C)) : 0);
+  unsigned char* ring = smem + kBarBytes + (with_y ? 3 : 2) * d * 4 +
+                        warp * stages * row_bytes;
+  const uint32_t bar0 = sm90::SmemAddr(smem) + warp * kMaxStages * 8;
+  const uint32_t ring0 = sm90::SmemAddr(ring);
+  const long long step = static_cast<long long>(gridDim.x) * kWarps;
+  const long long first = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (lane == 0) {
+    for (int s = 0; s < stages; ++s) sm90::MbarInit(bar0 + 8 * s, 1);
+    sm90::FenceBarrierInit();
+    for (int s = 0; s < stages; ++s) {
+      const long long row = first + s * step;
+      if (row < rows)
+        FetchRow(ring0 + s * row_bytes, bar0 + 8 * s, x, xr, y, yr, row, d);
+    }
+  }
+  LoadParams(gs, gamma, beta, with_y ? b : nullptr, d);  // while rows arrive
+  __syncthreads();
+  int slot = 0;
+  uint32_t phase = 0;
+  for (long long row = first; row < rows; row += step) {
+    sm90::MbarWait(bar0 + 8 * slot, phase);
+    const unsigned char* at = ring + slot * row_bytes;
+    float v[J][8];
+    LoadRow<X, J>(reinterpret_cast<const X*>(at), lane, d, v);
+    if (with_y)
+      AddBiasResidual<X, C, J>(v, reinterpret_cast<const C*>(at + row_x),
+                               gs + 2 * d, lane, d);
+    // Every lane's reads of the slot are in its sum: refill the slot.
+    const float mean = RowMean<J>(v, d);
+    if (lane == 0 && row + stages * step < rows)
+      FetchRow(ring0 + slot * row_bytes, bar0 + 8 * slot, x, xr, y, yr,
+               row + stages * step, d);
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+    FinishRow<X, C, J>(v, mean, row, lane, d, eps, gs, gs + d,
+                       with_y ? xp : nullptr, h, mean_out, rstd_out);
+  }
+}
+
+// The plan of ts_ln_cast for `rows`: the ring where a warp of its grid
+// streams more than one row, else the wave plan (LnCastWave), which has
+// every row's loads in flight at once and more warps an SM to reduce them
+// (tools/ln_variants.py times both plans on both sides of the line).
+// ops/block_fusions.py::ln_fwd_plan mirrors it.
+inline bool LnFwdRing(long long rows) {
+  return rows > static_cast<long long>(SmCount()) * kFwdBlocksPerSm * kWarps;
+}
+
+// The wave plan of ts_ln_cast (the design before the ring): a warp a row,
+// a block 8 rows, the grid one wave over the rows; each lane loads its
+// groups of x and y from global memory and gamma, beta and b through L1.
+template <typename X, typename C, int J>
+__global__ void __launch_bounds__(kLnThreads)
+    LnCastWave(const X* __restrict__ x, Rows xr, const C* __restrict__ y,
+               Rows yr, const float* __restrict__ b,
+               const float* __restrict__ gamma,
+               const float* __restrict__ beta, X* __restrict__ xp,
+               C* __restrict__ h, float* __restrict__ mean_out,
+               float* __restrict__ rstd_out, long long rows, int d,
+               float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  float v[J][8];
+  LoadRow<X, J>(x + xr.Offset(row), lane, d, v);
+  if (y != nullptr) AddBiasResidual<X, C, J>(v, y + yr.Offset(row), b, lane, d);
+  const float mean = RowMean<J>(v, d);
+  FinishRow<X, C, J>(v, mean, row, lane, d, eps, gamma, beta,
+                     y != nullptr ? xp : nullptr, h, mean_out, rstd_out);
+}
+
+// ------------------------------------------------------ ts_ln_cast_bwd
+
+// The backward's blocks: one a tile up to kBwdBlocksPerSm an SM.
+inline int LnBwdBlocks(long long rows) {
+  const long long cap = static_cast<long long>(SmCount()) * kBwdBlocksPerSm;
+  const long long tiles = (rows + kTile - 1) / kTile;
+  return static_cast<int>(tiles < cap ? tiles : cap);
+}
+
+// Shared memory: the ring's mbarriers, gamma f32 [d], the tile's mean and
+// rstd, the subsets' sums [256 / (d/8)][d] f32 (at most 8 KB), then
+// `stages` tile slots of dh [8][d] (C), x' [8][d] (X) and, with dres or
+// the bias, rd [8][d] (X: dres in, dx over it).
+struct BwdLayout {
+  int dh, xp, rd, tile, red, fixed, stages, bytes;
+  BwdLayout(int d, int x_size, int c_size, bool with_rd) {
+    dh = kTile * d * c_size;
+    xp = kTile * d * x_size;
+    rd = with_rd ? xp : 0;
+    tile = dh + xp + rd;
+    red = kLnThreads * 8 * 4;
+    fixed = kBarBytes + d * 4 + kTile * 8 + red;
+    stages = Stages(kBwdRingBudget, fixed, tile, 1);
+    bytes = fixed + stages * tile;
+  }
+};
+
+// partial: [Q][gridDim.x][d] f32, Q = 2 (dgamma, dbeta) or 3 (and db).
+template <typename X, typename C, int J>
+__global__ void __launch_bounds__(kLnThreads, J <= 3 ? kBwdBlocksPerSm : 1)
     LnCastBwd(const C* __restrict__ dh, Rows dhr, const X* __restrict__ dres,
               Rows dresr, const X* __restrict__ xp, Rows xpr,
               const float* __restrict__ mean_in,
               const float* __restrict__ rstd_in,
               const float* __restrict__ gamma, X* __restrict__ dx,
               float* __restrict__ partial, int with_bias, long long rows,
-              int d) {
-  __shared__ float red[kRowsPerBlock * 32 * 8 * kMaxGroups];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = gridDim.x;
-  float ag[J][8], ab[J][8], ad[J][8];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) ag[j][k] = ab[j][k] = ad[j][k] = 0.f;
+              int d, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool with_rd = dres != nullptr || with_bias;
+  float* gs = reinterpret_cast<float*>(smem + kBarBytes);
+  float* stats = gs + d;                 // [kTile][2]: mean, rstd
+  float* red = stats + 2 * kTile;        // [subsets][d]
+  const int dh_bytes = kTile * d * static_cast<int>(sizeof(C));
+  const int xp_bytes = kTile * d * static_cast<int>(sizeof(X));
+  const int tile_bytes = dh_bytes + xp_bytes + (with_rd ? xp_bytes : 0);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(red) +
+                        kLnThreads * 8 * 4;
+  const uint32_t bar0 = sm90::SmemAddr(smem), ring0 = sm90::SmemAddr(ring);
+  // This block's rows [r0, r1), tiles of kTile consecutive rows.
+  const long long r0 = rows * blockIdx.x / gridDim.x;
+  const long long r1 = rows * (blockIdx.x + 1) / gridDim.x;
+  const int tiles = static_cast<int>((r1 - r0 + kTile - 1) / kTile);
+  // Lane 0 of warp w: row w of tile t into the tile's slot, or a bare
+  // arrival past the block's last row (the slot's mbarrier counts 8).
+  auto fetch = [&](int t) {
+    const int s = t % stages;
+    const long long row = r0 + static_cast<long long>(t) * kTile + warp;
+    const uint32_t bar = bar0 + 8 * s;
+    if (row >= r1) {
+      sm90::MbarArrive(bar);
+      return;
+    }
+    const uint32_t slot = ring0 + s * tile_bytes;
+    const uint32_t dhb = d * sizeof(C), xb = d * sizeof(X);
+    sm90::MbarExpectTx(bar, dhb + xb + (dres != nullptr ? xb : 0));
+    sm90::BulkLoad(slot + warp * dhb, dh + dhr.Offset(row), dhb, bar);
+    sm90::BulkLoad(slot + dh_bytes + warp * xb, xp + xpr.Offset(row), xb,
+                   bar);
+    if (dres != nullptr)
+      sm90::BulkLoad(slot + dh_bytes + xp_bytes + warp * xb,
+                     dres + dresr.Offset(row), xb, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) sm90::MbarInit(bar0 + 8 * s, kWarps);
+    sm90::FenceBarrierInit();
   }
+  __syncthreads();
+  if (lane == 0) {
+    for (int t = 0; t < stages && t < tiles; ++t) fetch(t);
+  }
+  for (int c = tid * 4; c < d; c += kLnThreads * 4)
+    *reinterpret_cast<float4*>(gs + c) =
+        *reinterpret_cast<const float4*>(gamma + c);
+  // The column phase's owner: 8 columns, one subset of a tile's rows.
+  const int chunks = d / 8, subsets = kLnThreads / chunks;
+  const int cc = (tid % chunks) * 8, sub = tid / chunks;
+  float ag[8], ab[8], ad[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) ag[k] = ab[k] = ad[k] = 0.f;
   const float inv_d = 1.f / static_cast<float>(d);
-  for (long long row = static_cast<long long>(blockIdx.x) * kRowsPerBlock +
-                       warp;
-       row < rows; row += static_cast<long long>(groups) * kRowsPerBlock) {
-    const float mean = mean_in[row], rstd = rstd_in[row];
-    const C* dhrow = dh + dhr.Offset(row);
-    const X* xrow = xp + xpr.Offset(row);
-    float sg = 0.f, sgx = 0.f;
+  __syncthreads();
+  for (int t = 0; t < tiles; ++t) {
+    const long long a = r0 + static_cast<long long>(t) * kTile;
+    const int n = static_cast<int>(r1 - a < kTile ? r1 - a : kTile);
+    const int s = t % stages;
+    const C* dhs = reinterpret_cast<const C*>(ring + s * tile_bytes);
+    const X* xs = reinterpret_cast<const X*>(ring + s * tile_bytes +
+                                             dh_bytes);
+    X* rs = reinterpret_cast<X*>(ring + s * tile_bytes + dh_bytes + xp_bytes);
+    float mean = 0.f, rstd = 0.f;
+    if (warp < n) {
+      mean = mean_in[a + warp];
+      rstd = rstd_in[a + warp];
+    }
+    sm90::MbarWait(bar0 + 8 * s, (t / stages) & 1);
+    // The row phase: warp w, the tile's row w; dh gamma and xhat stay in
+    // registers between the two passes.
+    if (warp < n) {
+      const C* grow = dhs + warp * d;
+      const X* xrow = xs + warp * d;
+      float gg[J][8], xn[J][8];
+      float sg = 0.f, sgx = 0.f;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = (lane + 32 * j) * 8;
-      if (c < d) {
-        float g[8], xh[8], gm[8];
-        Load8(dhrow + c, g);
-        Load8(xrow + c, xh);
-        Load8(gamma + c, gm);
+      for (int j = 0; j < J; ++j) {
+        const int c = (lane + 32 * j) * 8;
+        if (c < d) {
+          float g[8], xh[8], gm[8];
+          Load8(grow + c, g);
+          Load8(xrow + c, xh);
+          Load8(gs + c, gm);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float xn = (xh[k] - mean) * rstd;
-          ag[j][k] += g[k] * xn;
-          ab[j][k] += g[k];
-          const float gg = g[k] * gm[k];
-          sg += gg;
-          sgx += gg * xn;
+          for (int k = 0; k < 8; ++k) {
+            xn[j][k] = (xh[k] - mean) * rstd;
+            gg[j][k] = g[k] * gm[k];
+            sg += gg[j][k];
+            sgx += gg[j][k] * xn[j][k];
+          }
         }
       }
-    }
-    const float mg = WarpSum(sg) * inv_d, mgx = WarpSum(sgx) * inv_d;
-    const X* rrow = dres != nullptr ? dres + dresr.Offset(row) : nullptr;
-    X* out = dx + row * d;
+      const float mg = WarpSum(sg) * inv_d, mgx = WarpSum(sgx) * inv_d;
+      X* rrow = rs + warp * d;
+      X* out = dx + (a + warp) * d;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = (lane + 32 * j) * 8;
-      if (c < d) {
-        float g[8], xh[8], gm[8], o[8];
-        Load8(dhrow + c, g);
-        Load8(xrow + c, xh);
-        Load8(gamma + c, gm);
+      for (int j = 0; j < J; ++j) {
+        const int c = (lane + 32 * j) * 8;
+        if (c < d) {
+          float o[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            o[k] = Round<X>(rstd * (gg[j][k] - mg - xn[j][k] * mgx));
+          if (dres != nullptr) {
+            float r[8];
+            Load8(rrow + c, r);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) o[k] = Round<X>(r[k] + o[k]);
+          }
+          Store8(out + c, o);
+          if (with_bias) Store8(rrow + c, o);
+        }
+      }
+      if (lane == 0) {
+        stats[2 * warp] = mean;
+        stats[2 * warp + 1] = rstd;
+      }
+      // dx over dres in the slot, before the slot's next bulk copy.
+      if (with_bias) sm90::FenceProxyAsync();
+    }
+    __syncthreads();
+    // The column phase: this thread's columns over its subset's rows.
+    if (sub < subsets) {
+      for (int r = sub; r < n; r += subsets) {
+        const float m = stats[2 * r], rs_ = stats[2 * r + 1];
+        float g[8], xh[8];
+        Load8(dhs + r * d + cc, g);
+        Load8(xs + r * d + cc, xh);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          const float xn = (xh[k] - mean) * rstd;
-          o[k] = Round<X>(rstd * (g[k] * gm[k] - mg - xn * mgx));
-        }
-        if (rrow != nullptr) {
-          float r[8];
-          Load8(rrow + c, r);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) o[k] = Round<X>(r[k] + o[k]);
+          const float xn = (xh[k] - m) * rs_;
+          ag[k] += g[k] * xn;
+          ab[k] += g[k];
         }
         if (with_bias) {
+          float o[8];
+          Load8(rs + r * d + cc, o);
 #pragma unroll
-          for (int k = 0; k < 8; ++k) ad[j][k] += Round<C>(o[k]);
+          for (int k = 0; k < 8; ++k)  // C(dx): dx itself where X is C
+            ad[k] += std::is_same<X, C>::value ? o[k] : Round<C>(o[k]);
         }
-        Store8(out + c, o);
       }
     }
+    __syncthreads();
+    if (lane == 0 && t + stages < tiles) fetch(t + stages);
   }
-  // The block's warps in warp order, one sum at a time.
+  // The subsets in subset order, one sum at a time, into the block's row.
   const int nq = with_bias ? 3 : 2;
   for (int qi = 0; qi < nq; ++qi) {
-    __syncthreads();
+    if (sub < subsets) {
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = (lane + 32 * j) * 8;
-      if (c < d) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          red[warp * d + c + k] = qi == 0 ? ag[j][k]
-                                  : qi == 1 ? ab[j][k] : ad[j][k];
-      }
+      for (int k = 0; k < 8; ++k)
+        red[sub * d + cc + k] = qi == 0 ? ag[k] : qi == 1 ? ab[k] : ad[k];
     }
     __syncthreads();
-    float* dst = partial + (static_cast<long long>(qi) * groups + blockIdx.x) *
-                               static_cast<long long>(d);
-    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float* dst = partial + (static_cast<long long>(qi) * gridDim.x +
+                            blockIdx.x) * static_cast<long long>(d);
+    for (int c = tid; c < d; c += kLnThreads) {
       float acc = 0.f;
-      for (int w = 0; w < kRowsPerBlock; ++w) acc += red[w * d + c];
+      for (int u = 0; u < subsets; ++u) acc += red[u * d + c];
       dst[c] = acc;
     }
+    __syncthreads();
   }
 }
 
@@ -463,30 +773,48 @@ inline Rows ReadRows(const long long* r) { return Rows{r[0], r[1], r[2], r[3], r
 inline int Groups(int d) { return (d / 8 + 31) / 32; }
 
 template <typename X, typename C, int J>
-void LaunchLn(const void* x, Rows xr, const void* y, Rows yr, const void* b,
-              const void* gamma, const void* beta, void* xp, void* h,
-              void* mean, void* rstd, long long rows, int d, float eps,
-              cudaStream_t stream) {
-  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  LnCast<X, C, J><<<static_cast<unsigned>(blocks), kRowsPerBlock * 32, 0,
-                    stream>>>(
+cudaError_t LaunchLn(const void* x, Rows xr, const void* y, Rows yr,
+                     const void* b, const void* gamma, const void* beta,
+                     void* xp, void* h, void* mean, void* rstd,
+                     long long rows, int d, float eps, cudaStream_t stream) {
+  const long long need = (rows + kWarps - 1) / kWarps;
+  if (!LnFwdRing(rows)) {
+    LnCastWave<X, C, J><<<static_cast<unsigned>(need), kLnThreads, 0,
+                          stream>>>(
+        static_cast<const X*>(x), xr, static_cast<const C*>(y), yr,
+        static_cast<const float*>(b), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<X*>(xp),
+        static_cast<C*>(h), static_cast<float*>(mean),
+        static_cast<float*>(rstd), rows, d, eps);
+    return cudaGetLastError();
+  }
+  const FwdLayout lay(d, sizeof(X), sizeof(C), y != nullptr);
+  const cudaError_t err = cudaFuncSetAttribute(
+      LnCast<X, C, J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lay.bytes);
+  if (err != cudaSuccess) return err;
+  const long long cap = static_cast<long long>(SmCount()) * kFwdBlocksPerSm;
+  LnCast<X, C, J><<<static_cast<unsigned>(need < cap ? need : cap),
+                    kLnThreads, lay.bytes, stream>>>(
       static_cast<const X*>(x), xr, static_cast<const C*>(y), yr,
       static_cast<const float*>(b), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<X*>(xp),
       static_cast<C*>(h), static_cast<float*>(mean),
-      static_cast<float*>(rstd), rows, d, eps);
+      static_cast<float*>(rstd), rows, d, eps, lay.stages);
+  return cudaGetLastError();
 }
 
 template <typename X, typename C>
-void LnByGroups(int groups, const void* x, Rows xr, const void* y, Rows yr,
-                const void* b, const void* gamma, const void* beta, void* xp,
-                void* h, void* mean, void* rstd, long long rows, int d,
-                float eps, cudaStream_t stream) {
+cudaError_t LnByGroups(int groups, const void* x, Rows xr, const void* y,
+                       Rows yr, const void* b, const void* gamma,
+                       const void* beta, void* xp, void* h, void* mean,
+                       void* rstd, long long rows, int d, float eps,
+                       cudaStream_t stream) {
   switch (groups) {
-    case 1: LaunchLn<X, C, 1>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream); break;
-    case 2: LaunchLn<X, C, 2>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream); break;
-    case 3: LaunchLn<X, C, 3>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream); break;
-    default: LaunchLn<X, C, 4>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream); break;
+    case 1: return LaunchLn<X, C, 1>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream);
+    case 2: return LaunchLn<X, C, 2>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream);
+    case 3: return LaunchLn<X, C, 3>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream);
+    default: return LaunchLn<X, C, 4>(x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, stream);
   }
 }
 
@@ -496,12 +824,18 @@ cudaError_t LaunchLnBwd(const void* dh, Rows dhr, const void* dres,
                         const void* mean, const void* rstd, const void* gamma,
                         void* dx, void* partial, int with_bias,
                         long long rows, int d, cudaStream_t stream) {
-  LnCastBwd<X, C, J><<<LnBwdGroups(rows), kRowsPerBlock * 32, 0, stream>>>(
+  const BwdLayout lay(d, sizeof(X), sizeof(C), dres != nullptr || with_bias);
+  const cudaError_t err = cudaFuncSetAttribute(
+      LnCastBwd<X, C, J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lay.bytes);
+  if (err != cudaSuccess) return err;
+  LnCastBwd<X, C, J><<<LnBwdBlocks(rows), kLnThreads, lay.bytes, stream>>>(
       static_cast<const C*>(dh), dhr, static_cast<const X*>(dres), dresr,
       static_cast<const X*>(xp), xpr, static_cast<const float*>(mean),
       static_cast<const float*>(rstd), static_cast<const float*>(gamma),
-      static_cast<X*>(dx), static_cast<float*>(partial), with_bias, rows, d);
-  return cudaSuccess;
+      static_cast<X*>(dx), static_cast<float*>(partial), with_bias, rows, d,
+      lay.stages);
+  return cudaGetLastError();
 }
 
 template <typename X, typename C>
@@ -528,8 +862,9 @@ void LaunchSums(const void* partial, int groups, int cols, int nq, void* out0,
       static_cast<float*>(out2), round_last);
 }
 
-bool Valid(int d, int x_dtype, int c_dtype) {
-  return d > 0 && d % 8 == 0 && Groups(d) <= kMaxGroups &&
+bool Valid(int d, int x_dtype, int c_dtype, long long rows) {
+  return rows > 0 && rows < (1ll << 31) && d > 0 && d % 8 == 0 &&
+         Groups(d) <= kMaxGroups &&
          (x_dtype == 0 || x_dtype == 1) && (c_dtype == 0 || c_dtype == 1);
 }
 
@@ -538,8 +873,12 @@ bool Valid(int d, int x_dtype, int c_dtype) {
 // Partial rows the backward kernels write (the wrapper allocates them):
 // ts_ln_cast_bwd [3][groups][d] f32, ts_bias_gelu_bwd [groups][n] f32.
 extern "C" int ts_ln_cast_bwd_groups(long long rows) {
-  return LnBwdGroups(rows);
+  return LnBwdBlocks(rows);
 }
+
+// 1 where ts_ln_cast runs `rows` on the ring (LnCast), 0 on the wave plan.
+extern "C" int ts_ln_cast_ring(long long rows) { return LnFwdRing(rows); }
+
 
 extern "C" int ts_bias_gelu_bwd_groups(long long rows) {
   return GeluBwdGroups(rows);
@@ -555,21 +894,22 @@ extern "C" int ts_ln_cast(const void* x, const long long* x_rows, int x_dtype,
                           void* xp, void* h, int c_dtype, void* mean,
                           void* rstd, long long rows, int d, float eps,
                           void* stream) {
-  if (!Valid(d, x_dtype, c_dtype) || rows <= 0)
+  if (!Valid(d, x_dtype, c_dtype, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const Rows xr = ReadRows(x_rows);
   const Rows yr = y != nullptr ? ReadRows(y_rows) : Rows{1, 1, 0, 0, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int j = Groups(d);
+  cudaError_t err;
   if (x_dtype == 0 && c_dtype == 0)
-    LnByGroups<__nv_bfloat16, __nv_bfloat16>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
+    err = LnByGroups<__nv_bfloat16, __nv_bfloat16>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
   else if (x_dtype == 1 && c_dtype == 0)
-    LnByGroups<float, __nv_bfloat16>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
+    err = LnByGroups<float, __nv_bfloat16>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
   else if (x_dtype == 0 && c_dtype == 1)
-    LnByGroups<__nv_bfloat16, float>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
+    err = LnByGroups<__nv_bfloat16, float>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
   else
-    LnByGroups<float, float>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
-  return static_cast<int>(cudaGetLastError());
+    err = LnByGroups<float, float>(j, x, xr, y, yr, b, gamma, beta, xp, h, mean, rstd, rows, d, eps, s);
+  return static_cast<int>(err);
 }
 
 // dh (c_dtype), dres (x_dtype, or null) and xp (x_dtype) at their strides;
@@ -584,7 +924,7 @@ extern "C" int ts_ln_cast_bwd(const void* dh, const long long* dh_rows,
                               void* partial, void* dgamma, void* dbeta,
                               void* db, int with_bias, long long rows, int d,
                               void* stream) {
-  if (!Valid(d, x_dtype, c_dtype) || rows <= 0)
+  if (!Valid(d, x_dtype, c_dtype, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const Rows dhr = ReadRows(dh_rows), xpr = ReadRows(xp_rows);
   const Rows rr = dres != nullptr ? ReadRows(dres_rows) : Rows{1, 1, 0, 0, 0};
@@ -600,9 +940,7 @@ extern "C" int ts_ln_cast_bwd(const void* dh, const long long* dh_rows,
   else
     err = LnBwdByGroups<float, float>(j, dh, dhr, dres, rr, xp, xpr, mean, rstd, gamma, dx, partial, with_bias, rows, d, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = LnBwdGroups(rows), nq = with_bias ? 3 : 2;
+  const int groups = LnBwdBlocks(rows), nq = with_bias ? 3 : 2;
   if (c_dtype == 0)
     LaunchSums<__nv_bfloat16>(partial, groups, d, nq, dgamma, dbeta, db, with_bias, s);
   else

@@ -55,6 +55,10 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 KERNELS = ("ln_cast", "ln_cast_bwd", "bias_gelu", "bias_gelu_bwd")
 MAX_DIM = 1024  # ts::ln_cast: D a multiple of 8, at most 32 lanes x 32
 GELU_MAX_DIM = 1 << 30  # ts::bias_gelu: N a multiple of 8 (int column indices)
+LN_TILE = 8  # ts::ln_cast_bwd: rows a tile, one a warp (csrc kTile)
+LN_THREADS = 256  # threads a block of LnCast and LnCastBwd (kLnThreads)
+LN_FWD_BLOCKS_PER_SM = 3  # kFwdBlocksPerSm
+LN_BWD_BLOCKS_PER_SM = 2  # kBwdBlocksPerSm
 
 launches = dict.fromkeys(KERNELS, 0)
 recompute_launches = dict.fromkeys(("ln_cast", "bias_gelu"), 0)
@@ -86,11 +90,12 @@ def _lib():
                                        + [i, ll, i, v])
         lib.ts_bias_gelu.argtypes = [v, v, v, i, ll, i, v]
         lib.ts_bias_gelu_bwd.argtypes = [v] * 6 + [i, ll, i, v]
-        for name in ("ts_ln_cast_bwd_groups", "ts_bias_gelu_bwd_groups"):
+        for name in ("ts_ln_cast_bwd_groups", "ts_bias_gelu_bwd_groups",
+                     "ts_ln_cast_ring"):
             getattr(lib, name).argtypes = [ll]
         for name in ("ts_ln_cast", "ts_ln_cast_bwd", "ts_bias_gelu",
                      "ts_bias_gelu_bwd", "ts_ln_cast_bwd_groups",
-                     "ts_bias_gelu_bwd_groups"):
+                     "ts_bias_gelu_bwd_groups", "ts_ln_cast_ring"):
             getattr(lib, name).restype = i
         _LIB = lib
     return _LIB
@@ -148,6 +153,48 @@ def bias_gelu_bwd_plain(dg, y, bias):
     u = y + bias.to(y.dtype)
     dy = torch.ops.aten.gelu_backward(dg, u, approximate="tanh")
     return dy, dy.sum_to_size(bias.shape).float()
+
+
+# ------------------------------------------------------------ launch plans
+
+def ln_fwd_plan(rows, sms):
+    """The plan ``ts::ln_cast`` runs `rows` on (``LnFwdRing``, which the
+    library's ``ts_ln_cast_ring`` answers): "ring" (``LnCast``: a
+    persistent grid of LN_FWD_BLOCKS_PER_SM blocks of 8 warps an SM, rows
+    streamed by bulk copies through a ring a warp) where a warp of that
+    grid has more than one row, else "wave" (``LnCastWave``: a warp a row,
+    every row in one wave)."""
+    return "ring" if rows > sms * LN_FWD_BLOCKS_PER_SM * 8 else "wave"
+
+
+def ln_bwd_blocks(rows, sms):
+    """The grid of ``ts::ln_cast_bwd`` (``LnBwdBlocks``, which the
+    library's ``ts_ln_cast_bwd_groups`` returns): a block a tile of
+    LN_TILE rows, at most LN_BWD_BLOCKS_PER_SM blocks an SM; one partial
+    row of column sums a block."""
+    return min(-(-rows // LN_TILE), sms * LN_BWD_BLOCKS_PER_SM)
+
+
+def ln_bwd_plan(rows, blocks, stages=2):
+    """The rows ``LnCastBwd`` gives each of its `blocks` blocks, in the
+    order the block walks them: block g takes rows [g R / G, (g + 1) R /
+    G) (R rows, G blocks) in tiles of up to LN_TILE consecutive rows, tile
+    t into ring slot t mod `stages`. Returns a list a block of (slot,
+    range of rows) a tile."""
+    plan = []
+    for g in range(blocks):
+        r0, r1 = rows * g // blocks, rows * (g + 1) // blocks
+        plan.append([(t % stages, range(a, min(a + LN_TILE, r1)))
+                     for t, a in enumerate(range(r0, r1, LN_TILE))])
+    return plan
+
+
+def ln_bwd_subsets(d):
+    """(chunks, subsets) of ``LnCastBwd``'s column phase: thread t owns
+    the 8 columns 8 (t mod chunks) of the tile's rows t div chunks + k
+    subsets; threads past chunks x subsets sum nothing."""
+    chunks = d // 8
+    return chunks, LN_THREADS // chunks
 
 
 # ------------------------------------------------------------ CUDA wrappers
@@ -278,9 +325,10 @@ def _ln_cast_bwd_cuda(dh, x, mean, rstd, weight, dres=None, residual=False):
         d, dtype=torch.float32, device=x.device)
         for _ in range(3 if residual else 2)]
     if rows:
-        partial = torch.empty(3 * _groups("ts_ln_cast_bwd_groups", rows) * d,
-                              dtype=torch.float32, device=x.device)
         with kernel_device(x.device):
+            partial = torch.empty(
+                3 * _groups("ts_ln_cast_bwd_groups", rows) * d,
+                dtype=torch.float32, device=x.device)
             rc = _lib().ts_ln_cast_bwd(
                 dh.data_ptr(), _rows(dh, "dh"),
                 None if dres is None else dres.data_ptr(),
