@@ -1813,6 +1813,24 @@ FLASH_CASES = [
     ("short_band_past_one_tile", (64, 6, 2, 64, 64, 64), True, 8, "bshd"),
     ("short_symmetric_band", (64, 4, 4, 40, 40, 32), False, 6, "bhsd"),
     ("short_mha_32", (64, 4, 4, 32, 32, 64), False, None, "bshd"),
+    # MHA self-attention at S <= 8 (FlashFwdPacked in the short design:
+    # 16 // S heads a 16-row tile), at ViT-B's 12 heads: the factorized
+    # ViT-B's temporal attention at 8 and 16 frames, as the model's views
+    # and as [B, H, S, d]; S = 1, 3, 5, 7 (spare rows past 15, 15, 12,
+    # 14), causal, a causal and a symmetric band; d = 32 and 128; a head
+    # count that leaves the last tile part-filled (7,021 heads, 2 a tile).
+    ("packed_vit_b_temporal_8f", (1568, 12, 12, 4, 4, 64), False, None,
+     "bshd"),
+    ("packed_vit_b_temporal_16f", (784, 12, 12, 8, 8, 64), False, None,
+     "bshd"),
+    ("packed_s4_bhsd", (1568, 12, 12, 4, 4, 64), False, None, "bhsd"),
+    ("packed_s1", (6272, 12, 12, 1, 1, 64), False, None, "bshd"),
+    ("packed_s3_causal", (2090, 12, 12, 3, 3, 64), True, None, "bshd"),
+    ("packed_s5_band", (1254, 12, 12, 5, 5, 64), True, 2, "bshd"),
+    ("packed_s7_symmetric_band", (896, 12, 12, 7, 7, 64), False, 3, "bhsd"),
+    ("packed_s4_d32", (1568, 12, 12, 4, 4, 32), True, None, "bshd"),
+    ("packed_s8_d128", (784, 12, 12, 8, 8, 128), False, 4, "bshd"),
+    ("packed_s6_ragged_tile", (1003, 7, 7, 6, 6, 64), False, None, "bshd"),
     # Mid-length sequences (64 < max(Sq, Sk) <= 256: the "mid" design in
     # bf16 at d <= 64; ragged_100 and ragged_200_causal above and the
     # twin's spatial attention are mid too): the factorized ViT-B's
@@ -1857,19 +1875,26 @@ def phase_flash_vs_plain():
     l and m at the f32 rule. TF32 is off for the plain version's f32
     products (its stated numerics are full f32). Each case must launch the
     design fwd_design names; a "short" or "mid" case is launched twice and
-    must give the same bytes. Returns the worst o error of the cases
-    without a window and of those with one (the band mode), and of the
-    "short" and "mid" designs'."""
+    must give the same bytes. A "short" case's launch plan, as the library
+    reports it (flash_plan), must be the one fa.short_fwd_plan mirrors:
+    FlashFwdPacked (heads packed 16 // S a tile) for MHA self-attention at
+    S <= fa.PACK_MAX, else FlashFwdShort. Returns the worst o error of the
+    cases without a window and of those with one (the band mode), of the
+    "short" and "mid" designs', and of the packed kernel's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    worst = {"no_window": 0.0, "window": 0.0, "short": 0.0, "mid": 0.0}
+    worst = {"no_window": 0.0, "window": 0.0, "short": 0.0, "mid": 0.0,
+             "packed": 0.0}
     for i, (name, shape, causal, window, layout) in enumerate(FLASH_CASES):
         dtypes = (torch.bfloat16,) if name in BF16_ONLY else \
             (torch.bfloat16, torch.float32)
         for dtype in dtypes:
             q, k, v = _flash_case(*shape, dtype, 200 + i, layout)
             design = fwd_design(dtype, shape[5], shape[3], shape[4])
+            kernel = None
+            if design == "short":
+                kernel = short_plan_checked(*shape, q.device)["kernel"]
             before = fa.launches_by_design[design]
             o, l, m = fa.flash_attention_fwd(q, k, v, causal=causal,
                                              window=window)
@@ -1894,15 +1919,22 @@ def phase_flash_vs_plain():
             worst[mode] = max(worst[mode], errs["o"])
             if design in RELAUNCHED:
                 worst[design] = max(worst[design], errs["o"])
+            if kernel == "FlashFwdPacked":
+                worst["packed"] = max(worst["packed"], errs["o"])
             rows.append({"case": name, "shape": list(shape),
                          "dtype": str(dtype).split(".")[-1],
                          "causal": causal, "window": window,
                          "layout": layout, "design": design,
+                         "kernel": kernel,
                          "tol": FLASH_TOL[dtype], **errs,
                          "checks": checks, "ok": ok})
             if not ok:
                 emit({"phase": "flash_vs_plain", "cases": rows})
                 raise AssertionError(f"flash kernel != plain: {rows[-1]}")
+    ran = {r["kernel"] for r in rows} - {None}
+    if ran != {"FlashFwdPacked", "FlashFwdShort"}:
+        raise AssertionError(f"flash: the short design ran {ran}, want both "
+                             "FlashFwdPacked and FlashFwdShort")
     emit({"phase": "flash_vs_plain", "allow_tf32": False,
           "inputs": {"qk_std": FLASH_QK_STD, "v_std": FLASH_V_STD},
           "tolerance": {"o_bf16": FLASH_TOL[torch.bfloat16],
@@ -2017,7 +2049,10 @@ FWD_DESIGN_NOTES = {
     "tiled": "bf16 past S = 256: TMA ring, warp-specialised wgmma, 192 or "
              "128 q rows a block",
     "short": "bf16 at Sq and Sk <= 64: a warp a 16-row head on mma.sync, "
-             "the whole row in one softmax pass, K/V once a kv head",
+             "the whole row in one softmax pass, K/V once a kv head "
+             "(FlashFwdShort); MHA self-attention at S <= 8: 16 // S heads "
+             "a tile, a persistent grid, each warp's next tile copied in "
+             "while it computes one (FlashFwdPacked)",
     "mid": "bf16 at 64 < max(Sq, Sk) <= 256, d <= 64: K/V of a kv head "
            "staged once by TMA, a warpgroup a 64-row q tile on wgmma, m "
            "and l online over 64-column chunks (the last cut to 16 where "
@@ -3391,12 +3426,19 @@ def phase_streaming(device, smi):
 
 
 def flash_plan(design, b, h, hk, sq, sk, d, device):
-    """The launch plan of a "mid" forward, a "short" or a "mid" backward
-    ("short_bwd", "mid_bwd") at a shape, as the library computes it
-    (ts_flash_fwd_mid_plan, ts_flash_bwd_short_plan,
-    ts_flash_bwd_mid_plan), with the waves it makes on this card; None for
-    another design."""
-    if design == "mid":
+    """The launch plan of a "short" or "mid" forward, a "short" or a "mid"
+    backward ("short_bwd", "mid_bwd") at a shape, as the library computes
+    it (ts_flash_fwd_short_plan, ts_flash_fwd_mid_plan,
+    ts_flash_bwd_short_plan, ts_flash_bwd_mid_plan), with the waves it
+    makes on this card; None for another design. A short forward's plan
+    names its kernel: FlashFwdPacked where a tile packs more than one
+    head (a persistent grid: its waves are the tiles a warp takes in
+    turn), else FlashFwdShort."""
+    if design == "short":
+        keys = ("heads_a_tile", "heads_a_block", "blocks", "smem_a_block",
+                "stages", "blocks_an_sm", "warps_a_block")
+        fn = _build.load("flash_fwd").ts_flash_fwd_short_plan
+    elif design == "mid":
         keys = ("blocks_an_sm", "blocks_a_kv_head", "blocks", "warps_a_block",
                 "smem_a_block")
         fn = _build.load("flash_fwd").ts_flash_fwd_mid_plan
@@ -3418,6 +3460,29 @@ def flash_plan(design, b, h, hk, sq, sk, d, device):
         raise RuntimeError(f"{design} plan: cudaError {rc}")
     plan = dict(zip(keys, out))
     plan["waves"] = plan["blocks"] / (sm_count(device) * plan["blocks_an_sm"])
+    if design == "short":
+        packed = plan["heads_a_tile"] > 1
+        plan["kernel"] = "FlashFwdPacked" if packed else "FlashFwdShort"
+        if packed:
+            tiles = -(-b * h // plan["heads_a_tile"])
+            plan["tiles_a_warp"] = tiles / (plan["blocks"]
+                                            * plan["warps_a_block"])
+    return plan
+
+
+def short_plan_checked(b, h, hk, sq, sk, d, device):
+    """flash_plan's "short" forward plan at a shape, which must be what
+    fa.short_fwd_plan mirrors (kernel, heads a tile and a block, blocks,
+    shared memory, stages, warps)."""
+    plan = flash_plan("short", b, h, hk, sq, sk, d, device)
+    want = fa.short_fwd_plan(b, h, hk, sq, sk, d, sm_count(device))
+    got = {"kernel": plan["kernel"], "pack": plan["heads_a_tile"],
+           "heads": plan["heads_a_block"], "blocks": plan["blocks"],
+           "smem": plan["smem_a_block"], "stages": plan["stages"],
+           "warps": plan["warps_a_block"]}
+    if any(got[k] != want[k] for k in got):
+        raise AssertionError(f"short forward plan at {(b, h, hk, sq, sk, d)}"
+                             f": the library's {got}, the mirror's {want}")
     return plan
 
 
@@ -3610,16 +3675,26 @@ def ramp_clips(batch, size, device, frames=TRAIN_VIT["frames"]):
             torch.from_numpy(mask).to(device))
 
 
-def kernel_ms(prof):
-    """{kernel name: device ms} of a torch.profiler run: the device's own
-    records (kernels, copies, sets), not the ranges that record_function
-    and the ATen ops mark on the device's timeline (is_user_annotation),
-    which would count their kernels twice."""
+def device_records(prof):
+    """The device's own records of a torch.profiler run (kernels, copies,
+    sets), not the ranges that record_function and the ATen ops mark on
+    the device's timeline (is_user_annotation), which would count their
+    kernels twice."""
     cuda = torch.autograd.DeviceType.CUDA
-    return {e.key: e.self_device_time_total / 1e3
-            for e in prof.key_averages()
+    return [e for e in prof.key_averages()
             if e.device_type == cuda and not e.is_user_annotation
-            and e.self_device_time_total > 0}
+            and e.self_device_time_total > 0]
+
+
+def kernel_ms(prof):
+    """{kernel name: device ms} of a torch.profiler run's device_records."""
+    return {e.key: e.self_device_time_total / 1e3
+            for e in device_records(prof)}
+
+
+def kernel_calls(prof):
+    """{kernel name: launches} of a torch.profiler run's device_records."""
+    return {e.key: e.count for e in device_records(prof)}
 
 
 def first_step_grads(model, opt):
@@ -3974,8 +4049,9 @@ def factorized_flops():
 
 def factorized_launches(n, use_flash):
     """The launches n factorized steps must make: a step's 12 spatial
-    forwards "mid" and 12 temporal "short", its 12 spatial backwards
-    "mid" and 12 temporal "short" (none on the materialized path); on both
+    forwards "mid" and 12 temporal "short" (FlashFwdPacked), its 12
+    spatial backwards "mid" and 12 temporal "short" (none on the
+    materialized path); on both
     paths a block's 3 ts::ln_cast (ln_s, and ln_t and ln_m with their
     residual adds) and 1 ts::bias_gelu, forward and backward, no
     grad_copies."""
@@ -4000,7 +4076,10 @@ def phase_factorized_training(device, smi):
     run bit-equal to the eager one (every loss, every parameter), a finite
     loss at every step, the two paths' first losses within the bf16 model
     rule, their first-step gradients within TRAIN_GRAD_BOUNDS, the flash
-    path's loss falling over its first 8 steps. Printed: each run's step
+    path's loss falling over its first 8 steps, and where the profiler
+    recorded the graphed flash run's replay, its forward kernels: 12
+    FlashFwdMid (spatial) and 12 FlashFwdPacked (temporal, S = 4), no
+    FlashFwdShort. Printed: each run's step
     ms, tokens/s, MFU (vit_train_flops over the dense bf16 peak), peak
     memory, graph replay device ms and idle share, one replay of each
     graphed run split by kernel (torch.profiler: the flash kernels by
@@ -4033,6 +4112,15 @@ def phase_factorized_training(device, smi):
                             "want 1 and all but the first")
         if not np.isfinite(row["loss"]).all():
             failures.append(f"{name} {key}: loss {row['loss']}")
+        split = row.get("replay_profile")
+        if use_flash and split and split["recorded"]:
+            kernels = {k: v["calls"] for k, v in split["flash_kernels"].items()
+                       if k.startswith("FlashFwd")}
+            want = {"FlashFwdMid": FACTORIZED_VIT["depth"],
+                    "FlashFwdPacked": FACTORIZED_VIT["depth"]}
+            if kernels != want:
+                failures.append(f"{name} {key}: a replay's forward kernels "
+                                f"{kernels}, want {want}")
     flash, eager, plain = (rows["flash"], rows["flash_eager"],
                            rows["materialized"])
     if all(r["outcome"] == "ran" for r in rows.values()):
@@ -4224,6 +4312,7 @@ def kernel_group(key):
 # it contains (csrc/flash_fwd.cu, csrc/flash_bwd.cu; Delta serves both
 # the mma_sync and the f32 backward).
 FLASH_DESIGN_OF = (("FlashFwdMid", "fwd_mid"), ("FlashFwdShort", "fwd_short"),
+                   ("FlashFwdPacked", "fwd_short"),
                    ("FlashFwdBf16", "fwd_tiled"), ("FlashFwdF32", "fwd_f32"),
                    ("FlashBwdShort", "bwd_short"),
                    ("FlashBwdPacked", "bwd_short"),
@@ -4234,21 +4323,30 @@ FLASH_DESIGN_OF = (("FlashFwdMid", "fwd_mid"), ("FlashFwdShort", "fwd_short"),
                    ("DqF32", "bwd_f32"), ("Delta", "bwd_delta"))
 
 
-def split_kernels(kernels, top=8):
+def split_kernels(kernels, top=8, calls=None):
     """{kernel: ms} of one step summed by group (kernel_group: the flash
     kernels, cuBLAS GEMMs, the rest, which is the elementwise ops,
     reductions and copies), the flash kernels by design, and the `top`
-    kernels."""
-    groups, designs = {}, {}
+    kernels; with `calls` ({kernel: launches}), each flash kernel's ms
+    and launches by its name (FLASH_DESIGN_OF's)."""
+    groups, designs, flash = {}, {}, {}
     for key, ms in kernels.items():
         groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + ms
-        design = next((d for w, d in FLASH_DESIGN_OF if w in key), None)
+        word, design = next(((w, d) for w, d in FLASH_DESIGN_OF if w in key),
+                            (None, None))
         if design is not None:
             designs[design] = designs.get(design, 0.0) + ms
+            if calls is not None:
+                got = flash.setdefault(word, {"ms": 0.0, "calls": 0})
+                got["ms"] += ms
+                got["calls"] += calls.get(key, 0)
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
-    return {"device_ms": sum(kernels.values()), "groups_ms": groups,
-            "flash_by_design_ms": designs, "kernels": len(kernels),
-            "top_ms": dict(ranked)}
+    out = {"device_ms": sum(kernels.values()), "groups_ms": groups,
+           "flash_by_design_ms": designs, "kernels": len(kernels),
+           "top_ms": dict(ranked)}
+    if calls is not None:
+        out["flash_kernels"] = flash
+    return out
 
 
 def replay_split(replay, replay_ms, top=8):
@@ -4263,7 +4361,7 @@ def replay_split(replay, replay_ms, top=8):
     with torch.profiler.profile(activities=acts) as prof:
         replay()
         torch.cuda.synchronize()
-    out = split_kernels(kernel_ms(prof), top)
+    out = split_kernels(kernel_ms(prof), top, kernel_calls(prof))
     out.update(source="torch.profiler, one graph replay",
                recorded=out["device_ms"] > 0, graph_replay_ms=replay_ms)
     return out
@@ -4684,6 +4782,7 @@ for key, name, batch, size, remat, clips, mask, kw in runs:
                 "replay_ms": row["step_device_ms"],
                 "groups_ms": split["groups_ms"],
                 "flash_by_design_ms": split["flash_by_design_ms"],
+                "flash_kernels": split.get("flash_kernels"),
                 "profiled_ms": split["device_ms"],
                 "top_ms": split["top_ms"]}}
     del clips, mask
@@ -6653,6 +6752,18 @@ def run(device):
                       "mid": timed(fwd_cases["vit_b_spatial"]),
                       "mid_twin_spatial": timed(fwd_cases["twin_spatial"])},
         "max_abs_err_by_design": {d: flash_worst[d] for d in RELAUNCHED},
+        "short_kernels": {
+            "FlashFwdPacked": {
+                "serves": "MHA self-attention at S <= 8",
+                "max_abs_err": flash_worst["packed"],
+                "at": {c: {**timed(fwd_cases[c]), "plan": fwd_cases[c]["plan"]}
+                       for c in ("vit_b_temporal_8f", "vit_b_temporal")}},
+            "FlashFwdShort": {
+                "serves": "the rest of Sq, Sk <= 64 (GQA, cross-attention, "
+                          "9 <= S <= 64)",
+                "at": {"twin_temporal": {
+                    **timed(fwd_cases["twin_temporal"]),
+                    "plan": fwd_cases["twin_temporal"]["plan"]}}}},
         "recompute_launches": {k: v["flash_fwd_recompute"]
                                for k, v in train.items()},
         "max_abs_err": flash_worst["no_window"], "ms": flash["ms"],

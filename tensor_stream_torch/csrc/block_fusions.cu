@@ -199,18 +199,7 @@ __device__ __forceinline__ float WarpSum(float s) {
   return s;
 }
 
-// The SMs of the current device, read once a device.
-inline int SmCount() {
-  static int counts[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    counts[dev] = n > 0 ? n : 132;
-  }
-  return counts[dev];
-}
+using sm90::SmCount;
 
 // Ring slots that fit `budget` next to `fixed` bytes, 2 to kMaxStages.
 inline int Stages(int budget, int fixed, int slot_bytes, int slots_a_stage) {

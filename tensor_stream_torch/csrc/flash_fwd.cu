@@ -100,6 +100,20 @@
 //     stores are 16 bytes a lane too.
 //   * A 1-D grid over the kv heads: no 65535 limit on y or z; at
 //     [392, 6, 16, 64] 588 blocks of 27 KB, one wave.
+// MHA self-attention at S <= 8 (the factorized ViT-B's temporal attention,
+// [1568, 12, 4, 64] in training) takes FlashFwdPacked inside the same
+// design: at S = 4 a 16-row tile of one head would be three quarters
+// padding in every copy, ldmatrix, product and store, and a block would
+// load, then compute, then store. There the work is 0.15 GFLOP against
+// 38.5 MB of q, k, v, o (and 0.6 MB of l, m): bound by bytes (11.5 us).
+//   * A tile packs 16 / S heads, each in its diagonal block (P = 0 off
+//     it); S, P and O are one 16 x 16 column pair's registers.
+//   * A warp needs only its tile's own 16 rows of Q, K and V, so warps
+//     work alone: a persistent grid of PackBlocksPerSm blocks an SM, each
+//     warp through a ring of kPackStages slots of its own, the next tile's
+//     cp.async copies in flight while it computes the current one.
+//   * A warp's copies sweep each tile's rows in the order that lies
+//     closest in memory (a run of pack heads a row in the model's views).
 //
 // bf16 at mid-length sequences (64 < max(Sq, Sk) <= 256, d <= 64, every
 // mode): FlashFwdMid. It serves the factorized VideoViT's spatial
@@ -798,21 +812,333 @@ __global__ void __launch_bounds__(kShortWarps * 32, ShortBlocksPerSm<D>())
   }
 }
 
+// ------------------------ bf16, MHA self-attention at S <= 8: packed heads
+
+// Heads of S <= kPackMax rows (MHA self-attention) packed 16 / S to a
+// 16-row tile: FlashFwdPacked, the twin of flash_bwd.cu's FlashBwdPacked,
+// which reads the l and m it writes.
+constexpr int kPackMax = 8;
+constexpr int kPackWarps = 4;        // warps a block, each on tiles of its own
+constexpr int kPackStages = 2;       // a warp's ring: tiles staged or landing
+constexpr int kPackBlocksPerSm = 3;  // the persistent grid's blocks an SM
+
+// Blocks an SM of the persistent grid: kPackBlocksPerSm at d <= 64 (55 KB
+// of rings a block at d = 64); 2 at d = 128, whose rings take 104 KB. At
+// [1568, 12, 4, 64] 3 blocks read 25.33 us held against 25.81 at 2 (the
+// last of a warp's turns 97% full, not 45%), 25.42 at 4, 35.90 at 1; at
+// 2 blocks, one slot a warp read 32.58 and three 27.33 (an H100 80GB HBM3
+// at 700 W, tools/flash_variants.py short_fwd).
+template <int D>
+constexpr int PackBlocksPerSm() {
+  return D <= 64 ? kPackBlocksPerSm : 2;
+}
+
+// A warp's ring: kPackStages slots of Q, K and V, 16 padded rows each.
+template <int D>
+constexpr int SmemPacked() {
+  return kPackWarps * kPackStages * 3 * 16 * (D + kShortPad) * 2;
+}
+
+using sm90::SmCount;
+
+// Whether rows rq and rk of a tile of packed heads of s rows each are a
+// live pair: the same head, one of the tile's `pack`, and Live there.
+__device__ __forceinline__ bool LivePacked(const Params& p, int pack, int s,
+                                           int rq, int rk) {
+  const int hq = rq / s;
+  return hq == rk / s && hq < pack && Live(p, rq - hq * s, rk - hq * s);
+}
+
+// Copy k of a tile's 16 rows: head *ih of the tile (pack or more: a spare
+// row), row *lr of it, at tile row *r = *ih * s + *lr. The pack * s live
+// rows go row-major over (lr, ih) where the heads lie closer together in
+// memory than the rows (the model's [B, S, H, d] views: a warp's copies
+// then sweep runs of pack heads), else over (ih, lr); spare rows last.
+__device__ __forceinline__ void PackedRow(int k, int pack, int s, bool smajor,
+                                          int* r, int* ih, int* lr) {
+  if (k >= pack * s) {
+    *r = k;
+    *ih = pack;
+    *lr = 0;
+    return;
+  }
+  *ih = smajor ? k % pack : k / s;
+  *lr = smajor ? k / pack : k % s;
+  *r = *ih * s + *lr;
+}
+
+// FlashFwdShort for MHA self-attention at S <= kPackMax (H == Hk, Sq ==
+// Sk), where a 16-row tile of one head is at least half padding (three
+// quarters at the factorized ViT-B's S = 4). Tile t holds the `pack` = 16
+// / S heads [t pack, (t + 1) pack) in the flat order b * H + h, head i of
+// it at rows [i S, (i + 1) S), the rows past pack * S spare. A logit is
+// live only within its head's diagonal block (LivePacked), so the heads
+// of a tile do not see each other: P = 0 exactly off it, and no spare row
+// writes o, l or m. The tile's Q, K and V are its own 16 rows, so a warp
+// needs nothing of the other warps: a persistent grid, each warp on the
+// tiles warp, warp + W, ... (W warps in all), through a ring of
+// kPackStages slots of its own, tile u + kPackStages - 1 copied in by
+// cp.async while tile u is computed. The products are one 16 x 16 column
+// pair (S = Q K^T: d / 16 steps; O = P V: one step), so S, P and O take
+// the registers of the live tile alone. Numerics are FlashFwdShort's: the
+// raw dot products, the row max and exp2 in f32, l the f32 sum of p (each
+// lane's four columns, then across its quad), P rounded to bf16 before P
+// V, o = acc * (l == 0 ? 1 : 1/l), m the row max times the scale. O goes
+// through the slot's Q rows to 16-byte stores; each output is written
+// once, so two launches give the same bytes.
+template <int D>
+__global__ void __launch_bounds__(kPackWarps * 32, PackBlocksPerSm<D>())
+    FlashFwdPacked(const Params p, int pack, int smajor) {
+  constexpr int LD = D + kShortPad;
+  constexpr int CPR = D / 8;       // 16-byte pieces a row
+  constexpr int kTile = 16 * LD;   // a staged 16-row tile
+  using mma_sync::CpAsync16;
+  using mma_sync::LoadA;
+  using mma_sync::LoadB;
+  using mma_sync::LoadBt;
+  using mma_sync::Mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) +
+                        warp * kPackStages * 3 * kTile;
+  const int s = p.Sq;
+  const long long heads = static_cast<long long>(p.B) * p.H;
+  const long long tiles = (heads + pack - 1) / pack;
+  const long long step = static_cast<long long>(gridDim.x) * kPackWarps;
+  const long long w0 = static_cast<long long>(blockIdx.x) * kPackWarps + warp;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v);
+
+  // The batch b0 and head h0 of tile t's first head.
+  auto first_of = [&](long long t, int* b0, int* h0) {
+    const long long head = t * pack;
+    *b0 = static_cast<int>(head / p.H);
+    *h0 = static_cast<int>(head - static_cast<long long>(*b0) * p.H);
+  };
+  // The batch and head of head ih of tile t, whose first is (b0, h0);
+  // false for a spare row or past the last head.
+  auto locate = [&](long long t, int b0, int h0, int ih, int* b, int* h) {
+    if (ih >= pack || t * pack + ih >= heads) return false;
+    *b = b0;
+    *h = h0 + ih;
+    if (*h >= p.H) {
+      const int wrap = *h / p.H;
+      *b += wrap;
+      *h -= wrap * p.H;
+    }
+    return true;
+  };
+  // Q, K and V of tile t into a slot, zeros in spare rows.
+  auto stage = [&](long long t, __nv_bfloat16* slot) {
+    int b0, h0;
+    first_of(t, &b0, &h0);
+#pragma unroll
+    for (int i = lane; i < 16 * CPR; i += 32) {
+      const int k = i / CPR, col = (i % CPR) * 8;
+      int r, ih, lr, b = 0, h = 0;
+      PackedRow(k, pack, s, smajor, &r, &ih, &lr);
+      const bool in = locate(t, b0, h0, ih, &b, &h);
+      const long long qo = in ? b * p.qsb + h * p.qsh + lr * p.qss : 0;
+      const long long ko = in ? b * p.ksb + h * p.ksh + lr * p.kss : 0;
+      const long long vo = in ? b * p.vsb + h * p.vsh + lr * p.vss : 0;
+      CpAsync16(slot + r * LD + col, qg + qo + col, in);
+      CpAsync16(slot + kTile + r * LD + col, kg + ko + col, in);
+      CpAsync16(slot + 2 * kTile + r * LD + col, vg + vo + col, in);
+    }
+  };
+
+#pragma unroll
+  for (int u = 0; u < kPackStages - 1; ++u) {
+    const long long t = w0 + u * step;
+    if (t < tiles) stage(t, ring + u * 3 * kTile);
+    mma_sync::CpAsyncCommit();
+  }
+  const int g = lane >> 2, c = lane & 3;
+  const float c2 = p.scale * kLog2e;
+  long long t = w0;
+  for (int u = 0; t < tiles; ++u, t += step) {
+    // The slot of tile u + kPackStages - 1 held tile u - 1, whose O the
+    // lanes have read out by now.
+    __syncwarp();
+    const long long ahead = t + (kPackStages - 1) * step;
+    if (ahead < tiles)
+      stage(ahead, ring + (u + kPackStages - 1) % kPackStages * 3 * kTile);
+    mma_sync::CpAsyncCommit();
+    mma_sync::CpAsyncWait<kPackStages - 1>();
+    __syncwarp();
+    __nv_bfloat16* qs = ring + u % kPackStages * 3 * kTile;
+    const __nv_bfloat16* ks = qs + kTile;
+    const __nv_bfloat16* vs = qs + 2 * kTile;
+
+    // S = Q K^T over the tile (raw dot products).
+    float sc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], bk[4];
+      LoadA(qa, qs, LD, 0, 16 * kk, lane);
+      LoadBt(bk, ks, LD, 0, 16 * kk, lane);
+      Mma(sc[0], qa, bk[0], bk[1]);
+      Mma(sc[1], qa, bk[2], bk[3]);
+    }
+
+    // One softmax pass a row over its head's diagonal block: sc[j][e] is
+    // row g + 8 (e/2), column 8j + 2c + (e%2).
+    float l_row[2], m_row[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      float mx = kMask;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!LivePacked(p, pack, s, row, 8 * j + 2 * c + e))
+            sc[j][2 * r + e] = kMask;
+          mx = fmaxf(mx, sc[j][2 * r + e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mc = mx > kMask ? mx * c2 : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sm90::Exp2(fmaf(sc[j][2 * r + e], c2, -mc));
+          sc[j][2 * r + e] = x;
+          sum += x;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_row[r] = sum;
+      m_row[r] = mx;
+    }
+
+    // O = P V, P rounded to bf16 pairs in registers.
+    uint32_t pa[1][4];
+    mma_sync::PackA<2>(pa, sc);
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+    for (int n0 = 0; n0 < D; n0 += 16) {
+      uint32_t bv[4];
+      LoadB(bv, vs, LD, 0, n0, lane);
+      Mma(o[n0 / 8], pa[0], bv[0], bv[1]);
+      Mma(o[n0 / 8 + 1], pa[0], bv[2], bv[3]);
+    }
+
+    // O through the slot's Q rows to 16-byte stores; l and m beside it
+    // (a tile's live rows are l's and m's rows [t pack s, (t + 1) pack s)).
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      const float inv = l_row[r] == 0.f ? 1.f : 1.f / l_row[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(qs + row * LD + 8 * j + 2 * c) =
+            PackBf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      const long long at = t * pack * s + row;
+      if (c == 0 && p.l != nullptr && row < pack * s && at < heads * s) {
+        p.l[at] = l_row[r];
+        p.m[at] = m_row[r] * p.scale;
+      }
+    }
+    __syncwarp();
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o);
+    int b0, h0;
+    first_of(t, &b0, &h0);
+#pragma unroll
+    for (int i = lane; i < 16 * CPR; i += 32) {
+      const int k = i / CPR, col = (i % CPR) * 8;
+      int r, ih, lr, b, h;
+      PackedRow(k, pack, s, smajor, &r, &ih, &lr);
+      if (locate(t, b0, h0, ih, &b, &h))
+        *reinterpret_cast<uint4*>(og + b * p.osb + h * p.osh + lr * p.oss +
+                                  col) =
+            *reinterpret_cast<const uint4*>(qs + r * LD + col);
+    }
+  }
+  mma_sync::CpAsyncWait<0>();
+}
+
+// The launch plan of the short design at a shape. FlashFwdPacked serves
+// MHA self-attention at S <= kPackMax: a persistent grid of at most
+// PackBlocksPerSm blocks an SM, a warp a tile of 16 / S heads at a time.
+// FlashFwdShort serves the rest: as many kv heads a block as give its
+// warps a 16-row q tile each, all of a block's tiles loaded before the
+// first product.
+struct ShortFwdPlan {
+  int pack;    // heads a 16-row tile: above 1 for FlashFwdPacked
+  int heads;   // heads a block takes at a time (kv heads for FlashFwdShort)
+  int blocks;
+  int smem;    // dynamic shared memory a block
+  int stages;  // tiles a warp has staged or landing
+  int smajor;  // FlashFwdPacked: copies over (row, head), else (head, row)
+};
+
+inline bool Packed(const Params& p) {
+  return p.H == p.Hk && p.Sq == p.Sk && p.Sq <= kPackMax;
+}
+
+// Fills `plan` and opts the kernel it names in to its shared memory.
+template <int D>
+cudaError_t PlanShort(const Params& p, ShortFwdPlan* plan) {
+  ShortFwdPlan& x = *plan;
+  long long blocks;
+  if (Packed(p)) {
+    x.pack = 16 / p.Sq;
+    x.heads = kPackWarps * x.pack;
+    const long long tiles =
+        (static_cast<long long>(p.B) * p.H + x.pack - 1) / x.pack;
+    blocks = (tiles + kPackWarps - 1) / kPackWarps;
+    const long long grid = static_cast<long long>(SmCount()) *
+                           PackBlocksPerSm<D>();
+    if (blocks > grid) blocks = grid;
+    x.smem = SmemPacked<D>();
+    x.stages = kPackStages;
+    x.smajor = p.qsh < p.qss;
+  } else {
+    const int tasks = p.H / p.Hk * ((p.Sq + 15) / 16);
+    x.pack = 1;
+    x.heads = tasks >= kShortWarps ? 1 : kShortWarps / tasks;
+    blocks = (static_cast<long long>(p.B) * p.Hk + x.heads - 1) / x.heads;
+    x.smem = SmemShort<D>(x.heads, p.Sk);
+    x.stages = 1;
+    x.smajor = 0;
+  }
+  x.blocks = static_cast<int>(blocks);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  if (x.smem <= 48 * 1024) return cudaSuccess;
+  return x.pack > 1 ? cudaFuncSetAttribute(
+                          FlashFwdPacked<D>,
+                          cudaFuncAttributeMaxDynamicSharedMemorySize, x.smem)
+                    : cudaFuncSetAttribute(
+                          FlashFwdShort<D>,
+                          cudaFuncAttributeMaxDynamicSharedMemorySize, x.smem);
+}
+
 template <int D>
 cudaError_t LaunchShort(const Params& p, cudaStream_t stream) {
-  const int tasks = p.H / p.Hk * ((p.Sq + 15) / 16);
-  const int heads = tasks >= kShortWarps ? 1 : kShortWarps / tasks;
-  const long long blocks =
-      (static_cast<long long>(p.B) * p.Hk + heads - 1) / heads;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  const int smem = SmemShort<D>(heads, p.Sk);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        FlashFwdShort<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  FlashFwdShort<D><<<static_cast<int>(blocks), kShortWarps * 32, smem,
-                     stream>>>(p, heads);
+  ShortFwdPlan x;
+  const cudaError_t err = PlanShort<D>(p, &x);
+  if (err != cudaSuccess) return err;
+  if (x.pack > 1)
+    FlashFwdPacked<D><<<x.blocks, kPackWarps * 32, x.smem, stream>>>(
+        p, x.pack, x.smajor);
+  else
+    FlashFwdShort<D><<<x.blocks, kShortWarps * 32, x.smem, stream>>>(
+        p, x.heads);
   return cudaGetLastError();
 }
 
@@ -1209,7 +1535,8 @@ cudaError_t Launch(Kernel kernel, int smem, dim3 grid, const Params& p,
 }
 
 // The design ts_flash_fwd launches: 0 "tiled" (TMA and wgmma), 1 "short"
-// (mma.sync, Sq and Sk <= kShortMax), 2 "f32", 3 "mid" (TMA and wgmma, Sq
+// (mma.sync, Sq and Sk <= kShortMax: FlashFwdPacked or FlashFwdShort, as
+// PlanShort picks), 2 "f32", 3 "mid" (TMA and wgmma, Sq
 // and Sk <= kMidMax, one of them past kShortMax, d <= 64). The shape alone
 // chooses.
 int Design(int dtype, int d, int sq, int sk) {
@@ -1285,6 +1612,41 @@ int MidOccupancy(int sk, int* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[0], FlashFwdMid<D>, MidCfg<D>::kThreads, out[4]));
+}
+
+// The launch plan of the "short" design (Design() == 1) at a shape, for a
+// caller that reports it: out[0] the heads a 16-row tile (FlashFwdPacked
+// where above 1, else FlashFwdShort), out[1] the heads a block takes at a
+// time, out[2] the blocks, out[3] the shared memory a block, out[4] the
+// tiles a warp has staged or landing, out[5] the blocks an SM holds,
+// out[6] the warps a block. Returns a cudaError_t.
+template <int D>
+int ReportShort(const Params& p, int* out) {
+  ShortFwdPlan x;
+  const cudaError_t err = PlanShort<D>(p, &x);
+  const int plan[] = {x.pack, x.heads, x.blocks, x.smem, x.stages, 0,
+                      x.pack > 1 ? kPackWarps : kShortWarps};
+  for (int i = 0; i < 7; ++i) out[i] = plan[i];
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      x.pack > 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &out[5], FlashFwdPacked<D>, kPackWarps * 32, x.smem)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &out[5], FlashFwdShort<D>, kShortWarps * 32, x.smem));
+}
+
+extern "C" int ts_flash_fwd_short_plan(int d, int B, int H, int Hk, int Sq,
+                                       int Sk, int* out) {
+  Params p{};
+  p.B = B; p.H = H; p.Hk = Hk; p.Sq = Sq; p.Sk = Sk;
+  // The model's [B, S, H, d] views (the copy order only).
+  p.qsh = d; p.qss = static_cast<long long>(H) * d;
+  switch (d) {
+    case 32: return ReportShort<32>(p, out);
+    case 64: return ReportShort<64>(p, out);
+    case 128: return ReportShort<128>(p, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The launch plan of the "mid" design (Design() == 3) at a shape, for a

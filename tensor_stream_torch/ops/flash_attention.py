@@ -21,7 +21,8 @@ its mode's entry of ``launches_by_mode``: "band" with a window (the mode
 that serves ``_band_kernel``), else "causal" or "full", and to its
 design's entry of ``launches_by_design``: "tiled" (bf16: TMA and
 warp-specialised wgmma), "short" (bf16 at Sq and Sk <= 64: a warp a 16-row
-head on mma.sync, one softmax pass), "mid" (bf16 at 64 < max(Sq, Sk) <=
+head on mma.sync, one softmax pass; MHA self-attention at S <= 8 packs 16 /
+S heads a tile, ``short_fwd_plan``), "mid" (bf16 at 64 < max(Sq, Sk) <=
 256 and d <= 64: K/V of a kv head staged once by TMA, a warpgroup a 64-row
 q tile on wgmma, m and l online over 64-column chunks) or "f32" (FMAs), as
 the library's ``ts_flash_fwd`` reports the kernel it launched; a forward
@@ -59,6 +60,11 @@ MODES = ("full", "causal", "band")
 FWD_DESIGNS = ("tiled", "short", "f32", "mid")
 BWD_DESIGNS = ("wgmma", "mma_sync", "f32", "short", "mid")
 BWD_TILE = 64  # rows of the backward's q tiles, whose statistics it pads
+# The short forward's launch plan (csrc/flash_fwd.cu: kShortWarps, kShortPad,
+# kPackMax, kPackWarps, kPackStages, kPackBlocksPerSm: the packed grid's
+# blocks an SM at d <= 64, 2 at d = 128).
+SHORT_WARPS, SHORT_PAD = 4, 8
+PACK_MAX, PACK_WARPS, PACK_STAGES, PACK_BLOCKS_PER_SM = 8, 4, 2, 3
 
 launches = 0
 launches_by_mode = dict.fromkeys(MODES, 0)
@@ -112,6 +118,48 @@ def _bwd_kernel():
         design.argtypes = [i] * 7
         _BWD_FN, _BWD_DESIGN_FN = fn, design
     return _BWD_FN
+
+
+def short_fwd_plan(b, h, hk, sq, sk, d, sms):
+    """The launch plan of the "short" forward (bf16 at Sq, Sk <= 64) on a
+    card of `sms` SMs, as csrc/flash_fwd.cu's PlanShort makes it (the
+    library's ``ts_flash_fwd_short_plan`` reports it on the card).
+    "FlashFwdPacked" for MHA self-attention at S <= PACK_MAX: tiles of
+    ``pack`` = 16 // S heads (``packed_tile_rows``), a persistent grid of at
+    most PACK_BLOCKS_PER_SM blocks an SM (2 at d = 128), a warp the tiles
+    ``packed_warp_tiles`` gives it through a ring of PACK_STAGES slots.
+    "FlashFwdShort" for the rest: ``heads`` kv heads a block."""
+    if h == hk and sq == sk and sq <= PACK_MAX:
+        pack = 16 // sq
+        tiles = -(-b * h // pack)
+        return {"kernel": "FlashFwdPacked", "pack": pack,
+                "heads": PACK_WARPS * pack, "tiles": tiles,
+                "blocks": min(-(-tiles // PACK_WARPS), sms * (
+                    PACK_BLOCKS_PER_SM if d <= 64 else 2)),
+                "smem": PACK_WARPS * PACK_STAGES * 3 * 16 * (d + SHORT_PAD)
+                * 2, "stages": PACK_STAGES, "warps": PACK_WARPS}
+    tasks = h // hk * -(-sq // 16)
+    heads = 1 if tasks >= SHORT_WARPS else SHORT_WARPS // tasks
+    return {"kernel": "FlashFwdShort", "pack": 1, "heads": heads,
+            "tiles": b * h * -(-sq // 16), "blocks": -(-b * hk // heads),
+            "smem": (2 * heads * -(-sk // 16) * 16 + SHORT_WARPS * 16)
+            * (d + SHORT_PAD) * 2, "stages": 1, "warps": SHORT_WARPS}
+
+
+def packed_tile_rows(tile, pack, s, heads):
+    """The live rows of FlashFwdPacked's tile `tile` (and FlashBwdPacked's):
+    (row of the tile, flat head b * H + h, row of the head) for head i of
+    the tile at rows [i s, (i + 1) s), heads past `heads` left out; rows
+    from pack * s on are spare."""
+    return [(i * s + r, tile * pack + i, r) for i in range(pack)
+            if tile * pack + i < heads for r in range(s)]
+
+
+def packed_warp_tiles(plan, block, warp):
+    """The tiles warp `warp` of block `block` takes, in order, in a
+    FlashFwdPacked plan: every (blocks * warps)-th from its own index."""
+    step = plan["blocks"] * plan["warps"]
+    return range(block * plan["warps"] + warp, plan["tiles"], step)
 
 
 def _check(q, k, v, causal, window, sm_scale):
@@ -467,7 +515,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     package and are accepted for the same signature; the CUDA kernels'
     tiles are fixed: forward bf16 192 q rows x 128 kv at d <= 64 and
     128 x 128 at d = 128 (TMA and wgmma), 16 q rows a warp against the
-    whole row where Sq and Sk <= 64 (mma.sync), 64 q rows a warpgroup
+    whole row where Sq and Sk <= 64 (mma.sync; 16 // S heads a tile for
+    MHA self-attention at S <= 8), 64 q rows a warpgroup
     against 64-column chunks of a staged kv head where both are <= 256 at
     d <= 64 (TMA and wgmma), f32 32 x 32;
     backward bf16 16-row slices against a block's whole staged heads

@@ -1,17 +1,21 @@
-"""The mid flash forward and the mid flash backward (bf16, on one CUDA
-card) as FLASH_VARIANTS reshape or cut them, each copy built from its
-source with nvcc and timed at FLASH_VARIANT_SHAPES beside the design as
-built: the readings behind the design choices that csrc/flash_fwd.cu and
-csrc/flash_bwd.cu name. A study is a source, its copies and its shapes:
-"flash_fwd" and "flash_bwd" cut the mid designs into parts, "fwd_route"
-and "bwd_route" time the mid design and the one it took over from
-("tiled", "wgmma") at the same shapes, the routing rule's readings; the
-backward's route study also times the backward of
-scaled_dot_product_attention three times a shape (the yardstick). Prints
-one JSON line; needs nvcc and a card.
+"""The mid flash forward and the mid flash backward, and the short
+forward's two kernels (bf16, on one CUDA card) as FLASH_VARIANTS reshape or
+cut them, each copy built from its source with nvcc and timed at
+FLASH_VARIANT_SHAPES beside the design as built: the readings behind the
+design choices that csrc/flash_fwd.cu and csrc/flash_bwd.cu name. A study
+is a source, its copies and its shapes: "flash_fwd" and "flash_bwd" cut
+the mid designs into parts, "fwd_route" and "bwd_route" time the mid
+design and the one it took over from ("tiled", "wgmma") at the same
+shapes, the routing rule's readings; the backward's route study also
+times the backward of scaled_dot_product_attention three times a shape
+(the yardstick). "short_fwd" cuts FlashFwdPacked and FlashFwdShort into
+parts at the factorized ViT-B's temporal shapes and times the packed
+kernel's plans (stages, blocks an SM); "short_route" times the two
+kernels at S = 1 to 8, the packing rule's readings. Prints one JSON line;
+needs nvcc and a card.
 
     python3 tools/flash_variants.py [flash_fwd | flash_bwd | fwd_route |
-                                     bwd_route ...]
+                                     bwd_route | short_fwd | short_route ...]
 
 A copy is made by replacing lines of the source; it raises when a line to
 replace is no longer there once.
@@ -122,9 +126,63 @@ FLASH_VARIANTS = {
                    "kMidMinKvHeads))\n      return 4;",
                    "        false)\n      return 4;")]},
 }
-# The source a study copies.
+# The short forward: FlashFwdPacked as built, cut (loads only: each tile's
+# copies land, nothing is computed or stored; no products: the mma.sync
+# products left out, the rest as built; the launch floor: each warp stops
+# at once) and in other plans (one slot a warp: load, then compute; three
+# slots; 1, 2 or 4 blocks an SM), and FlashFwdShort forced at the same
+# shapes, whole and cut the same ways.
+_FORCE_SHORT = ("  return p.H == p.Hk && p.Sq == p.Sk && p.Sq <= kPackMax;",
+                "  return false;")
+_WARP = "  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;\n"
+_PACKED_START = (_WARP + "  __nv_bfloat16* ring",
+                 "  if (pack > 0) return;\n" + _WARP + "  __nv_bfloat16* ring")
+_SHORT_START = (_WARP + "  __nv_bfloat16* stage",
+                "  if (heads > 0) return;\n" + _WARP + "  __nv_bfloat16* stage")
+FLASH_VARIANTS.update({
+    "short_fwd": {
+        "packed": None,
+        "packed_loads_only": [("    __nv_bfloat16* qs = ring + u % kPackStages"
+                               " * 3 * kTile;\n", "    if (pack > 0) continue;"
+                               "\n    __nv_bfloat16* qs = ring + u % "
+                               "kPackStages * 3 * kTile;\n")],
+        "packed_no_products_only": [
+            ("      Mma(sc[0], qa, bk[0], bk[1]);\n      Mma(sc[1], qa, bk[2], "
+             "bk[3]);\n", ""),
+            ("      Mma(o[n0 / 8], pa[0], bv[0], bv[1]);\n      Mma(o[n0 / 8 + "
+             "1], pa[0], bv[2], bv[3]);\n", "")],
+        "packed_empty_only": [_PACKED_START],
+        "packed_one_stage": [("constexpr int kPackStages = 2;",
+                              "constexpr int kPackStages = 1;")],
+        "packed_three_stages": [("constexpr int kPackStages = 2;",
+                                 "constexpr int kPackStages = 3;")],
+        **{f"packed_{n}_blocks_an_sm": [(
+            "constexpr int kPackBlocksPerSm = 3;",
+            f"constexpr int kPackBlocksPerSm = {n};")] for n in (1, 2, 4)},
+        "short": [_FORCE_SHORT],
+        "short_loads_only": [_FORCE_SHORT, (
+            "  mma_sync::CpAsyncWait<0>();\n  __syncthreads();\n\n  const int "
+            "g = lane >> 2, c = lane & 3;", "  mma_sync::CpAsyncWait<0>();\n  "
+            "__syncthreads();\n  if (heads > 0) return;\n\n  const int g = "
+            "lane >> 2, c = lane & 3;")],
+        "short_no_products_only": [_FORCE_SHORT, (
+            "        Mma(s[2 * np], qa[kk], bk[0], bk[1]);\n        Mma(s[2 * np"
+            " + 1], qa[kk], bk[2], bk[3]);\n", ""), (
+            "        Mma(o[n0 / 8], pa[np], bv[0], bv[1]);\n        Mma(o[n0 / 8"
+            " + 1], pa[np], bv[2], bv[3]);\n", "")],
+        "short_empty_only": [_FORCE_SHORT, _SHORT_START]},
+    # The packing rule: both kernels at S = 1 to 8 over 6,272 tokens of
+    # ViT-B's 12 heads (spare rows at S = 3, 5, 6 and 7).
+    "short_route": {"packed": None, "short": [_FORCE_SHORT]},
+})
+# The source a study copies, and the kernels whose ptxas lines it reports.
 STUDY_SOURCE = {"flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd",
-                "fwd_route": "flash_fwd", "bwd_route": "flash_bwd"}
+                "fwd_route": "flash_fwd", "bwd_route": "flash_bwd",
+                "short_fwd": "flash_fwd", "short_route": "flash_fwd"}
+STUDY_KERNELS = {"flash_fwd": ("FlashFwdMid",), "fwd_route": ("FlashFwdMid",),
+                 "flash_bwd": ("FlashBwdMid",), "bwd_route": ("FlashBwdMid",),
+                 "short_fwd": ("FlashFwdPacked", "FlashFwdShort"),
+                 "short_route": ("FlashFwdPacked", "FlashFwdShort")}
 
 FLASH_VARIANT_SHAPES = {
     # name, (b, h, hk, sq, sk, d), causal, window
@@ -151,7 +209,14 @@ FLASH_VARIANT_SHAPES = {
                             (32, 12, 4, 196), (32, 6, 2, 196),
                             (64, 6, 2, 196), (32, 12, 2, 196),
                             (4, 12, 12, 100), (32, 12, 12, 100),
-                            (4, 12, 12, 256), (16, 12, 12, 256)))}
+                            (4, 12, 12, 256), (16, 12, 12, 256))),
+    # The factorized ViT-B's temporal attention at 8 and 16 frames.
+    "short_fwd": (("vit_b_temporal_8f", (1568, 12, 12, 4, 4, 64), False,
+                   None),
+                  ("vit_b_temporal", (784, 12, 12, 8, 8, 64), False, None)),
+    "short_route": tuple(
+        (f"s{s}", (6272 // s, 12, 12, s, s, 64), False, None)
+        for s in range(1, 9))}
 
 
 def flash_variants(device=None, studies=tuple(FLASH_VARIANTS)):
@@ -187,7 +252,6 @@ def flash_variants(device=None, studies=tuple(FLASH_VARIANTS)):
                 stderr=subprocess.STDOUT, text=True))
     fa._kernel(), fa._bwd_kernel()
     kept = (fa._FN, fa._BWD_FN, fa._BWD_DESIGN_FN)
-    kernel = {"flash_fwd": "FlashFwdMid", "flash_bwd": "FlashBwdMid"}
     rows = []
     try:
         for (study, name), (so, proc) in procs.items():
@@ -197,12 +261,13 @@ def flash_variants(device=None, studies=tuple(FLASH_VARIANTS)):
                 raise RuntimeError(f"flash_variants {name}: nvcc failed:\n"
                                    f"{log}")
             lines = log.splitlines()
-            warnings = sorted({ln.split("(")[1][:5] for ln in lines
-                               if "(C75" in ln and kernel[source] in ln})
-            ptxas = [f"{ln.split(kernel[source])[1][:12]}: {lines[i + 3]}"
+            names = STUDY_KERNELS[study]
+            warnings = sorted({ln.split("(")[1][:5] for ln in lines if
+                               "(C75" in ln and any(k in ln for k in names)})
+            ptxas = [f"{k}{ln.split(k)[1][:5]}: {lines[i + 3]}"
                      f" {lines[i + 2].strip()}"
-                     for i, ln in enumerate(lines)
-                     if "Compiling entry" in ln and kernel[source] in ln]
+                     for i, ln in enumerate(lines) for k in names
+                     if "Compiling entry" in ln and k in ln]
             lib = ctypes.CDLL(so)
             if source == "flash_fwd":
                 fn = lib.ts_flash_fwd
@@ -247,6 +312,8 @@ def flash_variants(device=None, studies=tuple(FLASH_VARIANTS)):
                              "ptxas": ptxas, "ptxas_warnings": warnings,
                              "rule_ok": ok, "ms": ms,
                              "p10_ms": p10, "p90_ms": p90})
+                if study.startswith("short"):
+                    rows[-1]["plan"] = short_plan(lib, shape)
     finally:
         fa._FN, fa._BWD_FN, fa._BWD_DESIGN_FN = kept
     if "bwd_route" in studies:
@@ -254,6 +321,21 @@ def flash_variants(device=None, studies=tuple(FLASH_VARIANTS)):
                  for case, shape, _, _ in FLASH_VARIANT_SHAPES["bwd_route"]]
     c.emit({"phase": "flash_variants", "card": c.nvidia_smi(), "rows": rows})
     return rows
+
+
+def short_plan(lib, shape):
+    """A copy's short forward plan at (b, h, hk, sq, sk, d), as its
+    ts_flash_fwd_short_plan reports it (chip_smoke.flash_plan's keys)."""
+    b, h, hk, sq, sk, d = shape
+    keys = ("heads_a_tile", "heads_a_block", "blocks", "smem_a_block",
+            "stages", "blocks_an_sm", "warps_a_block")
+    out = (ctypes.c_int * len(keys))()
+    fn = lib.ts_flash_fwd_short_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    if fn(d, b, h, hk, sq, sk, out) != 0:
+        raise RuntimeError(f"short plan at {shape}: the copy's call failed")
+    return dict(zip(keys, out))
 
 
 def sdpa_bwd_reads(case, shape, device, reads=3):
